@@ -18,12 +18,26 @@ JSON line per phase and fails on the first failing phase:
    shape; each with its error, its tolerance and, at the main shape, the
    kernel's, the twin's and ``F.scaled_dot_product_attention``'s times
    (the last as a yardstick only; the port never calls it).
-3. ``path``: the depth trainer (``midvision_probe_torch.train_depth``)
+3. ``knn2_checks``: the exact 2-NN kernel (K4) against its plain twin
+   (f32, TF32 off) at the ScanNet path's launch (B=4, N=M=19200, d=768),
+   the NAVI path's (B=4, N=M=16384, d=768) with 30% of the targets
+   displaced to the path's far constant, a ragged, a wide (d=2048), a
+   tiny, an odd-d, a 990-magnitude and an exact-tie case; at both path
+   shapes with the kernel's, the twin's and ``torch.cdist(...).topk(2)``'s
+   times (the last as a yardstick only; the port never calls it).
+4. ``path``: the depth trainer (``midvision_probe_torch.train_depth``)
    through its ``main`` entry on full-width dino_b16 (random weights),
    synthetic 480x640 data, the DPT depth probe, a bf16 backbone: per-step
    losses, the CSV row, the kernel's launch count (it must be 12 per
    backbone forward), wall time and peak memory.
-4. ``forward``: the bench protocol, dino_vitb16 at 480x640, batch 64,
+5. ``path_navi`` and ``path_scannet``: the NAVI and ScanNet correspondence
+   drivers through their ``entry`` on full-width dino_b16 (bf16, random
+   weights), 8 synthetic hard pairs in batches of 4 at 512x512 and 480x640
+   (16384 and 19200 points per view at scale 0.25), num_corr=1000: the CSV
+   row, K4 launches (one per pair batch), K1 launches (12 per backbone
+   forward), wall time, peak memory and K4's share of the wall time; then
+   a profiled run for the device's busy share and its top kernels.
+6. ``forward``: the bench protocol, dino_vitb16 at 480x640, batch 64,
    bf16, 4 taps, in images per second per card (CUDA events), with a
    profiler breakdown of one forward by kernel.
 
@@ -148,6 +162,198 @@ def phase_kernel_checks(torch):
     return {r["case"]: r for r in results}
 
 
+def knn2_bound_ms(B, N, M, d) -> tuple[float, str]:
+    """Least time for one K4 call: the TPU kernel's three bf16 products
+    (hi.hi + hi.lo + lo.hi, 2*B*N*M*d FLOP each) at the bf16 peak, or q and
+    t read once in f32 plus the (dist, idx) pairs written, at the memory
+    rate."""
+    flops = 3 * 2.0 * B * N * M * d
+    nbytes = 4.0 * B * d * (N + M) + 16.0 * B * N
+    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+
+
+FAR = 1.0e3  # the displacement of masked targets on the correspondence path
+
+
+def knn2_inputs(torch, gen, B, N, M, d, kind):
+    """q (B, N, d), t (B, M, d) f32 on the card. ``unit``: L2-normalised
+    features, as the path feeds K4; ``masked``: 30% of the targets at FAR;
+    ``large_magnitude``: 990-constant queries against N(0, 1) targets;
+    ``ties``: quarter-integer features (every distance exact in any
+    summation order) with each target row duplicated M/2 rows later."""
+    if kind == "ties":
+        q = torch.randint(-3, 4, (B, N, d), device="cuda", generator=gen).float() / 4
+        base = torch.randint(-3, 4, (B, M // 2, d), device="cuda", generator=gen).float() / 4
+        return q, torch.cat([base, base], dim=1)
+    t = torch.randn(B, M, d, device="cuda", generator=gen)
+    if kind == "large_magnitude":
+        return torch.full((B, N, d), 990.0, device="cuda"), t
+    q = torch.randn(B, N, d, device="cuda", generator=gen)
+    q = q / q.norm(dim=-1, keepdim=True)
+    t = t / t.norm(dim=-1, keepdim=True)
+    if kind == "masked":
+        t[torch.rand(B, M, device="cuda", generator=gen) < 0.3] = FAR
+    return q, t
+
+
+def phase_knn2_checks(torch):
+    """K4 against its plain twin (f32, TF32 off). Pass: no index >= M;
+    indices equal on >= 99.9% of rows (100% on ``ties``); on every row the
+    chosen neighbours' true squared distances, recomputed in f64, within
+    1e-5 (+1e-5 relative, for the 990-magnitude case) of the twin's; the
+    kernel's distances within the same tolerance of the twin's (exactly
+    equal on ``ties``)."""
+    from midvision_probe_torch.ops.matching import _knn2_plain, _knn2_sq
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    cases = [
+        ("scannet_main", 4, 19200, 19200, 768, "unit", True),
+        ("navi_main_masked", 4, 16384, 16384, 768, "masked", True),
+        ("ragged", 2, 1000, 777, 768, "unit", False),
+        ("wide", 1, 2048, 3000, 2048, "unit", False),
+        ("large_magnitude", 1, 64, 100, 128, "large_magnitude", False),
+        ("tiny", 2, 256, 256, 32, "unit", False),
+        ("odd_dim", 2, 300, 301, 19, "unit", False),
+        ("ties", 2, 512, 600, 64, "ties", False),
+    ]
+    results = []
+    for name, B, N, M, d, kind, timed in cases:
+        q, t = knn2_inputs(torch, gen, B, N, M, d, kind)
+        dist, idx = _knn2_sq(q, t)
+        ref_d, ref_i = _knn2_plain(q, t)
+        torch.cuda.synchronize()
+        in_range = bool((idx >= 0).all() and (idx < M).all())
+        same = (idx == ref_i).all(-1)
+        agree = same.float().mean().item()
+        # true distances of the chosen neighbours where the choices differ
+        rows = (~same).nonzero(as_tuple=True)
+        true_gap, true_ok = 0.0, in_range
+        if rows[0].numel() and in_range:
+            q64 = q[rows].double()[:, None]  # (R, 1, d)
+            tk = t[rows[0][:, None], idx[rows].long()].double()
+            tr = t[rows[0][:, None], ref_i[rows].long()].double()
+            dk, dr = ((q64 - tk) ** 2).sum(-1), ((q64 - tr) ** 2).sum(-1)
+            true_gap = (dk - dr).abs().max().item()
+            true_ok = bool(((dk - dr).abs() <= 1e-5 + 1e-5 * dr.abs()).all())
+        err = (dist - ref_d).abs()
+        max_abs = err.max().item()
+        dist_ok = bool((err <= 1e-5 + 1e-5 * ref_d.abs()).all())
+        if kind == "ties":
+            ok = in_range and agree == 1.0 and max_abs == 0.0
+        else:
+            ok = in_range and agree >= 0.999 and true_ok and dist_ok
+        res = {"case": name, "shape": [B, N, M, d], "inputs": kind,
+               "indices_in_range": in_range, "rows_agree": agree,
+               "rows_differ": int((~same).sum()), "true_dist_max_gap": true_gap,
+               "true_dist_within_tol": true_ok, "max_abs_err": max_abs,
+               "dist_within_tol": dist_ok, "ok": ok}
+        if timed:
+            res["kernel_ms"] = cuda_ms(torch, lambda: _knn2_sq(q, t), iters=10)
+            res["plain_ms"] = cuda_ms(torch, lambda: _knn2_plain(q, t), iters=5, warmup=1)
+            res["library_ms"] = cuda_ms(
+                torch, lambda: torch.cdist(q, t).topk(2, dim=-1, largest=False),
+                iters=5, warmup=1)
+            res["bound_ms"], res["bound_by"] = knn2_bound_ms(B, N, M, d)
+        results.append(res)
+        del q, t, dist, idx, ref_d, ref_i, same, err
+        torch.cuda.empty_cache()
+    emit({"phase": "knn2_checks", "cases": results})
+    bad = [r["case"] for r in results if not r["ok"]]
+    if bad:
+        raise SystemExit(f"knn2 check failed: {bad}")
+    return {r["case"]: r for r in results}
+
+
+def reset_counts() -> None:
+    """Zero every kernel's launch count and the backbone's forward count,
+    just before a path is driven."""
+    from midvision_probe_torch.models.feature_extractor import FeatureExtractor
+    from midvision_probe_torch.ops.matching import knn2
+    from midvision_probe_torch.ops.vit_attention import fused_qkv_attention
+
+    knn2.launches = 0
+    fused_qkv_attention.launches = 0
+    FeatureExtractor.forward_count = 0
+
+
+def profile_entry(torch, module, argv) -> dict:
+    """One more run of a driver under ``torch.profiler``: its wall time
+    there, the device time summed over kernels, the device's busy share of
+    the wall time and the top kernels by device time."""
+    out_dir = tempfile.mkdtemp(prefix="mvp_chip_smoke_")
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    try:
+        with torch.profiler.profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            module.entry(argv + [f"output_dir={out_dir}"])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    by_kernel = sorted(
+        ((e.key, e.device_time_total / 1e3) for e in prof.key_averages()
+         if e.device_type == torch.autograd.DeviceType.CUDA), key=lambda kv: -kv[1])
+    device_ms = sum(t for _, t in by_kernel)
+    return {"profiled_wall_s": wall, "profile_device_ms": device_ms,
+            "device_busy_share": device_ms / (wall * 1e3),
+            "profile_top": [[k[:80], t] for k, t in by_kernel[:8]]}
+
+
+def phase_correspondence(torch, phase, module, argv, n_pairs, batch_pairs, k4_ms):
+    """One correspondence driver through its ``entry`` on the card: the
+    CSV row, K1 and K4 launches (K4 once per pair batch, K1 12 times per
+    backbone forward, two forwards per batch), wall time, peak memory and
+    K4's share of the wall time (launches x ``k4_ms``, K4's time at this
+    path's shape in ``knn2_checks``); then a profiled run for the device's
+    busy share and its top kernels."""
+    from midvision_probe_torch.models.feature_extractor import FeatureExtractor
+    from midvision_probe_torch.ops.matching import knn2
+    from midvision_probe_torch.ops.vit_attention import fused_qkv_attention
+
+    out_dir = tempfile.mkdtemp(prefix="mvp_chip_smoke_")
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.perf_counter()
+        out = module.entry(argv + [f"output_dir={out_dir}"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        k4, k1 = knn2.launches, fused_qkv_attention.launches
+        forwards = FeatureExtractor.forward_count
+        csvs = [f for f in os.listdir(out_dir) if f.endswith(".csv")]
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    row = {k: float(v) for k, v in out["row"].items()}
+    batches = -(-n_pairs // batch_pairs)
+    res = {"phase": phase, "argv": argv, "csv_files": csvs, "csv_row": row,
+           "k4_launches": k4, "pair_batches": batches, "k1_launches": k1,
+           "backbone_forwards": forwards, "valid_matches": int(out["valid"].sum()),
+           "errors_shape": list(out["err_3d"].shape), "wall_s": wall,
+           "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+           "k4_ms_per_launch": k4_ms, "k4_share_of_wall": k4 * k4_ms / (wall * 1e3)}
+    res.update(profile_entry(torch, module, argv))
+    emit(res)
+    recalls = [v for k, v in row.items() if not k.startswith("Bin")]
+    bins = [v for k, v in row.items() if k.startswith("Bin")]
+    checks = {
+        "csv_written": len(csvs) == 1,
+        "recalls_in_range": bool(recalls) and all(0.0 <= v <= 100.0 for v in recalls),
+        # a rotation bin without pairs is NaN by the protocol's definition
+        "bins_in_range": any(math.isfinite(v) for v in bins)
+        and all(0.0 <= v <= 100.0 for v in bins if not math.isnan(v)),
+        "valid_has_mass": res["valid_matches"] > 0,
+        "errors_shape": res["errors_shape"] == [n_pairs, int(dict(
+            a.split("=", 1) for a in argv if "=" in a)["num_corr"])],
+        "k4_once_per_batch": k4 == batches,
+        "k1_12_per_forward": forwards == 2 * batches and k1 == 12 * forwards,
+    }
+    if not all(checks.values()):
+        raise SystemExit(f"{phase} check failed: {checks}")
+    return res
+
+
 def phase_path(torch):
     from midvision_probe_torch import train_depth
     from midvision_probe_torch.models.feature_extractor import FeatureExtractor
@@ -161,8 +367,7 @@ def phase_path(torch):
                 "+system.backbone_dtype=bfloat16", "+render_images=False",
                 f"output_dir={out_dir}"]
         torch.cuda.reset_peak_memory_stats()
-        fused_qkv_attention.launches = 0
-        FeatureExtractor.forward_count = 0
+        reset_counts()
         t0 = time.perf_counter()
         row = train_depth.entry(argv)
         torch.cuda.synchronize()
@@ -250,24 +455,57 @@ def main() -> int:
           "build_s": time.perf_counter() - t0, "ptxas": ptxas})
 
     checks = phase_kernel_checks(torch)
-    launches = phase_path(torch)
+    knn2_checks = phase_knn2_checks(torch)
+    k1_by_path = {"path": phase_path(torch)}
     torch.cuda.empty_cache()
+    from midvision_probe_torch import evaluate_navi_correspondence, render_scannet_correspondence
+
+    common = ["backbone=dino_b16", "num_corr=1000", "scale_factor=0.25", "batch_pairs=4",
+              "+system.backbone_dtype=bfloat16"]
+    corr = {
+        "path_navi": phase_correspondence(
+            torch, "path_navi", evaluate_navi_correspondence,
+            common + ["dataset=synthetic_navi_hard", "dataset.image_size=512"], 8, 4,
+            knn2_checks["navi_main_masked"]["kernel_ms"]),
+        "path_scannet": phase_correspondence(
+            torch, "path_scannet", render_scannet_correspondence,
+            common + ["dataset=synthetic_scannet_hard", "dataset.image_hw=[480,640]",
+                      "+render_every=0"], 8, 4, knn2_checks["scannet_main"]["kernel_ms"]),
+    }
+    torch.cuda.empty_cache()
+    k1_by_path.update({k: v["k1_launches"] for k, v in corr.items()})
+    k4_by_path = {k: v["k4_launches"] for k, v in corr.items()}
     phase_forward(torch, smi)
 
     main_case = checks["main_bf16"]
+    k4_case = knn2_checks["scannet_main"]
     print(smi, flush=True)
     emit({"kernels": [{
         "name": "fused_qkv_attention",
         "route": "cuda",
         "source": "midvision_probe_torch/csrc/vit_attention.cu",
         "replaces": f"{JAX_PACKAGE}/ops/vit_attention.py:85",
-        "launches": launches,
+        "launches": sum(k1_by_path.values()),
+        "launches_by_path": k1_by_path,
         "max_abs_err": main_case["max_abs_err"],
         "ms": main_case["kernel_ms"],
         "plain_ms": main_case["plain_ms"],
         "bound_ms": main_case["bound_ms"],
         "bound_by": main_case["bound_by"],
         "library_ms": main_case["library_ms"],
+    }, {
+        "name": "knn2",
+        "route": "cuda",
+        "source": "midvision_probe_torch/csrc/knn2.cu",
+        "replaces": f"{JAX_PACKAGE}/ops/matching.py:64",
+        "launches": sum(k4_by_path.values()),
+        "launches_by_path": k4_by_path,
+        "max_abs_err": k4_case["max_abs_err"],
+        "ms": k4_case["kernel_ms"],
+        "plain_ms": k4_case["plain_ms"],
+        "bound_ms": k4_case["bound_ms"],
+        "bound_by": k4_case["bound_by"],
+        "library_ms": k4_case["library_ms"],
     }]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

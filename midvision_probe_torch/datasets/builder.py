@@ -99,10 +99,15 @@ def _stack(items: list[dict]) -> dict:
     return out
 
 
-def build_loader(dataset_cfg, split: str, batch_size: int, seed: int = 0) -> Loader:
+def build_loader(dataset_cfg, split: str, batch_size: int, seed: int = 0,
+                 pair_dataset: bool = False) -> Loader:
     """Instantiate the dataset from config and wrap it: training splits
-    shuffle and drop the last partial batch, like the JAX package's."""
-    dataset = instantiate(dataset_cfg, split=split)
+    shuffle and drop the last partial batch, like the JAX package's.
+    ``pair_dataset`` asks the dataset for two-view pair items."""
+    kwargs = {"split": split}
+    if pair_dataset:
+        kwargs["pair_dataset"] = True
+    dataset = instantiate(dataset_cfg, **kwargs)
     is_train = "train" in split
     return Loader(
         dataset,

@@ -1,9 +1,11 @@
-"""Shared driver plumbing for the port's probe trainers (counterpart of the
-JAX package's ``engine/driver_common.py``), single process."""
+"""Shared driver plumbing for the port's probe trainers and correspondence
+evaluators (counterpart of the JAX package's ``engine/driver_common.py``),
+single process."""
 
 from __future__ import annotations
 
 import os
+from datetime import datetime
 
 from midvision_probe_torch.config import Config, instantiate
 from midvision_probe_torch.datasets import build_loader
@@ -29,6 +31,18 @@ def build_backbone(cfg: Config, needs_multilayer: bool):
     if dtype_name:
         kwargs["dtype"] = dtype_name
     return instantiate(cfg.backbone, **kwargs)
+
+
+def build_dense_backbone(cfg: Config):
+    """The frozen backbone of a correspondence driver: dense output and
+    ``cfg.multilayer`` taps on the config's device, ``system.backbone_dtype``
+    as its compute dtype."""
+    kwargs = {"device": config_device(cfg)}
+    dtype_name = cfg.get_path("system.backbone_dtype", None)
+    if dtype_name:
+        kwargs["dtype"] = dtype_name
+    return instantiate(cfg.backbone, output="dense",
+                       return_multilayer=cfg.multilayer, **kwargs)
 
 
 def probe_dtype_kwargs(cfg: Config) -> dict:
@@ -109,6 +123,24 @@ def emit_csv(cfg: Config, path: str, exp_name: str, backbone, row: dict) -> dict
     return meta
 
 
-__all__ = ["build_backbone", "build_loader", "config_device", "emit_csv",
-           "experiment_name", "fit", "make_trainer", "probe_dtype_kwargs",
-           "setup_experiment"]
+def append_correspondence_csv(cfg: Config, file_name: str, backbone,
+                              dataset_name: str, row: dict) -> None:
+    """One row of a correspondence driver's results CSV (the JAX drivers'
+    columns)."""
+    os.makedirs(cfg.output_dir, exist_ok=True)
+    CSVWriter(os.path.join(cfg.output_dir, file_name)).append({
+        "Time": datetime.now().strftime("%d%m%Y-%H%M"),
+        "Model Checkpoint": backbone.checkpoint_name,
+        "Patch Size": backbone.patch_size,
+        "Layer": str(backbone.layer),
+        "Output": backbone.output,
+        "Num Correspondences": cfg.num_corr,
+        "Scale Factor": cfg.scale_factor,
+        "Dataset": dataset_name,
+        **row,
+    })
+
+
+__all__ = ["append_correspondence_csv", "build_backbone", "build_dense_backbone",
+           "build_loader", "config_device", "emit_csv", "experiment_name", "fit",
+           "make_trainer", "probe_dtype_kwargs", "setup_experiment"]

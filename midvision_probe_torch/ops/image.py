@@ -9,7 +9,9 @@ resample with identical weights:
 * probe outputs: bilinear with ``align_corners=False``,
 * pos-embed resize: bicubic antialiased,
 * DPT transformer-branch upsamples: nearest (legacy ``floor(dst*in/out)``),
-  done as an index gather.
+  done as an index gather,
+* correspondence features: bicubic upsampling to the xyz grid, and
+  ``grid_sample`` (bilinear, zeros padding) at projected points.
 
 Layout: NHWC (or HWC) in and out, like the JAX package's public functions.
 """
@@ -142,4 +144,16 @@ def resize(
                 xf = torch.einsum("ow,bhwc->bhoc", Ww, xf)
             x = xf.to(dtype)
     return x[0] if squeeze else x
+
+
+def grid_sample(feats: torch.Tensor, grid: torch.Tensor,
+                align_corners: bool = False) -> torch.Tensor:
+    """torch ``F.grid_sample`` (bilinear, zeros padding) on NHWC features.
+
+    feats ``(B, H, W, C)``; grid ``(B, Hg, Wg, 2)`` of ``(x, y)`` locations
+    in ``[-1, 1]`` -> ``(B, Hg, Wg, C)``; out-of-bounds taps are 0."""
+    out = torch.nn.functional.grid_sample(
+        feats.permute(0, 3, 1, 2), grid.to(feats.dtype), mode="bilinear",
+        padding_mode="zeros", align_corners=align_corners)
+    return out.permute(0, 2, 3, 1)
 

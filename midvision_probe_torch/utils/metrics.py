@@ -1,5 +1,6 @@
 """Depth evaluation metrics (counterpart of the JAX package's
-``utils/metrics.py``, depth subset) on torch tensors.
+``utils/metrics.py``, depth subset) on torch tensors, plus the binned
+recall of the correspondence evaluations (numpy).
 
 Depth maps are (B, H, W) or (B, H, W, 1); segmentation maps (B, H, W) int
 panoptic ids (OneFormer ADE20k-150). Per-image metrics come back as (B,)
@@ -169,4 +170,16 @@ def segment_metrics_depth(depth_pr, depth_gt, segmentation_map,
                 "area": float(safe[b]),
                 "d1_ratio": float(d1[b]),
             })
+    return out
+
+
+def compute_binned_performance(y, x, x_bins):
+    """Mean of ``y`` per ``x`` bin ``[x_bins[i], x_bins[i+1])``; NaN for an
+    empty bin (numpy in, floats out)."""
+    y = np.asarray(y)
+    x = np.asarray(x)
+    out = []
+    for i in range(len(x_bins) - 1):
+        m = (x >= x_bins[i]) & (x < x_bins[i + 1])
+        out.append(float(y[m].mean()) if m.any() else float("nan"))
     return out

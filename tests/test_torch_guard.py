@@ -71,3 +71,19 @@ def test_entry_points_raise_without_a_device_on_a_cpu_only_host(monkeypatch, tmp
                            "probe=depth_linear", "+render_images=False",
                            f"output_dir={tmp_path}"])
     assert not list(tmp_path.iterdir())  # nothing ran on the CPU
+
+
+@pytest.mark.parametrize("driver,argv", [
+    ("evaluate_navi_correspondence", ["dataset=synthetic_navi"]),
+    ("render_scannet_correspondence", ["dataset=synthetic_scannet", "+render_every=0"]),
+])
+def test_correspondence_drivers_raise_without_a_device_on_a_cpu_only_host(
+        monkeypatch, tmp_path, driver, argv):
+    import importlib
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    module = importlib.import_module(f"midvision_probe_torch.{driver}")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        module.entry(["backbone=test_tiny", "num_corr=10", *argv,
+                      f"output_dir={tmp_path}"])
+    assert not list(tmp_path.iterdir())  # nothing ran on the CPU

@@ -88,3 +88,74 @@ def test_test_tiny_vit_on_the_card_matches_the_cpu_twin(cuda):
             torch.testing.assert_close(g.cpu(), r, atol=1e-4, rtol=0)
     finally:
         torch.backends.cudnn.allow_tf32 = True
+
+
+# ------------------------------------------------------------------ K4 knn2
+def _knn2_inputs(B, N, M, d, seed=0, far_frac=0.0, ties=False):
+    rng = np.random.RandomState(seed)
+    if ties:
+        # quarter-integer features: every distance is exact in any order, so
+        # ties are real; each target row is duplicated M//2 rows later
+        q = rng.randint(-3, 4, (B, N, d)).astype(np.float32) / 4
+        base = rng.randint(-3, 4, (B, M // 2, d)).astype(np.float32) / 4
+        t = np.concatenate([base, base], axis=1)
+        return q, t
+    q = rng.randn(B, N, d).astype(np.float32)
+    t = rng.randn(B, M, d).astype(np.float32)
+    q /= np.linalg.norm(q, axis=-1, keepdims=True)
+    t /= np.linalg.norm(t, axis=-1, keepdims=True)
+    if far_frac:
+        t[rng.rand(B, M) < far_frac] = 1e3  # masked targets of the NAVI path
+    return q, t
+
+
+def _true_sq_dist(q, t, idx):
+    """f64 squared distances of the chosen neighbours (B, N, 2)."""
+    q64, t64 = q.double(), t.double()
+    rows = torch.take_along_dim(t64[:, None], idx.long()[..., None], dim=2)  # B,N,2,d
+    return ((q64[:, :, None] - rows) ** 2).sum(-1)
+
+
+# (B, N, M, d, far_frac): ragged tiles, masked far targets, a wide feature
+# dim, a tiny one, d not a multiple of 4 (element-wise staging), M == 2
+K4_CASES = [(2, 1000, 777, 768, 0.0), (1, 2048, 2048, 768, 0.3),
+            (1, 2048, 3000, 2048, 0.0), (2, 256, 256, 32, 0.0),
+            (2, 300, 301, 19, 0.0), (3, 5, 2, 8, 0.0)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,N,M,d,far_frac", K4_CASES)
+def test_knn2_kernel_matches_plain_twin(cuda, B, N, M, d, far_frac):
+    """Indices equal on >= 99.9% of rows (random unit features have no
+    exact ties; a 1e-6 near-tie may swap); on every row the chosen
+    neighbours' true (f64) squared distances within 1e-5 of the twin's,
+    and the kernel's distances within 1e-5 (+1e-5 rel) of the twin's."""
+    from midvision_probe_torch.ops import matching
+
+    q_np, t_np = _knn2_inputs(B, N, M, d, seed=N + M + d, far_frac=far_frac)
+    q, t = torch.from_numpy(q_np).to(cuda), torch.from_numpy(t_np).to(cuda)
+    before = matching.knn2.launches
+    dist, idx = matching._knn2_sq(q, t)
+    ref_d, ref_i = matching._knn2_plain(q, t)
+    torch.cuda.synchronize()
+    assert matching.knn2.launches == before + 1
+    assert idx.dtype == torch.int32 and tuple(idx.shape) == (B, N, 2)
+    assert int(idx.min()) >= 0 and int(idx.max()) < M
+    agree = (idx == ref_i).all(-1).float().mean().item()
+    assert agree >= 0.999, agree
+    true_k, true_r = _true_sq_dist(q, t, idx), _true_sq_dist(q, t, ref_i)
+    torch.testing.assert_close(true_k, true_r, atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(dist, ref_d, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.cuda
+def test_knn2_kernel_ties_break_to_the_lowest_index(cuda):
+    from midvision_probe_torch.ops import matching
+
+    q_np, t_np = _knn2_inputs(2, 500, 600, 64, seed=3, ties=True)
+    q, t = torch.from_numpy(q_np).to(cuda), torch.from_numpy(t_np).to(cuda)
+    dist, idx = matching._knn2_sq(q, t)
+    ref_d, ref_i = matching._knn2_plain(q, t)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(idx, ref_i, atol=0, rtol=0)
+    torch.testing.assert_close(dist, ref_d, atol=0, rtol=0)
