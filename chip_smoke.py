@@ -11,7 +11,7 @@ JSON line per phase and fails on the first failing phase:
 
 1. ``device``: the card (``nvidia-smi`` name and power limit), torch and
    CUDA versions, and the time to build the CUDA kernels from ``csrc/``.
-2. ``kernel_checks``: the fused-qkv attention kernel against its plain
+2. ``kernel_checks``: the fused-qkv attention kernel (K1) against its plain
    PyTorch twin at the main path's shape (B=64, N=1201, H=12, d=64) in
    bfloat16 and in float32 (TF32 off for matmuls and cuDNN), with
    NaN-poisoned padded rows (N=1280, n_valid=1201), and at test_tiny's
@@ -25,24 +25,45 @@ JSON line per phase and fails on the first failing phase:
    tiny, an odd-d, a 990-magnitude and an exact-tie case; at both path
    shapes with the kernel's, the twin's and ``torch.cdist(...).topk(2)``'s
    times (the last as a yardstick only; the port never calls it).
-4. ``path``: the depth trainer (``midvision_probe_torch.train_depth``)
-   through its ``main`` entry on full-width dino_b16 (random weights),
+4. ``attention_checks``: the (B, H, N, d) attention kernel (K2, and K3,
+   its long-sequence route through ``multi_head_attention(use_flash=True)``)
+   against its plain version on strided views of a (B, N, 3, H, d)
+   projection: RADIO-v2's launch (B=64, H=16, N=1201, d=80) in bf16 and
+   f32, CroCo-v2's (B=64, H=12, N=196, d=64), every head dim at N=77, and
+   the long sequences (B=2, H=16, N=4097, d=80 f32; B=2, H=12, N=8192,
+   d=64 bf16); timed cases with SDPA's time as the yardstick.
+5. ``rope_checks``: the 2D RoPE kernel (K5) against its plain version:
+   CroCo-v2's q launch (B=64, H=12, 14x14 grid, dim 64, a strided view),
+   f32, a non-square grid, a one-token prefix slice and dim 16.
+6. ``path``: the depth trainer (``midvision_probe_torch.train_depth``)
+   through its ``entry`` on full-width dino_b16 (random weights),
    synthetic 480x640 data, the DPT depth probe, a bf16 backbone: per-step
-   losses, the CSV row, the kernel's launch count (it must be 12 per
-   backbone forward), wall time and peak memory.
-5. ``path_navi`` and ``path_scannet``: the NAVI and ScanNet correspondence
+   losses, the CSV row, launch counts (K1 12 per backbone forward, K2, K3
+   and K5 none), wall time and peak memory.
+7. ``path_navi`` and ``path_scannet``: the NAVI and ScanNet correspondence
    drivers through their ``entry`` on full-width dino_b16 (bf16, random
    weights), 8 synthetic hard pairs in batches of 4 at 512x512 and 480x640
    (16384 and 19200 points per view at scale 0.25), num_corr=1000: the CSV
    row, K4 launches (one per pair batch), K1 launches (12 per backbone
-   forward), wall time, peak memory and K4's share of the wall time; then
-   a profiled run for the device's busy share and its top kernels.
-6. ``forward``: the bench protocol, dino_vitb16 at 480x640, batch 64,
-   bf16, 4 taps, in images per second per card (CUDA events), with a
-   profiler breakdown of one forward by kernel.
+   forward; K2, K3, K5 none), wall time, peak memory and K4's share of the
+   wall time; then a profiled run for the device's busy share and its top
+   kernels.
+8. ``path_navi_crocov2``: the NAVI driver as ``path_navi`` on full-width
+   CroCo-v2 (every view resized to 224x224): K2 12 and K5 24 per backbone
+   forward, K1 none, K4 once per pair batch.
+9. ``path_depth_radio``: the depth trainer as ``path`` on full-width
+   RADIO-v2 (ViT-H/16, 32 blocks, head dim 80): K2 32 per backbone forward,
+   K1 none.
+10. ``forward``: the frozen forward in images per second per card (CUDA
+   events), peak memory and a profiler breakdown by kernel, with the launch
+   counts per forward: dino_vitb16 (the bench protocol: 480x640, batch 64,
+   bf16, 4 taps), crocov2_vitb16 (224x224, batch 64, bf16), radio_v2
+   (480x640, batch 64, bf16) and radio_v2 in float32 at 1024x1024 (batch 2,
+   N=4097: the shape that takes the long-sequence route, K3).
 
-Then the ``nvidia-smi`` name/power-limit line, a ``kernels`` summary line
-and, last, ``{"ok": true, "device": {...}}``.
+Then a ``kernels`` summary line, the ``nvidia-smi`` name/power-limit line
+and, last, ``{"ok": true, "device": {...}}``. Every launch count is set to
+0 just before a path is driven and read just after it.
 """
 
 from __future__ import annotations
@@ -266,16 +287,172 @@ def phase_knn2_checks(torch):
     return {r["case"]: r for r in results}
 
 
+def phase_attention_checks(torch):
+    """K2 (``vit_attention``) and K3 (``multi_head_attention(use_flash=True)``,
+    the same kernel on the long-sequence route) against the plain version on
+    strided (B, H, N, d) views of a (B, N, 3, H, d) projection. Tolerances
+    as K1's: bf16 1.6e-2, f32 1e-5 with TF32 off."""
+    import torch.nn.functional as F
+
+    from midvision_probe_torch.ops.attention import multi_head_attention
+    from midvision_probe_torch.ops.vit_attention import _vit_attention_plain, vit_attention
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    tol = {torch.bfloat16: 1.6e-2, torch.float32: 1e-5}
+    k2 = lambda q, k, v, sc: vit_attention(q, k, v, sc)  # noqa: E731
+    k3 = lambda q, k, v, sc: multi_head_attention(q, k, v, scale=sc, use_flash=True)  # noqa: E731
+    bf16, f32 = torch.bfloat16, torch.float32
+    cases = [
+        ("radio_main_bf16", "K2", 64, 16, 1201, 80, bf16, True),
+        ("crocov2_bf16", "K2", 64, 12, 196, 64, bf16, True),
+        ("radio_fp32", "K2", 64, 16, 1201, 80, f32, False),
+        *[(f"d{d}_n77_{str(dt)[6:]}", "K2", 2, 3, 77, d, dt, False)
+          for d in (16, 32, 64, 80, 128) for dt in (bf16, f32)],
+        ("k3_radio1024_fp32", "K3", 2, 16, 4097, 80, f32, True),
+        ("k3_long_bf16", "K3", 2, 12, 8192, 64, bf16, True),
+    ]
+    results = []
+    for name, kernel, B, H, N, d, dtype, timed in cases:
+        fn = k2 if kernel == "K2" else k3
+        qkv = torch.randn(B, N, 3, H, d, device="cuda", generator=gen).to(dtype)
+        q, k, v = qkv.permute(2, 0, 3, 1, 4).unbind(0)  # strided (B, H, N, d) views
+        scale = d**-0.5
+        with torch.no_grad():
+            out = fn(q, k, v, scale)
+            ref = _vit_attention_plain(q, k, v, scale)
+        torch.cuda.synchronize()
+        err = (out.float() - ref.float()).abs().max().item()
+        finite = bool(torch.isfinite(out).all())
+        res = {"case": name, "kernel": kernel, "shape": [B, H, N, d], "dtype": str(dtype),
+               "max_abs_err": err, "tol": tol[dtype], "finite": finite,
+               "ok": finite and err <= tol[dtype]}
+        if timed:
+            with torch.no_grad():
+                res["kernel_ms"] = cuda_ms(torch, lambda: fn(q, k, v, scale))
+                res["plain_ms"] = cuda_ms(
+                    torch, lambda: _vit_attention_plain(q, k, v, scale), iters=5, warmup=1)
+                res["library_ms"] = cuda_ms(
+                    torch, lambda: F.scaled_dot_product_attention(q, k, v, scale=scale))
+            peak = PEAK_BF16_FLOPS if dtype == bf16 else PEAK_FP32_FLOPS
+            res["bound_ms"], res["bound_by"] = attention_bound_ms(
+                B, N, N, H, d, qkv.element_size(), peak)
+        results.append(res)
+        del qkv, q, k, v, out, ref
+        torch.cuda.empty_cache()
+    emit({"phase": "attention_checks", "cases": results})
+    bad = [r["case"] for r in results if not r["ok"]]
+    if bad:
+        raise SystemExit(f"attention check failed: {bad}")
+    return {r["case"]: r for r in results}
+
+
+def phase_rope_checks(torch):
+    """K5 against its plain version. Pass: f32 max abs error <= 1e-5 (|t| up
+    to ~4); bf16 every element within one bf16 ulp of the plain output
+    (|err| <= 2**-7 |ref| + 1e-6)."""
+    from midvision_probe_torch.ops.rope2d import _rope_2d_plain, rope_2d
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    bf16, f32 = torch.bfloat16, torch.float32
+    # (name, B, H, gh, gw, dim, prefix, dtype, timed)
+    cases = [
+        ("crocov2_q_bf16", 64, 12, 14, 14, 64, 0, bf16, True),
+        ("crocov2_q_fp32", 8, 12, 14, 14, 64, 0, f32, False),
+        ("nonsquare_4x3_bf16", 2, 2, 4, 3, 64, 0, bf16, False),
+        ("prefix1_bf16", 4, 12, 14, 14, 64, 1, bf16, False),
+        ("dim16_bf16", 2, 4, 8, 8, 16, 0, bf16, False),
+    ]
+    results = []
+    for name, B, H, gh, gw, dim, prefix, dtype, timed in cases:
+        N = gh * gw
+        qkv = torch.randn(B, prefix + N, 3, H, dim, device="cuda", generator=gen).to(dtype)
+        q = qkv.permute(2, 0, 3, 1, 4)[0][:, :, prefix:]  # strided (B, H, N, dim)
+        yy, xx = torch.meshgrid(torch.arange(gh, device="cuda", dtype=torch.int32),
+                                torch.arange(gw, device="cuda", dtype=torch.int32),
+                                indexing="ij")
+        pos = torch.stack([yy.reshape(-1), xx.reshape(-1)], -1)[None].expand(B, N, 2)
+        with torch.no_grad():
+            out = rope_2d(q, pos)
+            ref = _rope_2d_plain(q, pos)
+        torch.cuda.synchronize()
+        diff = (out.float() - ref.float()).abs()
+        err = diff.max().item()
+        if dtype == f32:
+            ok = err <= 1e-5
+        else:
+            ok = bool((diff <= 2.0**-7 * ref.float().abs() + 1e-6).all())
+        finite = bool(torch.isfinite(out).all())
+        res = {"case": name, "shape": [B, H, N, dim], "prefix": prefix, "dtype": str(dtype),
+               "max_abs_err": err, "finite": finite, "ok": finite and ok}
+        if timed:
+            with torch.no_grad():
+                res["kernel_ms"] = cuda_ms(torch, lambda: rope_2d(q, pos), iters=20)
+                res["plain_ms"] = cuda_ms(torch, lambda: _rope_2d_plain(q, pos), iters=10)
+            # q read and the output written once, the positions read once;
+            # ~6 f32 operations per pair and head (outside the tensor cores)
+            nbytes = 2.0 * B * H * N * dim * q.element_size() + 4.0 * B * N * 2
+            t_ops = 3.0 * B * H * N * dim / PEAK_FP32_FLOPS
+            t_bytes = nbytes / PEAK_BYTES
+            res["bound_ms"] = max(t_ops, t_bytes) * 1e3
+            res["bound_by"] = "operations" if t_ops >= t_bytes else "bytes"
+            res["library_ms"] = None  # no single PyTorch call computes it
+        results.append(res)
+        del qkv, q, out, ref, diff
+        torch.cuda.empty_cache()
+    emit({"phase": "rope_checks", "cases": results})
+    bad = [r["case"] for r in results if not r["ok"]]
+    if bad:
+        raise SystemExit(f"rope check failed: {bad}")
+    return {r["case"]: r for r in results}
+
+
+# the launch counts read after every path: K1 fused_qkv_attention, K2
+# vit_attention, K3 the long-sequence route, K4 knn2, K5 rope_2d
+KERNELS = ("k1", "k2", "k3", "k4", "k5")
+
+
+def _counters():
+    from midvision_probe_torch.ops.attention import _flash_attention
+    from midvision_probe_torch.ops.matching import knn2
+    from midvision_probe_torch.ops.rope2d import rope_2d
+    from midvision_probe_torch.ops.vit_attention import fused_qkv_attention, vit_attention
+
+    return dict(zip(KERNELS, (fused_qkv_attention, vit_attention, _flash_attention, knn2,
+                              rope_2d)))
+
+
 def reset_counts() -> None:
     """Zero every kernel's launch count and the backbone's forward count,
     just before a path is driven."""
     from midvision_probe_torch.models.feature_extractor import FeatureExtractor
-    from midvision_probe_torch.ops.matching import knn2
-    from midvision_probe_torch.ops.vit_attention import fused_qkv_attention
 
-    knn2.launches = 0
-    fused_qkv_attention.launches = 0
+    for fn in _counters().values():
+        fn.launches = 0
     FeatureExtractor.forward_count = 0
+
+
+def read_counts() -> dict:
+    """Every kernel's launch count and the backbone forwards since the last
+    ``reset_counts``."""
+    from midvision_probe_torch.models.feature_extractor import FeatureExtractor
+
+    counts = {k: fn.launches for k, fn in _counters().items()}
+    counts["forwards"] = FeatureExtractor.forward_count
+    return counts
+
+
+def per_forward_ok(counts: dict, per_forward: dict) -> bool:
+    """Each attention kernel launched exactly its count per backbone
+    forward (and at least one forward ran)."""
+    return counts["forwards"] > 0 and all(
+        counts[k] == n * counts["forwards"] for k, n in per_forward.items())
+
+
+# launches per backbone forward of the three backbones
+DINO_PER_FORWARD = {"k1": 12, "k2": 0, "k3": 0, "k5": 0}
+CROCOV2_PER_FORWARD = {"k1": 0, "k2": 12, "k3": 0, "k5": 24}
+RADIO_PER_FORWARD = {"k1": 0, "k2": 32, "k3": 0, "k5": 0}
 
 
 def profile_entry(torch, module, argv) -> dict:
@@ -301,17 +478,15 @@ def profile_entry(torch, module, argv) -> dict:
             "profile_top": [[k[:80], t] for k, t in by_kernel[:8]]}
 
 
-def phase_correspondence(torch, phase, module, argv, n_pairs, batch_pairs, k4_ms):
+def phase_correspondence(torch, phase, module, argv, n_pairs, batch_pairs, k4_ms,
+                         per_forward):
     """One correspondence driver through its ``entry`` on the card: the
-    CSV row, K1 and K4 launches (K4 once per pair batch, K1 12 times per
-    backbone forward, two forwards per batch), wall time, peak memory and
-    K4's share of the wall time (launches x ``k4_ms``, K4's time at this
-    path's shape in ``knn2_checks``); then a profiled run for the device's
-    busy share and its top kernels."""
-    from midvision_probe_torch.models.feature_extractor import FeatureExtractor
-    from midvision_probe_torch.ops.matching import knn2
-    from midvision_probe_torch.ops.vit_attention import fused_qkv_attention
-
+    CSV row, the launch counts (K4 once per pair batch; the attention
+    kernels ``per_forward`` times per backbone forward, two forwards per
+    batch), wall time, peak memory and K4's share of the wall time
+    (launches x ``k4_ms``, K4's time at this path's shape in
+    ``knn2_checks``); then a profiled run for the device's busy share and
+    its top kernels. Returns the launch counts of the first run."""
     out_dir = tempfile.mkdtemp(prefix="mvp_chip_smoke_")
     try:
         torch.cuda.reset_peak_memory_stats()
@@ -320,19 +495,20 @@ def phase_correspondence(torch, phase, module, argv, n_pairs, batch_pairs, k4_ms
         out = module.entry(argv + [f"output_dir={out_dir}"])
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        k4, k1 = knn2.launches, fused_qkv_attention.launches
-        forwards = FeatureExtractor.forward_count
+        counts = read_counts()
         csvs = [f for f in os.listdir(out_dir) if f.endswith(".csv")]
     finally:
         shutil.rmtree(out_dir, ignore_errors=True)
     row = {k: float(v) for k, v in out["row"].items()}
     batches = -(-n_pairs // batch_pairs)
     res = {"phase": phase, "argv": argv, "csv_files": csvs, "csv_row": row,
-           "k4_launches": k4, "pair_batches": batches, "k1_launches": k1,
-           "backbone_forwards": forwards, "valid_matches": int(out["valid"].sum()),
+           "launches": counts, "pair_batches": batches,
+           "backbone_forwards": counts["forwards"],
+           "valid_matches": int(out["valid"].sum()),
            "errors_shape": list(out["err_3d"].shape), "wall_s": wall,
            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
-           "k4_ms_per_launch": k4_ms, "k4_share_of_wall": k4 * k4_ms / (wall * 1e3)}
+           "k4_ms_per_launch": k4_ms,
+           "k4_share_of_wall": counts["k4"] * k4_ms / (wall * 1e3)}
     res.update(profile_entry(torch, module, argv))
     emit(res)
     recalls = [v for k, v in row.items() if not k.startswith("Bin")]
@@ -346,22 +522,25 @@ def phase_correspondence(torch, phase, module, argv, n_pairs, batch_pairs, k4_ms
         "valid_has_mass": res["valid_matches"] > 0,
         "errors_shape": res["errors_shape"] == [n_pairs, int(dict(
             a.split("=", 1) for a in argv if "=" in a)["num_corr"])],
-        "k4_once_per_batch": k4 == batches,
-        "k1_12_per_forward": forwards == 2 * batches and k1 == 12 * forwards,
+        "k4_once_per_batch": counts["k4"] == batches,
+        "two_forwards_per_batch": counts["forwards"] == 2 * batches,
+        "attention_per_forward": per_forward_ok(counts, per_forward),
     }
     if not all(checks.values()):
         raise SystemExit(f"{phase} check failed: {checks}")
-    return res
+    return counts
 
 
-def phase_path(torch):
+def phase_path(torch, phase, backbone, per_forward):
+    """The depth trainer through its ``entry`` on ``backbone`` (480x640
+    synthetic data, DPT probe, bf16 backbone): losses, the CSV row, the
+    launch counts (``per_forward`` per backbone forward), wall time and
+    peak memory. Returns the launch counts."""
     from midvision_probe_torch import train_depth
-    from midvision_probe_torch.models.feature_extractor import FeatureExtractor
-    from midvision_probe_torch.ops.vit_attention import fused_qkv_attention
 
     out_dir = tempfile.mkdtemp(prefix="mvp_chip_smoke_")
     try:
-        argv = ["backbone=dino_b16", "dataset=synthetic",
+        argv = [f"backbone={backbone}", "dataset=synthetic",
                 "dataset.image_size=[480,640]", "dataset.num_instances=16",
                 "probe=depth_dpt", "batch_size=8", "optimizer=one_epoch",
                 "+system.backbone_dtype=bfloat16", "+render_images=False",
@@ -372,17 +551,14 @@ def phase_path(torch):
         row = train_depth.entry(argv)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches = fused_qkv_attention.launches
-        forwards = FeatureExtractor.forward_count
+        counts = read_counts()
         csvs = [f for f in os.listdir(out_dir) if f.endswith(".csv")]
     finally:
         shutil.rmtree(out_dir, ignore_errors=True)
     losses = row.pop("train_losses")
-    res = {"phase": "path", "argv": argv, "train_losses": losses,
-           "csv_files": csvs, "csv_row": row,
-           "k1_launches": launches, "backbone_forwards": forwards,
-           "k1_launches_per_forward": launches / max(forwards, 1),
-           "wall_s": wall,
+    res = {"phase": phase, "argv": argv[:-1], "train_losses": losses,
+           "csv_files": csvs, "csv_row": row, "launches": counts,
+           "backbone_forwards": counts["forwards"], "wall_s": wall,
            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30}
     emit(res)
     checks = {
@@ -390,45 +566,71 @@ def phase_path(torch):
         "csv_written": len(csvs) == 1,
         "sa_rmse_finite": math.isfinite(row["sa_rmse"]),
         "sa_d1_in_unit": 0.0 <= row["sa_d1"] <= 1.0,
-        "k1_launched": launches > 0,
-        "k1_12_per_forward": forwards > 0 and launches == 12 * forwards,
+        "attention_per_forward": per_forward_ok(counts, per_forward),
     }
     if not all(checks.values()):
-        raise SystemExit(f"path check failed: {checks}")
-    return launches
+        raise SystemExit(f"{phase} check failed: {checks}")
+    return counts
 
 
-def phase_forward(torch, smi: str):
+def phase_forward(torch, smi: str, model, batch, hw, dtype, per_forward, grid, width,
+                  iters=10):
+    """The frozen forward of ``model`` (4 taps) on a batch made on the card:
+    images per second per card (CUDA events), peak memory, a profiler
+    breakdown of one forward by kernel, and the launch counts
+    (``per_forward`` per forward, counted over every forward of the phase).
+    Returns the launch counts."""
     from midvision_probe_torch.models.zoo import build_vit_extractor
 
-    batch, hw = 64, (480, 640)
-    backbone = build_vit_extractor("dino_vitb16", return_multilayer=True,
-                                   dtype=torch.bfloat16, device="cuda")
+    t0 = time.perf_counter()
+    backbone = build_vit_extractor(model, return_multilayer=True, dtype=dtype, device="cuda")
+    build_s = time.perf_counter() - t0
     images = torch.randn(batch, *hw, 3, device="cuda")
     torch.cuda.reset_peak_memory_stats()
-    ms = cuda_ms(torch, lambda: backbone.features(images), iters=10, warmup=2)
+    reset_counts()
+    ms = cuda_ms(torch, lambda: backbone.features(images), iters=iters, warmup=2)
     feats = backbone.features(images)
-    shapes_ok = all(tuple(f.shape) == (batch, 30, 40, 768) and bool(torch.isfinite(f).all())
+    shapes_ok = all(tuple(f.shape) == (batch, *grid, width) and bool(torch.isfinite(f).all())
                     for f in feats)
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
                                             torch.profiler.ProfilerActivity.CUDA]) as prof:
         backbone.features(images)
         torch.cuda.synchronize()
+    counts = read_counts()
     # device-side events only (the kernels): the aten ops that launch them
     # report the same time again
     by_kernel = sorted(
         ((e.key, e.device_time_total / 1e3) for e in prof.key_averages()
          if e.device_type == torch.autograd.DeviceType.CUDA), key=lambda kv: -kv[1])
     device_ms = sum(t for _, t in by_kernel)
-    emit({"phase": "forward", "model": "dino_vitb16", "batch": batch, "image_hw": hw,
-          "dtype": "bfloat16", "taps": backbone.multilayers, "forward_ms": ms,
-          "imgs_per_s_per_card": batch / (ms / 1e3), "feature_shapes_ok": shapes_ok,
+    emit({"phase": "forward", "model": model, "batch": batch, "image_hw": hw,
+          "dtype": str(dtype), "taps": backbone.multilayers, "build_s": build_s,
+          "forward_ms": ms, "imgs_per_s_per_card": batch / (ms / 1e3),
+          "feature_shapes_ok": shapes_ok, "launches": counts,
           "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
           "profile_device_ms": device_ms,
           "profile_top": [[k[:80], t] for k, t in by_kernel[:8]],
           "nvidia_smi": smi})
-    if not shapes_ok:
-        raise SystemExit("forward check failed: tap shapes or values")
+    if not shapes_ok or not per_forward_ok(counts, per_forward):
+        raise SystemExit(f"forward check failed for {model}: shapes {shapes_ok}, "
+                         f"launches {counts}")
+    del backbone, images, feats
+    torch.cuda.empty_cache()
+    return counts
+
+
+def kernel_entry(name, source, replaces, kernel, by_path, case, route="cuda") -> dict:
+    """One entry of the closing ``kernels`` line: its launches on every
+    path and its numbers at the main path's shape (``case``)."""
+    from midvision_probe_torch.config.core import JAX_PACKAGE
+
+    launches = {path: counts[kernel] for path, counts in by_path.items()}
+    return {"name": name, "route": route, "source": f"midvision_probe_torch/csrc/{source}",
+            "replaces": f"{JAX_PACKAGE}/{replaces}", "launches": sum(launches.values()),
+            "launches_by_path": launches, "max_abs_err": case["max_abs_err"],
+            "ms": case["kernel_ms"], "plain_ms": case["plain_ms"],
+            "bound_ms": case["bound_ms"], "bound_by": case["bound_by"],
+            "library_ms": case["library_ms"]}
 
 
 def main() -> int:
@@ -442,9 +644,9 @@ def main() -> int:
               "(midvision_probe_torch/ not found next to this script)", file=sys.stderr)
         return 2
     sys.path.insert(0, HERE)
-    from midvision_probe_torch.config.core import JAX_PACKAGE
     from midvision_probe_torch.ops import cuda_build
 
+    t_start = time.perf_counter()
     smi = nvidia_smi()
     t0 = time.perf_counter()
     cuda_build.build_all()
@@ -452,61 +654,65 @@ def main() -> int:
              for ln in info["log"].splitlines() if "registers" in ln]
     emit({"phase": "device", "nvidia_smi": smi, "torch": torch.__version__,
           "cuda": torch.version.cuda, "device_name": torch.cuda.get_device_name(0),
+          "sources": list(cuda_build.KERNEL_SOURCES),
           "build_s": time.perf_counter() - t0, "ptxas": ptxas})
 
     checks = phase_kernel_checks(torch)
     knn2_checks = phase_knn2_checks(torch)
-    k1_by_path = {"path": phase_path(torch)}
+    attn_checks = phase_attention_checks(torch)
+    rope_checks = phase_rope_checks(torch)
+    by_path = {"path": phase_path(torch, "path", "dino_b16", DINO_PER_FORWARD)}
     torch.cuda.empty_cache()
     from midvision_probe_torch import evaluate_navi_correspondence, render_scannet_correspondence
 
-    common = ["backbone=dino_b16", "num_corr=1000", "scale_factor=0.25", "batch_pairs=4",
+    common = ["num_corr=1000", "scale_factor=0.25", "batch_pairs=4",
               "+system.backbone_dtype=bfloat16"]
-    corr = {
-        "path_navi": phase_correspondence(
-            torch, "path_navi", evaluate_navi_correspondence,
-            common + ["dataset=synthetic_navi_hard", "dataset.image_size=512"], 8, 4,
-            knn2_checks["navi_main_masked"]["kernel_ms"]),
-        "path_scannet": phase_correspondence(
-            torch, "path_scannet", render_scannet_correspondence,
-            common + ["dataset=synthetic_scannet_hard", "dataset.image_hw=[480,640]",
-                      "+render_every=0"], 8, 4, knn2_checks["scannet_main"]["kernel_ms"]),
-    }
+    navi = ["dataset=synthetic_navi_hard", "dataset.image_size=512"]
+    navi_k4_ms = knn2_checks["navi_main_masked"]["kernel_ms"]
+    by_path["path_navi"] = phase_correspondence(
+        torch, "path_navi", evaluate_navi_correspondence,
+        ["backbone=dino_b16"] + common + navi, 8, 4, navi_k4_ms, DINO_PER_FORWARD)
+    by_path["path_scannet"] = phase_correspondence(
+        torch, "path_scannet", render_scannet_correspondence,
+        ["backbone=dino_b16"] + common + ["dataset=synthetic_scannet_hard",
+                                          "dataset.image_hw=[480,640]", "+render_every=0"],
+        8, 4, knn2_checks["scannet_main"]["kernel_ms"], DINO_PER_FORWARD)
+    by_path["path_navi_crocov2"] = phase_correspondence(
+        torch, "path_navi_crocov2", evaluate_navi_correspondence,
+        ["backbone=crocov2_b16"] + common + navi, 8, 4, navi_k4_ms, CROCOV2_PER_FORWARD)
     torch.cuda.empty_cache()
-    k1_by_path.update({k: v["k1_launches"] for k, v in corr.items()})
-    k4_by_path = {k: v["k4_launches"] for k, v in corr.items()}
-    phase_forward(torch, smi)
+    by_path["path_depth_radio"] = phase_path(torch, "path_depth_radio", "radio",
+                                             RADIO_PER_FORWARD)
+    torch.cuda.empty_cache()
 
-    main_case = checks["main_bf16"]
-    k4_case = knn2_checks["scannet_main"]
+    bf16 = torch.bfloat16
+    by_path["forward_dino_vitb16"] = phase_forward(
+        torch, smi, "dino_vitb16", 64, (480, 640), bf16, DINO_PER_FORWARD, (30, 40), 768)
+    by_path["forward_crocov2_vitb16"] = phase_forward(
+        torch, smi, "crocov2_vitb16", 64, (224, 224), bf16, CROCOV2_PER_FORWARD,
+        (14, 14), 768)
+    by_path["forward_radio_v2"] = phase_forward(
+        torch, smi, "radio_v2", 64, (480, 640), bf16, RADIO_PER_FORWARD, (30, 40), 1280)
+    # f32 at 1024x1024: K+V of 4097 tokens at d=80 exceed 2 MB, the JAX
+    # package's split to its flash kernel (K3)
+    by_path["forward_radio_v2_fp32_1024"] = phase_forward(
+        torch, smi, "radio_v2", 2, (1024, 1024), torch.float32,
+        {"k1": 0, "k2": 0, "k3": 32, "k5": 0}, (64, 64), 1280, iters=3)
+    emit({"phase": "done", "total_s": time.perf_counter() - t_start})
+
+    emit({"kernels": [
+        kernel_entry("fused_qkv_attention", "vit_attention.cu", "ops/vit_attention.py:85",
+                     "k1", by_path, checks["main_bf16"]),
+        kernel_entry("knn2", "knn2.cu", "ops/matching.py:64", "k4", by_path,
+                     knn2_checks["scannet_main"]),
+        kernel_entry("vit_attention", "vit_attention.cu", "ops/vit_attention.py:129",
+                     "k2", by_path, attn_checks["radio_main_bf16"]),
+        kernel_entry("flash_attention", "vit_attention.cu", "ops/attention.py:38",
+                     "k3", by_path, attn_checks["k3_radio1024_fp32"]),
+        kernel_entry("rope_2d", "rope2d.cu", "ops/rope2d.py:59", "k5", by_path,
+                     rope_checks["crocov2_q_bf16"]),
+    ]})
     print(smi, flush=True)
-    emit({"kernels": [{
-        "name": "fused_qkv_attention",
-        "route": "cuda",
-        "source": "midvision_probe_torch/csrc/vit_attention.cu",
-        "replaces": f"{JAX_PACKAGE}/ops/vit_attention.py:85",
-        "launches": sum(k1_by_path.values()),
-        "launches_by_path": k1_by_path,
-        "max_abs_err": main_case["max_abs_err"],
-        "ms": main_case["kernel_ms"],
-        "plain_ms": main_case["plain_ms"],
-        "bound_ms": main_case["bound_ms"],
-        "bound_by": main_case["bound_by"],
-        "library_ms": main_case["library_ms"],
-    }, {
-        "name": "knn2",
-        "route": "cuda",
-        "source": "midvision_probe_torch/csrc/knn2.cu",
-        "replaces": f"{JAX_PACKAGE}/ops/matching.py:64",
-        "launches": sum(k4_by_path.values()),
-        "launches_by_path": k4_by_path,
-        "max_abs_err": k4_case["max_abs_err"],
-        "ms": k4_case["kernel_ms"],
-        "plain_ms": k4_case["plain_ms"],
-        "bound_ms": k4_case["bound_ms"],
-        "bound_by": k4_case["bound_by"],
-        "library_ms": k4_case["library_ms"],
-    }]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

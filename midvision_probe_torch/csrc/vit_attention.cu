@@ -1,41 +1,54 @@
-// Fused-qkv ViT attention for Hopper (sm_90a), forward only.
+// ViT softmax attention for Hopper (sm_90a), forward only: one strided
+// kernel behind two entry points.
 //
-// Replaces the JAX package's Pallas TPU kernel `fused_qkv_attention`
-// (ops/vit_attention.py: `_fused_forward` -> `_fused_kernel`).
+// Replaces two of the JAX package's Pallas TPU kernels (ops/vit_attention.py):
+//   * K1 `fused_qkv_attention` (`_fused_forward` -> `_fused_kernel`), entry
+//     point mvp_fused_qkv_attention: q, k and v read straight out of the
+//     contiguous (B, N, 3, H, d) qkv projection (column order role, head,
+//     j), output (B, N, H*d) token-major;
+//   * K2 `vit_attention` (`_forward` -> `_attn_kernel`), entry point
+//     mvp_vit_attention: q, k, v and the output are (B, H, N, d) tensors
+//     given by element strides (b, h, n) with the last dimension contiguous,
+//     so q/k/v may be views of the qkv projection (token stride 3*H*d) and
+//     the output may be written straight into a (B, N, H, d) buffer. The
+//     JAX package's `_flash_attention` (the jax library's TPU flash kernel,
+//     taken when K+V exceed 2 MB of VMEM) is this same entry point: the
+//     KV-tile loop below is the flash algorithm and takes any N.
 //
-// What it computes: non-causal softmax attention read straight out of the
-// qkv projection. Input is the contiguous (B, N, 3, H, d) tensor (column
-// order role, head, j); q, k and v are read by stride, never transposed in
-// device memory. Output is (B, N, H*d), token-major. Keys and values at
-// index >= n_valid are never read: their shared-memory rows are zero-filled
-// and their scores are -inf, so NaN garbage in padded rows cannot reach the
-// softmax or the PV product. Query rows in [n_valid, N) are computed like
-// any other row (they attend over the valid keys); rows >= N are not
-// written.
+// What it computes: non-causal softmax attention with the exact
+// max-subtracted online softmax (scores pre-scaled by scale*log2(e), exp2,
+// fp32 accumulators). Keys and values at index >= n_valid are never read:
+// their shared-memory rows are zero-filled and their scores are -inf, so NaN
+// garbage in padded rows cannot reach the softmax or the PV product; no
+// 128-padding or segment ids are needed (the TPU kernels pad only for their
+// layout). Query rows in [n_valid, N) are computed like any other row (they
+// attend over the valid keys); rows >= N are not written.
 //
 // What bounds it on an H100: at the ViT-B/16 probing shape (B=64, N=1201,
 // H=12, d=64) the work is 4*B*H*N^2*d = 283 GFLOP against 2 * 59 MB of
 // bf16 qkv-in / out-out traffic, ~2400 FLOP per byte, far above the card's
 // ~295 FLOP/byte ridge: it is bound by tensor-core operations (bound
-// ~0.29 ms at 989 TFLOP/s). The design therefore keeps the N x N scores
-// out of device memory entirely (online softmax over KV tiles in shared
-// memory, fp32 accumulators in registers) and runs both products on the
-// tensor cores with mma.sync m16n8k16 (bf16 in, fp32 accumulate); the next
-// KV tile is fetched with cp.async while the current one is consumed.
-// wgmma/TMA (the only route to the full tensor-core rate) is left for a
-// later revision.
+// ~0.29 ms at 989 TFLOP/s); RADIO's ViT-H/16 shape (H=16, d=80) is the same
+// regime. The design therefore keeps the N x N scores out of device memory
+// entirely (online softmax over KV tiles in shared memory, fp32
+// accumulators in registers) and runs both products on the tensor cores
+// with mma.sync m16n8k16 (bf16 in, fp32 accumulate); the next KV tile is
+// fetched with cp.async while the current one is consumed. wgmma/TMA (the
+// only route to the full tensor-core rate) is left for a later revision.
 //
-// The JAX kernel's max-free exp2 softmax, its +110 clamp and its 1e-30
-// normaliser floor work around the TPU's vector unit; this kernel uses the
-// exact max-subtracted online softmax instead (scores are pre-scaled by
-// scale*log2(e) so the exponential is exp2).
+// The JAX kernels' max-free exp2 softmax, +110 clamp and 1e-30 normaliser
+// floor work around the TPU's vector unit; this kernel uses the exact
+// max-subtracted online softmax instead.
 //
 // fp32 inputs take a separate SIMT path (fp32 FMA, no TF32), which keeps
 // full fp32 accuracy for parity runs; it is not tuned.
 //
-// Plain C interface for ctypes: every argument is a pointer or an int (the
-// softmax scale arrives as the bit pattern of a float); the function
-// returns cudaGetLastError() after the launch.
+// Head dims: 16, 32, 64, 80, 128 (d = 80 is RADIO's ViT-H/16: 5 k-chunks of
+// Q K^T, 10 n-tiles of P V, ten 16-byte chunks per row).
+//
+// Plain C interface for ctypes: every argument is a pointer, an int or a
+// 64-bit stride (the softmax scale arrives as the bit pattern of a float);
+// each entry point returns cudaGetLastError() after the launch.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -47,6 +60,11 @@ namespace {
 constexpr int kThreads = 128;  // 4 warps per block on both paths
 constexpr int kBM = 64;        // bf16 path: query rows per block (16 per warp)
 constexpr int kBN = 64;        // bf16 path: keys per KV tile
+
+// element strides of a (B, H, N, d) operand; the last dimension has stride 1
+struct Strides {
+  long long b, h, n;
+};
 
 __device__ __forceinline__ float neg_inf() { return __int_as_float(0xff800000); }
 
@@ -96,11 +114,14 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 // One block per (q-tile of 64 rows, head, batch). Each warp owns 16 query
 // rows. Shared memory: Q[64][D+8] plus two stages of K[64][D+8] and
 // V[64][D+8]; the +8 halves of row padding make every fragment load below
-// free of bank conflicts for D in {16, 32, 64, 128}.
+// free of bank conflicts for D in {16, 32, 64, 80, 128} (at D = 80 a row is
+// 44 words, so the eight fragment rows start on banks 0, 12, 24, 4, 16, 28,
+// 8, 20: all distinct multiples of 4, which the quad's 0..3 fills to 32).
 template <int D>
 __global__ void __launch_bounds__(kThreads)
-    fused_qkv_attention_bf16(const uint16_t* __restrict__ qkv, uint16_t* __restrict__ out,
-                             int N, int H, int n_valid, float scale_log2) {
+    attention_bf16(const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
+                   const uint16_t* __restrict__ v, uint16_t* __restrict__ out, Strides sq,
+                   Strides sk, Strides sv, Strides so, int N, int n_valid, float scale_log2) {
   constexpr int LD = D + 8;   // padded shared-memory row, in halves
   constexpr int KC = D / 16;  // k-chunks of Q K^T
   constexpr int DN = D / 8;   // n-tiles of P V
@@ -120,15 +141,15 @@ __global__ void __launch_bounds__(kThreads)
   const int lane = tid & 31;
   const int g = lane >> 2;  // fragment row group
   const int tq = lane & 3;  // thread in quad
-  const int HD = H * D;
-  const long long tok = 3LL * HD;  // elements between consecutive tokens
-  const uint16_t* base = qkv + static_cast<long long>(b) * N * tok + h * D;
+  const uint16_t* qb = q + b * sq.b + h * sq.h;
+  const uint16_t* kb = k + b * sk.b + h * sk.h;
+  const uint16_t* vb = v + b * sv.b + h * sv.h;
 
   for (int i = tid; i < kBM * CH; i += kThreads) {
     const int r = i / CH, c = i % CH;
     uint16_t* dst = sQ + r * LD + c * 8;
     if (q0 + r < N) {
-      cp_async16(dst, base + (q0 + r) * tok + c * 8);
+      cp_async16(dst, qb + (q0 + r) * sq.n + c * 8);
     } else {
       *reinterpret_cast<uint4*>(dst) = make_uint4(0u, 0u, 0u, 0u);
     }
@@ -141,9 +162,8 @@ __global__ void __launch_bounds__(kThreads)
     for (int i = tid; i < kBN * CH; i += kThreads) {
       const int r = i / CH, c = i % CH;
       if (k0 + r < n_valid) {
-        const uint16_t* src = base + (k0 + r) * tok + c * 8;
-        cp_async16(dK + r * LD + c * 8, src + HD);
-        cp_async16(dV + r * LD + c * 8, src + 2 * HD);
+        cp_async16(dK + r * LD + c * 8, kb + (k0 + r) * sk.n + c * 8);
+        cp_async16(dV + r * LD + c * 8, vb + (k0 + r) * sv.n + c * 8);
       } else {  // never read keys/values past n_valid
         *reinterpret_cast<uint4*>(dK + r * LD + c * 8) = make_uint4(0u, 0u, 0u, 0u);
         *reinterpret_cast<uint4*>(dV + r * LD + c * 8) = make_uint4(0u, 0u, 0u, 0u);
@@ -209,9 +229,9 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int key = k0 + nt * 8 + tq * 2 + (e & 1);
-        const float v = key < n_valid ? s[nt][e] * scale_log2 : neg_inf();
-        s[nt][e] = v;
-        mx[e >> 1] = fmaxf(mx[e >> 1], v);
+        const float x = key < n_valid ? s[nt][e] * scale_log2 : neg_inf();
+        s[nt][e] = x;
+        mx[e >> 1] = fmaxf(mx[e >> 1], x);
       }
     }
     float alpha[2];
@@ -269,15 +289,16 @@ __global__ void __launch_bounds__(kThreads)
   }
   const int ra = q0 + warp * 16 + g;
   const int rb = ra + 8;
+  uint16_t* ob = out + b * so.b + h * so.h;
 #pragma unroll
   for (int dn = 0; dn < DN; ++dn) {
-    const int col = h * D + dn * 8 + tq * 2;
+    const int col = dn * 8 + tq * 2;
     if (ra < N) {
-      *reinterpret_cast<uint32_t*>(out + static_cast<long long>(b * N + ra) * HD + col) =
+      *reinterpret_cast<uint32_t*>(ob + ra * so.n + col) =
           pack_bf16(o[dn][0] * inv[0], o[dn][1] * inv[0]);
     }
     if (rb < N) {
-      *reinterpret_cast<uint32_t*>(out + static_cast<long long>(b * N + rb) * HD + col) =
+      *reinterpret_cast<uint32_t*>(ob + rb * so.n + col) =
           pack_bf16(o[dn][2] * inv[1], o[dn][3] * inv[1]);
     }
   }
@@ -292,8 +313,9 @@ constexpr int kF32Tpr = 4;
 
 template <int D>
 __global__ void __launch_bounds__(kThreads)
-    fused_qkv_attention_f32(const float* __restrict__ qkv, float* __restrict__ out, int N,
-                            int H, int n_valid, float scale_log2) {
+    attention_f32(const float* __restrict__ q, const float* __restrict__ k,
+                  const float* __restrict__ v, float* __restrict__ out, Strides sq,
+                  Strides sk, Strides sv, Strides so, int N, int n_valid, float scale_log2) {
   constexpr int DPT = D / kF32Tpr;
   constexpr int C4 = D / 4;  // float4 chunks per row
   __shared__ __align__(16) float sK[kF32Keys][D];
@@ -304,14 +326,14 @@ __global__ void __launch_bounds__(kThreads)
   const int tid = threadIdx.x;
   const int t = tid % kF32Tpr;
   const int qi = blockIdx.x * kF32Rows + tid / kF32Tpr;
-  const int HD = H * D;
-  const long long tok = 3LL * HD;
-  const float* base = qkv + static_cast<long long>(b) * N * tok + h * D;
+  const float* qb = q + b * sq.b + h * sq.h;
+  const float* kb = k + b * sk.b + h * sk.h;
+  const float* vb = v + b * sv.b + h * sv.h;
 
-  float q[DPT], acc[DPT];
+  float qr[DPT], acc[DPT];
 #pragma unroll
   for (int i = 0; i < DPT; ++i) {
-    q[i] = qi < N ? base[qi * tok + t + kF32Tpr * i] * scale_log2 : 0.f;
+    qr[i] = qi < N ? qb[qi * sq.n + t + kF32Tpr * i] * scale_log2 : 0.f;
     acc[i] = 0.f;
   }
   float m = neg_inf(), l = 0.f;
@@ -323,9 +345,8 @@ __global__ void __launch_bounds__(kThreads)
       float4 kv = make_float4(0.f, 0.f, 0.f, 0.f);
       float4 vv = kv;
       if (k0 + r < n_valid) {  // never read keys/values past n_valid
-        const float* src = base + (k0 + r) * tok + c * 4;
-        kv = *reinterpret_cast<const float4*>(src + HD);
-        vv = *reinterpret_cast<const float4*>(src + 2 * HD);
+        kv = *reinterpret_cast<const float4*>(kb + (k0 + r) * sk.n + c * 4);
+        vv = *reinterpret_cast<const float4*>(vb + (k0 + r) * sv.n + c * 4);
       }
       *reinterpret_cast<float4*>(&sK[r][c * 4]) = kv;
       *reinterpret_cast<float4*>(&sV[r][c * 4]) = vv;
@@ -338,7 +359,7 @@ __global__ void __launch_bounds__(kThreads)
     for (int j = 0; j < kF32Keys; ++j) {
       float p = 0.f;
 #pragma unroll
-      for (int i = 0; i < DPT; ++i) p = fmaf(q[i], sK[j][t + kF32Tpr * i], p);
+      for (int i = 0; i < DPT; ++i) p = fmaf(qr[i], sK[j][t + kF32Tpr * i], p);
       p += __shfl_xor_sync(0xffffffffu, p, 1);
       p += __shfl_xor_sync(0xffffffffu, p, 2);
       s[j] = k0 + j < n_valid ? p : neg_inf();
@@ -363,61 +384,93 @@ __global__ void __launch_bounds__(kThreads)
   }
 
   if (qi < N) {
-    float* dst = out + static_cast<long long>(b * N + qi) * HD + h * D;
+    float* dst = out + b * so.b + h * so.h + qi * so.n;
 #pragma unroll
     for (int i = 0; i < DPT; ++i) dst[t + kF32Tpr * i] = acc[i] / l;
   }
 }
 
 template <int D>
-void launch_bf16(const void* qkv, void* out, int B, int N, int H, int n_valid, float sl2,
-                 cudaStream_t stream) {
+void launch_bf16(const void* q, const void* k, const void* v, void* out, Strides sq,
+                 Strides sk, Strides sv, Strides so, int B, int N, int H, int n_valid,
+                 float sl2, cudaStream_t stream) {
   const int smem = (kBM + 4 * kBN) * (D + 8) * static_cast<int>(sizeof(uint16_t));
-  cudaFuncSetAttribute(fused_qkv_attention_bf16<D>,
-                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  cudaFuncSetAttribute(attention_bf16<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       smem);
   const dim3 grid((N + kBM - 1) / kBM, H, B);
-  fused_qkv_attention_bf16<D><<<grid, kThreads, smem, stream>>>(
-      static_cast<const uint16_t*>(qkv), static_cast<uint16_t*>(out), N, H, n_valid, sl2);
+  attention_bf16<D><<<grid, kThreads, smem, stream>>>(
+      static_cast<const uint16_t*>(q), static_cast<const uint16_t*>(k),
+      static_cast<const uint16_t*>(v), static_cast<uint16_t*>(out), sq, sk, sv, so, N,
+      n_valid, sl2);
 }
 
 template <int D>
-void launch_f32(const void* qkv, void* out, int B, int N, int H, int n_valid, float sl2,
-                cudaStream_t stream) {
+void launch_f32(const void* q, const void* k, const void* v, void* out, Strides sq,
+                Strides sk, Strides sv, Strides so, int B, int N, int H, int n_valid,
+                float sl2, cudaStream_t stream) {
   const dim3 grid((N + kF32Rows - 1) / kF32Rows, H, B);
-  fused_qkv_attention_f32<D><<<grid, kThreads, 0, stream>>>(
-      static_cast<const float*>(qkv), static_cast<float*>(out), N, H, n_valid, sl2);
+  attention_f32<D><<<grid, kThreads, 0, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(out), sq, sk, sv, so, N, n_valid,
+      sl2);
 }
 
-}  // namespace
-
-// qkv: contiguous (B, N, 3, H, D); out: contiguous (B, N, H*D), same dtype.
-// is_bf16: 1 for bfloat16, 0 for float32. scale_log2_bits: the float
-// softmax scale * log2(e), passed as its 32-bit pattern.
-extern "C" int mvp_fused_qkv_attention(const void* qkv, void* out, int B, int N, int H,
-                                       int D, int n_valid, int scale_log2_bits,
-                                       int is_bf16, void* stream) {
+int launch(const void* q, const void* k, const void* v, void* out, Strides sq, Strides sk,
+           Strides sv, Strides so, int B, int N, int H, int D, int n_valid,
+           int scale_log2_bits, int is_bf16, void* stream) {
   float sl2;
   memcpy(&sl2, &scale_log2_bits, sizeof(sl2));
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (B <= 0 || N <= 0 || H <= 0 || n_valid <= 0 || n_valid > N) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  if (is_bf16) {
-    switch (D) {
-      case 16: launch_bf16<16>(qkv, out, B, N, H, n_valid, sl2, st); break;
-      case 32: launch_bf16<32>(qkv, out, B, N, H, n_valid, sl2, st); break;
-      case 64: launch_bf16<64>(qkv, out, B, N, H, n_valid, sl2, st); break;
-      case 128: launch_bf16<128>(qkv, out, B, N, H, n_valid, sl2, st); break;
-      default: return static_cast<int>(cudaErrorInvalidValue);
-    }
-  } else {
-    switch (D) {
-      case 16: launch_f32<16>(qkv, out, B, N, H, n_valid, sl2, st); break;
-      case 32: launch_f32<32>(qkv, out, B, N, H, n_valid, sl2, st); break;
-      case 64: launch_f32<64>(qkv, out, B, N, H, n_valid, sl2, st); break;
-      case 128: launch_f32<128>(qkv, out, B, N, H, n_valid, sl2, st); break;
-      default: return static_cast<int>(cudaErrorInvalidValue);
-    }
+#define MVP_ATTN_CASE(DIM)                                                       \
+  case DIM:                                                                      \
+    if (is_bf16) {                                                               \
+      launch_bf16<DIM>(q, k, v, out, sq, sk, sv, so, B, N, H, n_valid, sl2, st); \
+    } else {                                                                     \
+      launch_f32<DIM>(q, k, v, out, sq, sk, sv, so, B, N, H, n_valid, sl2, st);  \
+    }                                                                            \
+    break;
+  switch (D) {
+    MVP_ATTN_CASE(16)
+    MVP_ATTN_CASE(32)
+    MVP_ATTN_CASE(64)
+    MVP_ATTN_CASE(80)
+    MVP_ATTN_CASE(128)
+    default: return static_cast<int>(cudaErrorInvalidValue);
   }
+#undef MVP_ATTN_CASE
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// K1. qkv: contiguous (B, N, 3, H, D); out: contiguous (B, N, H*D), same
+// dtype. is_bf16: 1 for bfloat16, 0 for float32. scale_log2_bits: the float
+// softmax scale * log2(e), passed as its 32-bit pattern.
+extern "C" int mvp_fused_qkv_attention(const void* qkv, void* out, int B, int N, int H,
+                                       int D, int n_valid, int scale_log2_bits,
+                                       int is_bf16, void* stream) {
+  const long long hd = static_cast<long long>(H) * D;
+  const Strides in{N * 3 * hd, D, 3 * hd};
+  const Strides so{N * hd, D, hd};
+  const size_t esize = is_bf16 ? 2 : 4;
+  const char* base = static_cast<const char*>(qkv);
+  return launch(base, base + hd * esize, base + 2 * hd * esize, out, in, in, in, so, B, N,
+                H, D, n_valid, scale_log2_bits, is_bf16, stream);
+}
+
+// K2. q, k, v, out: (B, H, N, D) by element strides (batch, head, token),
+// last dimension contiguous, every row 16-byte aligned; same dtype.
+extern "C" int mvp_vit_attention(const void* q, const void* k, const void* v, void* out,
+                                 int B, int N, int H, int D, long long q_sb, long long q_sh,
+                                 long long q_sn, long long k_sb, long long k_sh,
+                                 long long k_sn, long long v_sb, long long v_sh,
+                                 long long v_sn, long long o_sb, long long o_sh,
+                                 long long o_sn, int scale_log2_bits, int is_bf16,
+                                 void* stream) {
+  return launch(q, k, v, out, Strides{q_sb, q_sh, q_sn}, Strides{k_sb, k_sh, k_sn},
+                Strides{v_sb, v_sh, v_sn}, Strides{o_sb, o_sh, o_sn}, B, N, H, D, N,
+                scale_log2_bits, is_bf16, stream);
 }

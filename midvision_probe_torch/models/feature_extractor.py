@@ -17,6 +17,8 @@ from typing import Any, Callable, Sequence
 import torch
 import torch.nn as nn
 
+from midvision_probe_torch.ops.image import resize
+
 
 def tokens_to_output(output_type: str, dense_tokens: torch.Tensor,
                      cls_token: torch.Tensor | None,
@@ -72,11 +74,21 @@ def default_vit_multilayers(num_layers: int) -> list[int]:
 
 
 def make_vit_feature_fn(module: nn.Module, taps: Sequence[int], output: str,
-                        num_prefix_tokens: int) -> Callable:
-    """Build ``images -> (list[map], list[cls])`` for a ViT module."""
+                        num_prefix_tokens: int, fixed_input: int | None = None,
+                        fixed_input_mode: str = "bilinear") -> Callable:
+    """Build ``images -> (list[map], list[cls])`` for a ViT module.
+
+    ``fixed_input``: the reference wrapper of some models (CroCo, BEiT,
+    MiDaS) resizes every input to ``fixed_input`` squared
+    (``fixed_input_mode``, ``align_corners=False``), so features come out at
+    that fixed grid whatever the input size."""
     taps = tuple(taps)
 
     def apply_fn(images: torch.Tensor):
+        if fixed_input is not None and tuple(images.shape[1:3]) != (fixed_input,
+                                                                    fixed_input):
+            images = resize(images, (fixed_input, fixed_input), mode=fixed_input_mode,
+                            align_corners=False)
         res = module(images, taps=taps)
         gh, gw = res["grid_hw"]
         num_spatial = gh * gw

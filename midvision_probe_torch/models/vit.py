@@ -7,13 +7,23 @@ released checkpoint can later load with ``load_state_dict``. The fused qkv
 projection keeps the source column order ``(role, head, j)``, which is the
 layout the attention kernel reads.
 
-Every block's attention goes through ``ops.vit_attention.fused_qkv_attention``:
-the CUDA kernel on a CUDA tensor, its plain twin on a CPU tensor. The JAX
-package's whole-network 128-padding was a TPU layout device and is dropped:
-the kernel takes any token count.
+A block's attention takes one of the JAX package's two branches
+(``models/vit.py::Attention``):
 
-Not ported yet (a config asking for them raises): RoPE, relative-position
-bias, LayerScale, register tokens, windowed attention, ``scan_blocks``.
+* fused: without RoPE or a relative-position bias and with a head dim that
+  divides 128, ``ops.vit_attention.fused_qkv_attention`` (kernel K1) reads
+  the qkv projection directly (DINO and the other plain ViTs);
+* generic: q, k and v as ``(B, H, N, d)`` views of the projection, 2D RoPE
+  on the patch tokens (``ops.rope2d.rope_2d``, kernel K5; the prefix tokens
+  stay unrotated), then ``ops.attention.multi_head_attention`` (kernel K2,
+  or its long-sequence route K3) (CroCo-v2, and RADIO-v2's head dim 80).
+
+Each kernel runs on a CUDA tensor, its plain version on a CPU tensor. The
+JAX package's whole-network 128-padding was a TPU layout device and is
+dropped: the kernels take any token count.
+
+Not ported yet (a config asking for them raises): relative-position bias,
+LayerScale, register tokens, windowed attention, ``scan_blocks``.
 """
 
 from __future__ import annotations
@@ -28,8 +38,10 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from midvision_probe_torch.ops.activations import gelu
+from midvision_probe_torch.ops.attention import multi_head_attention
 from midvision_probe_torch.ops.image import resize
-from midvision_probe_torch.ops.vit_attention import fused_qkv_attention
+from midvision_probe_torch.ops.rope2d import rope_2d
+from midvision_probe_torch.ops.vit_attention import FUSED_HEAD_DIMS, fused_qkv_attention
 
 
 @dataclasses.dataclass(frozen=True)
@@ -53,7 +65,8 @@ class ViTConfig:
     act: str = "gelu"  # gelu (erf f32 / tanh half) | quickgelu | gelu_tanh
     layerscale: bool = False
     rel_pos_bias: bool = False
-    rope: bool = False
+    rope: bool = False  # CroCo-style 2D RoPE on q/k (no abs pos embed)
+    rope_base: float = 100.0
     window_size: int = 0
     use_rel_pos: bool = False
     final_norm: bool = False  # apply final LN to tapped outputs
@@ -70,7 +83,7 @@ class ViTConfig:
 
     def check_supported(self) -> None:
         unsupported = {
-            "rope": self.rope, "rel_pos_bias": self.rel_pos_bias,
+            "rel_pos_bias": self.rel_pos_bias,
             "layerscale": self.layerscale,
             "num_register_tokens": self.num_register_tokens,
             "window_size": self.window_size, "use_rel_pos": self.use_rel_pos,
@@ -153,16 +166,30 @@ class Mlp(nn.Module):
 class Attention(nn.Module):
     def __init__(self, cfg: ViTConfig):
         super().__init__()
-        self.num_heads = cfg.num_heads
-        self.head_dim = cfg.head_dim
+        self.cfg = cfg
+        self.fused = (not cfg.rope and not cfg.rel_pos_bias
+                      and cfg.head_dim in FUSED_HEAD_DIMS)
         self.qkv = nn.Linear(cfg.width, 3 * cfg.width, bias=cfg.qkv_bias)
         self.proj = nn.Linear(cfg.width, cfg.width)
 
-    def forward(self, x):
+    def forward(self, x, pos_2d=None):
+        c = self.cfg
         B, N, C = x.shape
-        qkv = self.qkv(x).reshape(B, N, 3, self.num_heads, self.head_dim)
-        out = fused_qkv_attention(qkv, self.head_dim**-0.5)
-        return self.proj(out.reshape(B, N, C))
+        scale = c.head_dim**-0.5
+        qkv = self.qkv(x).reshape(B, N, 3, c.num_heads, c.head_dim)
+        if self.fused:
+            return self.proj(fused_qkv_attention(qkv, scale).reshape(B, N, C))
+
+        q, k, v = qkv.permute(2, 0, 3, 1, 4).unbind(0)  # (B, H, N, d) views
+        if c.rope and pos_2d is not None:
+            # rotate patch tokens only; prefix tokens are left untouched
+            p = c.num_prefix_tokens
+            q_pat = rope_2d(q[:, :, p:], pos_2d, base=c.rope_base)
+            k_pat = rope_2d(k[:, :, p:], pos_2d, base=c.rope_base)
+            q = torch.cat([q[:, :, :p], q_pat], dim=2) if p else q_pat
+            k = torch.cat([k[:, :, :p], k_pat], dim=2) if p else k_pat
+        out = multi_head_attention(q, k, v, scale=scale)
+        return self.proj(out.transpose(1, 2).reshape(B, N, C))
 
 
 class Block(nn.Module):
@@ -173,8 +200,8 @@ class Block(nn.Module):
         self.norm2 = nn.LayerNorm(cfg.width, eps=cfg.layernorm_eps)
         self.mlp = Mlp(cfg)
 
-    def forward(self, x):
-        x = x + self.attn(self.norm1(x))
+    def forward(self, x, pos_2d=None):
+        x = x + self.attn(self.norm1(x), pos_2d)
         return x + self.mlp(self.norm2(x))
 
 
@@ -247,11 +274,19 @@ class ViT(nn.Module):
         if c.pre_norm:
             x = self.norm_pre(x)
 
+        pos_2d = None
+        if c.rope:
+            yy, xx = torch.meshgrid(
+                torch.arange(gh, dtype=torch.int32, device=x.device),
+                torch.arange(gw, dtype=torch.int32, device=x.device), indexing="ij")
+            pos_2d = torch.stack([yy.reshape(-1), xx.reshape(-1)], dim=-1)
+            pos_2d = pos_2d[None].expand(B, gh * gw, 2)
+
         taps = list(taps)
         max_tap = max(taps)
         outputs = {}
         for i, blk in enumerate(self.blocks):
-            x = blk(x)
+            x = blk(x, pos_2d)
             if i in taps:
                 outputs[i] = self.norm(x) if c.final_norm else x
             if i == max_tap:

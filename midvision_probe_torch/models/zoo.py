@@ -1,8 +1,9 @@
 """Backbone zoo of the PyTorch port (counterpart of the JAX package's
-``models/zoo.py``): the ``dino_vitb16`` and ``test_tiny_vit`` entries,
-``build_vit_extractor`` and the reference-compatible ``DINO`` constructor.
+``models/zoo.py``): the ``dino_vitb16``, ``crocov2_vitb16``, ``radio_v2`` and
+``test_tiny_vit`` entries, ``build_vit_extractor`` and the
+reference-compatible ``DINO``, ``CROCOV2`` and ``RADIO`` constructors.
 
-No weights ship with the repository, so both entries are random-initialised
+No weights ship with the repository, so every entry is random-initialised
 from a seeded ``torch.Generator`` (the JAX package random-initialises too,
 with JAX's generator; the draws differ, the distributions match). Loading a
 released checkpoint is not ported yet and raises if one is present.
@@ -41,6 +42,9 @@ class ZooEntry:
     image_mean: tuple = IMAGENET_MEAN
     image_std: tuple = IMAGENET_STD
     default_size: int = 224
+    # the reference wrapper resizes every input to fixed_input squared
+    fixed_input: int | None = None
+    fixed_input_mode: str = "bilinear"
 
 
 def _vit(preset: str, patch: int, table: int | None = None, **kw) -> dict:
@@ -64,6 +68,25 @@ register(ZooEntry(
     "dino_vitb16", "vit", "dino_vitb16.pth",
     url="facebookresearch/dino:dino_vitb16",
     vit=_vit("vit_base", 16, 14),
+))
+
+# CroCo-v2: the zoo's 2D-RoPE model (no pos-embed table, no cls token); the
+# reference wrapper bilinearly resizes every input to 224x224
+# (crocov2.py:152-154), so it always runs at N = 196 tokens
+register(ZooEntry(
+    "crocov2_vitb16", "vit", "CroCo_V2_ViTBase_BaseDecoder.pth",
+    url="naver CroCo v2 (crocov2.py:10-15)",
+    vit=_vit("vit_base", 16, pos_embed="none", class_token=False, rope=True),
+    fixed_input=224,
+))
+
+# RADIO v2 trunk (radio.py:84-115): ViT-H/16 (head dim 80), pos embed on the
+# patches only (no cls row) plus a learned cls, every tap through the final
+# norm. The checkpoint's input conditioner is not ported (no checkpoint).
+register(ZooEntry(
+    "radio_v2", "vit", "radio_v2.pth.tar",
+    url="NVlabs RADIO v2 (radio.py:35)",
+    vit=_vit("vit_huge", 16, 16, final_norm=True, pos_embed_cls=False),
 ))
 
 # tiny randomly-initialized ViT for smoke tests
@@ -108,7 +131,8 @@ def build_vit_extractor(
     if cfg.pos_embed == "learned" and cfg.table_grid is None:
         # pin the canonical pos-embed grid to the init resolution so inputs
         # of any other size resize the table instead of re-shaping the param
-        g = (init_size or entry.default_size) // cfg.patch_size
+        # fixed-input models always run at their own size: init there
+        g = (entry.fixed_input or init_size or entry.default_size) // cfg.patch_size
         cfg = dataclasses.replace(cfg, table_grid=(g, g))
 
     multilayers = default_vit_multilayers(cfg.depth)
@@ -138,7 +162,8 @@ def build_vit_extractor(
         image_std=entry.image_std,
     )
     apply_fn = make_vit_feature_fn(module, multilayers, output,
-                                   cfg.num_prefix_tokens)
+                                   cfg.num_prefix_tokens, fixed_input=entry.fixed_input,
+                                   fixed_input_mode=entry.fixed_input_mode)
     return FeatureExtractor(apply_fn, module, spec,
                             return_multilayer=return_multilayer,
                             return_cls=return_cls)
@@ -157,3 +182,26 @@ def DINO(dino_name="dino", model_name="vitb16", output="dense", layer=-1,
     return build_vit_extractor(
         name, output=output, layer=layer, return_multilayer=return_multilayer,
         add_norm=add_norm, return_cls=return_cls, **kw)
+
+
+def CROCOV2(model_name="vitb16", output="dense", layer=-1,
+            return_multilayer=False, add_norm=False, return_cls=False, **kw):
+    """Reference ``crocov2.py`` constructor surface (``configs/backbone``)."""
+    for k in _COMMON_IGNORED:
+        kw.pop(k, None)
+    return build_vit_extractor(
+        "crocov2_vitb16", output=output, layer=layer,
+        return_multilayer=return_multilayer, add_norm=add_norm,
+        return_cls=return_cls, **kw)
+
+
+def RADIO(version="radio_v2", output="dense", layer=-1,
+          return_multilayer=False, add_norm=False, **kw):
+    """Reference ``radio.py:35`` constructor surface (``configs/backbone``).
+    The checkpoint's input conditioner is not ported: the ImageNet
+    mean/std of the entry stand in until a checkpoint is loaded."""
+    for k in _COMMON_IGNORED + ("return_cls",):
+        kw.pop(k, None)
+    return build_vit_extractor(
+        "radio_v2", output=output, layer=layer,
+        return_multilayer=return_multilayer, add_norm=add_norm, **kw)

@@ -14,6 +14,7 @@ import ctypes
 import hashlib
 import os
 import shutil
+import struct
 import subprocess
 import time
 from pathlib import Path
@@ -22,7 +23,7 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-KERNEL_SOURCES = ("vit_attention", "knn2")
+KERNEL_SOURCES = ("vit_attention", "knn2", "rope2d")
 
 _LOADED: dict[str, ctypes.CDLL] = {}
 # per source: build seconds (0.0 when the library was already on disk) and
@@ -73,6 +74,13 @@ def build_all(names=KERNEL_SOURCES) -> dict[str, Path]:
     if failed:
         raise RuntimeError("\n".join(failed))
     return {name: _library_path(name) for name in names}
+
+
+def float_bits(x: float) -> int:
+    """The 32-bit pattern of ``x`` rounded to float32, as a C int: the C
+    entry points take their float arguments this way (every argument is a
+    pointer or an integer)."""
+    return struct.unpack("<i", struct.pack("<f", x))[0]
 
 
 def load_library(name: str) -> ctypes.CDLL:

@@ -1,37 +1,48 @@
-"""Fused-qkv ViT attention: the hand-written CUDA kernel K1, its plain
-PyTorch twin and the wrapper that chooses between them.
+"""ViT softmax attention: the hand-written CUDA kernels K1 (fused qkv) and
+K2 (``(B, H, N, d)`` operands), their plain PyTorch versions and the
+wrappers that choose between them.
 
-Counterpart of the JAX package's Pallas TPU kernel ``fused_qkv_attention``
-(``ops/vit_attention.py``, ``_fused_forward`` -> ``_fused_kernel``). The
-kernel source is ``csrc/vit_attention.cu``; its header says what bounds it
-on an H100 (tensor-core operations at the ViT-B/16 probing shape) and what
-the design does about it.
+Counterpart of the JAX package's Pallas TPU kernels ``fused_qkv_attention``
+(``ops/vit_attention.py``, ``_fused_forward`` -> ``_fused_kernel``) and
+``vit_attention`` (``_forward`` -> ``_attn_kernel``). Both are one kernel in
+``csrc/vit_attention.cu`` with two entry points; its header says what bounds
+it on an H100 (tensor-core operations at the probing shapes) and what the
+design does about it.
 
 * ``fused_qkv_attention(qkv, scale, n_valid=None)``: qkv ``(B, N, 3, H, d)``
-  -> ``(B, N, H*d)``. For a CPU tensor it runs the plain twin; for a CUDA
-  tensor it launches the kernel or raises. There is no fallback.
-* ``_fused_qkv_attention_plain``: the einsum + softmax formulation of the
-  JAX package's ``_fused_einsum_ref`` (f32 scores, probabilities cast to
-  the input dtype before the PV product).
+  -> ``(B, N, H*d)``.
+* ``vit_attention(q, k, v, scale)``: ``(B, H, N, d)`` each, any strides with
+  a contiguous last dimension (q/k/v may be views of the qkv projection) ->
+  ``(B, H, N, d)``, on a card a view of a ``(B, N, H, d)`` buffer so that the
+  transpose back to tokens before ``proj`` is free.
+* For a CPU tensor each runs its plain version; for a CUDA tensor it
+  launches the kernel or raises. There is no fallback.
+* ``_fused_qkv_attention_plain`` / ``_vit_attention_plain``: the einsum +
+  softmax formulations of the JAX package's ``_fused_einsum_ref`` /
+  ``_einsum_ref`` (``q * scale`` in the input dtype, f32 scores and softmax,
+  probabilities cast to the input dtype before the PV product).
 
 Constraints of the CUDA kernel (they replace the TPU-only gates of the JAX
-package's ``fused_attention_ok``: 128-lane divisibility, the VMEM cap and
-N >= 256 do not apply): head dim d in {16, 32, 64, 128}; dtype bfloat16 or
-float32 (float32 runs a SIMT path with no TF32); the qkv tensor contiguous
-and 16-byte aligned; any N >= 1 and 1 <= n_valid <= N; forward only (the
-backbone is frozen, so no gradient flows through it).
+package: 128-lane divisibility, the VMEM cap, N >= 256 and the 128-padding
+do not apply): head dim d in {16, 32, 64, 80, 128}; K1 keeps the JAX fused
+kernel's d | 128 (so a model takes the same branch as on the TPU); dtype
+bfloat16 or float32 (float32 runs a SIMT path with no TF32); 16-byte aligned
+rows; any N >= 1 (K1: 1 <= n_valid <= N); forward only (the backbone is
+frozen, so no gradient flows through it).
 """
 
 from __future__ import annotations
 
 import ctypes
 import math
-import struct
 
 import torch
 
+from midvision_probe_torch.ops.cuda_build import float_bits, load_library
+
 _LOG2E = math.log2(math.e)
-_HEAD_DIMS = (16, 32, 64, 128)
+_HEAD_DIMS = (16, 32, 64, 80, 128)  # the kernel's
+FUSED_HEAD_DIMS = (16, 32, 64, 128)  # K1: the JAX fused kernel's d | 128
 _DTYPES = (torch.bfloat16, torch.float32)
 
 
@@ -49,9 +60,15 @@ def _fused_qkv_attention_plain(qkv: torch.Tensor, scale: float,
     return torch.einsum("bhqk,bkhd->bqhd", p, v).reshape(B, N, H * d)
 
 
-def _kernel():
-    from midvision_probe_torch.ops.cuda_build import load_library
+def _vit_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         scale: float) -> torch.Tensor:
+    """(B, H, N, d) einsum formulation (the JAX package's ``_einsum_ref``)."""
+    s = torch.einsum("bhqd,bhkd->bhqk", (q * scale).float(), k.float())
+    p = torch.softmax(s, dim=-1).to(q.dtype)
+    return torch.einsum("bhqk,bhkd->bhqd", p, v)
 
+
+def _kernel():
     lib = load_library("vit_attention")
     fn = lib.mvp_fused_qkv_attention
     if fn.argtypes is None:
@@ -61,8 +78,13 @@ def _kernel():
     return fn
 
 
-def _float_bits(x: float) -> int:
-    return struct.unpack("<i", struct.pack("<f", x))[0]
+def _strided_kernel():
+    fn = load_library("vit_attention").mvp_vit_attention
+    if fn.argtypes is None:
+        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
+                       + [ctypes.c_int64] * 12 + [ctypes.c_int] * 2 + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+    return fn
 
 
 def fused_qkv_attention(qkv: torch.Tensor, scale: float,
@@ -81,8 +103,8 @@ def fused_qkv_attention(qkv: torch.Tensor, scale: float,
         return _fused_qkv_attention_plain(qkv, scale, n_valid)
     if qkv.device.type != "cuda":
         raise ValueError(f"unsupported device {qkv.device}")
-    if d not in _HEAD_DIMS:
-        raise ValueError(f"head dim {d} not in {_HEAD_DIMS}")
+    if d not in FUSED_HEAD_DIMS:
+        raise ValueError(f"head dim {d} not in {FUSED_HEAD_DIMS}")
     if qkv.dtype not in _DTYPES:
         raise ValueError(f"dtype {qkv.dtype} not in {_DTYPES}")
     if not qkv.is_contiguous() or qkv.data_ptr() % 16:
@@ -94,7 +116,7 @@ def fused_qkv_attention(qkv: torch.Tensor, scale: float,
     with torch.cuda.device(qkv.device):
         err = _kernel()(
             qkv.data_ptr(), out.data_ptr(), B, N, H, d,
-            N if n_valid is None else n_valid, _float_bits(scale * _LOG2E),
+            N if n_valid is None else n_valid, float_bits(scale * _LOG2E),
             int(qkv.dtype == torch.bfloat16),
             torch.cuda.current_stream(qkv.device).cuda_stream)
     if err != 0:
@@ -105,3 +127,63 @@ def fused_qkv_attention(qkv: torch.Tensor, scale: float,
 
 
 fused_qkv_attention.launches = 0  # kernel launches (never the plain twin)
+
+
+def _check_rows(name: str, t: torch.Tensor) -> None:
+    """The kernel reads every row with 16-byte copies: unit last stride and
+    a 16-byte aligned start for every (b, h, n) row."""
+    if t.stride(-1) != 1:
+        raise ValueError(f"{name} must have a contiguous last dimension")
+    size = t.element_size()
+    if t.data_ptr() % 16 or any(st * size % 16 for st, n in zip(t.stride()[:3], t.shape[:3])
+                                if n > 1):
+        raise ValueError(f"{name} rows must be 16-byte aligned")
+
+
+def launch_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     scale: float) -> torch.Tensor:
+    """Launch the strided kernel on CUDA ``(B, H, N, d)`` operands; returns
+    the ``(B, H, N, d)`` view of a fresh ``(B, N, H, d)`` buffer. Raises on
+    anything the kernel does not take. The callers (``vit_attention`` and
+    ``ops.attention._flash_attention``) count the launch."""
+    if q.device.type != "cuda":
+        raise ValueError(f"unsupported device {q.device}")
+    if q.ndim != 4 or q.shape != k.shape or q.shape != v.shape:
+        raise ValueError("q, k, v must be (B, H, N, d) of one shape, got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
+    B, H, N, d = q.shape
+    if d not in _HEAD_DIMS:
+        raise ValueError(f"head dim {d} not in {_HEAD_DIMS}")
+    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise ValueError(f"dtypes {q.dtype}, {k.dtype}, {v.dtype}: one of {_DTYPES} "
+                         "for all three")
+    if k.device != q.device or v.device != q.device:
+        raise ValueError("q, k, v must be on one device")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        _check_rows(name, t)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise RuntimeError("the attention kernel is forward-only (frozen "
+                           "backbone); run it under torch.no_grad()")
+    out = torch.empty((B, N, H, d), dtype=q.dtype, device=q.device).transpose(1, 2)
+    with torch.cuda.device(q.device):
+        err = _strided_kernel()(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, N, H, d,
+            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
+            float_bits(scale * _LOG2E), int(q.dtype == torch.bfloat16),
+            torch.cuda.current_stream(q.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"attention kernel launch failed: cudaError {err}")
+    return out
+
+
+def vit_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  scale: float) -> torch.Tensor:
+    """Non-causal, unmasked attention on ``(B, H, N, d)`` operands."""
+    if q.device.type == "cpu":
+        return _vit_attention_plain(q, k, v, scale)
+    out = launch_attention(q, k, v, scale)
+    vit_attention.launches += 1
+    return out
+
+
+vit_attention.launches = 0  # kernel launches (never the plain version)

@@ -12,7 +12,10 @@ import numpy as np
 import pytest
 import torch
 
+from midvision_probe_torch.models import vit as t_vit
 from midvision_probe_torch.models import zoo
+from midvision_probe_torch.ops import attention as mha
+from midvision_probe_torch.ops import rope2d
 from midvision_probe_torch.ops import vit_attention as attn
 
 
@@ -159,3 +162,123 @@ def test_knn2_kernel_ties_break_to_the_lowest_index(cuda):
     torch.cuda.synchronize()
     torch.testing.assert_close(idx, ref_i, atol=0, rtol=0)
     torch.testing.assert_close(dist, ref_d, atol=0, rtol=0)
+
+
+# ------------------------------------------------------- K2/K3 vit_attention
+def _strided_qkv(B, N, H, d, dtype, seed):
+    """q, k, v as (B, H, N, d) views of one (B, N, 3, H, d) projection."""
+    x = np.random.RandomState(seed).randn(B, N, 3, H, d).astype(np.float32)
+    return torch.from_numpy(x).to("cuda", dtype).permute(2, 0, 3, 1, 4).unbind(0)
+
+
+# (B, H, N, d): every head dim at a ragged N, RADIO's d = 80, a long N (the
+# JAX package's flash route), N = 1
+K2_CASES = [(2, 2, 77, 16), (2, 2, 77, 32), (2, 2, 77, 64), (2, 2, 77, 80),
+            (2, 2, 77, 128), (1, 3, 1201, 80), (1, 2, 4097, 80), (2, 1, 1, 80)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 1.6e-2), (torch.float32, 1e-5)])
+@pytest.mark.parametrize("B,H,N,d", K2_CASES)
+def test_vit_attention_kernel_matches_plain_version(cuda, dtype, tol, B, H, N, d):
+    """Strided views in, a (B, H, N, d) view of a (B, N, H, d) buffer out;
+    fp32 with TF32 off. Tolerances as K1's."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    q, k, v = _strided_qkv(B, N, H, d, dtype, seed=N + d)
+    before = (attn.vit_attention.launches, mha._flash_attention.launches)
+    with torch.no_grad():
+        got = attn.vit_attention(q, k, v, d**-0.5)
+        flash = mha.multi_head_attention(q, k, v, scale=d**-0.5, use_flash=True)
+        ref = attn._vit_attention_plain(q, k, v, d**-0.5)
+    torch.cuda.synchronize()
+    assert (attn.vit_attention.launches, mha._flash_attention.launches) == (
+        before[0] + 1, before[1] + 1)
+    assert tuple(got.shape) == (B, H, N, d) and got.transpose(1, 2).is_contiguous()
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got.float(), ref.float(), atol=tol, rtol=0)
+    torch.testing.assert_close(flash.float(), ref.float(), atol=tol, rtol=0)
+
+
+@pytest.mark.cuda
+def test_vit_attention_kernel_rejects_what_it_cannot_take(cuda):
+    z = torch.zeros(1, 2, 8, 48, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="head dim"):
+        attn.vit_attention(z, z, z, 0.1)
+    z = torch.zeros(1, 2, 32, 32, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="contiguous last"):
+        attn.vit_attention(z.transpose(2, 3), z, z, 0.1)
+    z = torch.zeros(1, 2, 8, 32, device=cuda, dtype=torch.bfloat16)
+    wide = torch.zeros(1, 2, 8, 36, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="aligned"):
+        attn.vit_attention(wide[..., :32], z, z, 0.1)  # 72-byte rows
+    with pytest.raises(ValueError, match="aligned"):
+        attn.vit_attention(torch.zeros(2 * 8 * 32 + 1, device=cuda, dtype=torch.bfloat16)
+                           [1:].view(1, 2, 8, 32), z, z, 0.1)
+    with pytest.raises(ValueError, match="dtype"):
+        attn.vit_attention(z.half(), z.half(), z.half(), 0.1)
+    with pytest.raises(RuntimeError, match="forward-only"):
+        attn.vit_attention(z.float().requires_grad_(), z.float(), z.float(), 0.1)
+
+
+# ----------------------------------------------------------------- K5 rope2d
+def _rope_inputs(B, H, gh, gw, dim, dtype, prefix, seed):
+    """q as a strided (B, H, N, dim) view of a (B, N, 3, H, dim) projection
+    (the first ``prefix`` tokens sliced off), and int32 (y, x) positions."""
+    x = np.random.RandomState(seed).randn(B, prefix + gh * gw, 3, H, dim) * 2
+    q = torch.from_numpy(x.astype(np.float32)).to("cuda", dtype).permute(2, 0, 3, 1, 4)[0]
+    yy, xx = torch.meshgrid(torch.arange(gh), torch.arange(gw), indexing="ij")
+    pos = torch.stack([yy.reshape(-1), xx.reshape(-1)], -1).to("cuda", torch.int32)
+    return q[:, :, prefix:], pos[None].expand(B, -1, -1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("B,H,gh,gw,dim,prefix", [
+    (2, 12, 14, 14, 64, 0), (2, 2, 4, 3, 64, 0), (2, 3, 5, 7, 64, 1), (3, 2, 6, 6, 16, 0)])
+def test_rope2d_kernel_matches_plain_version(cuda, dtype, B, H, gh, gw, dim, prefix):
+    """f32 within 1e-5 abs (|t| <~ 8: sin/cos/exp of the two may differ in
+    the last ulp); bf16/fp16 within one ulp of the plain output."""
+    q, pos = _rope_inputs(B, H, gh, gw, dim, dtype, prefix, seed=dim + gh)
+    before = rope2d.rope_2d.launches
+    with torch.no_grad():
+        got = rope2d.rope_2d(q, pos)
+        ref = rope2d._rope_2d_plain(q, pos)
+    torch.cuda.synchronize()
+    assert rope2d.rope_2d.launches == before + 1
+    assert got.dtype == dtype and got.is_contiguous() and got.shape == q.shape
+    g, r = got.float(), ref.float()
+    if dtype == torch.float32:
+        torch.testing.assert_close(g, r, atol=1e-5, rtol=0)
+    else:
+        ulp = 2.0**-7 if dtype == torch.bfloat16 else 2.0**-10
+        assert bool(((g - r).abs() <= ulp * r.abs() + 1e-6).all())
+
+
+@pytest.mark.cuda
+def test_crocov2_shaped_vit_on_the_card_matches_the_cpu_plain_version(cuda):
+    """A tiny CroCo-v2-shaped ViT (RoPE, no cls) and a RADIO-shaped one
+    (d = 80): every block on the card goes through K5 (q and k) and K2,
+    never K1; taps against the same weights on the CPU, fp32 with TF32 off,
+    atol 1e-4."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        images = torch.from_numpy(np.random.RandomState(1).rand(2, 32, 48, 3)
+                                  .astype(np.float32))
+        for cfg, k5 in ((dict(patch_size=8, width=64, depth=2, num_heads=2,
+                              class_token=False, pos_embed="none", rope=True), 4),
+                        (dict(patch_size=8, width=160, depth=2, num_heads=2,
+                              final_norm=True, pos_embed_cls=False, table_grid=(4, 4)), 0)):
+            cpu = zoo.random_init(t_vit.ViT(t_vit.ViTConfig(**cfg)))
+            gpu = zoo.random_init(t_vit.ViT(t_vit.ViTConfig(**cfg))).to(cuda)
+            before = (attn.fused_qkv_attention.launches, attn.vit_attention.launches,
+                      rope2d.rope_2d.launches)
+            with torch.no_grad():
+                got = gpu(images.to(cuda), taps=[0, 1])["tokens"]
+                ref = cpu(images, taps=[0, 1])["tokens"]
+            assert (attn.fused_qkv_attention.launches, attn.vit_attention.launches,
+                    rope2d.rope_2d.launches) == (before[0], before[1] + 2, before[2] + k5)
+            for g, r in zip(got, ref):
+                torch.testing.assert_close(g.cpu(), r, atol=1e-4, rtol=0)
+    finally:
+        torch.backends.cudnn.allow_tf32 = True

@@ -85,8 +85,8 @@ def test_extractor_contract_single_layer_and_cls(rng):
 
 
 def test_vit_unported_features_raise():
-    with pytest.raises(NotImplementedError, match="rope"):
-        t_vit.ViT(t_vit.ViTConfig(rope=True, table_grid=(2, 2)))
+    with pytest.raises(NotImplementedError, match="rel_pos_bias"):
+        t_vit.ViT(t_vit.ViTConfig(rel_pos_bias=True, table_grid=(2, 2)))
     with pytest.raises(NotImplementedError, match="not ported"):
         t_zoo.build_vit_extractor("dinov2_vitb14", device="cpu")
 
