@@ -35,6 +35,18 @@ JSON line per phase and fails on the first failing phase:
 5. ``rope_checks``: the 2D RoPE kernel (K5) against its plain version:
    CroCo-v2's q launch (B=64, H=12, 14x14 grid, dim 64, a strided view),
    f32, a non-square grid, a one-token prefix slice and dim 16.
+5a. ``variant_checks``: the attention bench's kernels against their plain
+   versions at the bench shape (B=64, N=1280, n_valid=1201, H=12, d=64,
+   bf16): the clamped exp2 attention K7 (``wide4``, ``stagger4``,
+   ``wide12``), its int8 form K8, and K9 (exact softmax over the valid
+   keys on K2's kernel); a case where min(s, 110) clamps, n_valid = N, and
+   rows whose exponentials all underflow; timed cases with SDPA on the
+   valid keys as the yardstick (K8: none; SDPA's bf16 time beside it).
+5b. ``mlp_checks``: the fused MLP (K6) against its plain version at DINO
+   ViT-B/16's MLP (M = 64*1201, C=768, H=3072) and RADIO-v2's (C=1280,
+   H=5120) in bf16 with gelu_tanh (timed, with ``F.linear`` -> GELU ->
+   ``F.linear`` as the yardstick), every activation in bf16 and f32 at
+   M=300, and one backward on the card against the CPU's.
 6. ``path``: the depth trainer (``midvision_probe_torch.train_depth``)
    through its ``entry`` on full-width dino_b16 (random weights),
    synthetic 480x640 data, the DPT depth probe, a bf16 backbone: per-step
@@ -60,6 +72,13 @@ JSON line per phase and fails on the first failing phase:
    bf16, 4 taps), crocov2_vitb16 (224x224, batch 64, bf16), radio_v2
    (480x640, batch 64, bf16) and radio_v2 in float32 at 1024x1024 (batch 2,
    N=4097: the shape that takes the long-sequence route, K3).
+11. ``bench_attn``: the attention bench through its entry point
+   (``midvision_probe_torch.bench_attn.main``) with every variant (``base``
+   K1, ``wide4``/``stagger4``/``wide12`` K7, ``int8`` K8, ``splash`` K9):
+   its per-variant times and errors against the f32 oracle, and the launch
+   counts.
+12. ``path_fused_mlp``: K6 as a library op, a 12-block residual MLP stack at
+   DINO's width over a 64-image batch: wall time and launch counts.
 
 Then a ``kernels`` summary line, the ``nvidia-smi`` name/power-limit line
 and, last, ``{"ok": true, "device": {...}}``. Every launch count is set to
@@ -82,6 +101,7 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 
 # published dense peaks of one H100 SXM at its 700 W limit
 PEAK_BF16_FLOPS = 989e12
+PEAK_INT8_OPS = 1979e12
 PEAK_FP32_FLOPS = 67e12  # SIMT, outside the tensor cores
 PEAK_BYTES = 3.35e12
 
@@ -407,19 +427,247 @@ def phase_rope_checks(torch):
     return {r["case"]: r for r in results}
 
 
+# the attention bench's shape: ViT-B/16 at 480x640, 1201 tokens padded to
+# 1280, 12 heads of 64, batch 64
+BENCH_SHAPE = (64, 1280, 12, 64)
+BENCH_N_VALID = 1201
+
+
+def bench_inputs(torch, gen, kind):
+    """bf16 qkv (B, N, 3, H, d) at the bench shape on the card. ``bench``:
+    randn * 0.6 (the bench's); ``clamp``: q and k at std 5 (base-2 scores
+    far above 110), v at std 0.25 (|o| near 1); ``underflow``: the bench's,
+    with positive keys and the first 64 query rows at -64, so that every
+    exp2 of those rows underflows (scores below -2^8) and l takes the 1e-30
+    floor."""
+    B, N, H, d = BENCH_SHAPE
+    std = torch.tensor([5.0, 5.0, 0.25] if kind == "clamp" else [0.6] * 3, device="cuda")
+    qkv = (torch.randn(B, N, 3, H, d, device="cuda", generator=gen)
+           * std[:, None, None]).to(torch.bfloat16)
+    if kind == "underflow":
+        qkv[:, :, 1] = qkv[:, :, 1].abs()
+        qkv[:, :64, 0] = -64.0
+    return qkv
+
+
+def int8_attention_bound_ms(B, N, n_valid, H, d) -> tuple[float, str]:
+    """Least time for K8's kernel: QK^T at the int8 peak plus PV at the bf16
+    peak, or q8, k8 (1 byte), v and the output (2 bytes) moved once."""
+    half = 2.0 * B * H * N * n_valid * d
+    t_ops = half / PEAK_INT8_OPS + half / PEAK_BF16_FLOPS
+    t_bytes = (2.0 * B * N * H * d + 4.0 * B * N * H * d) / PEAK_BYTES
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def phase_variant_checks(torch):
+    """K7 (``wide4``, ``stagger4``, ``wide12``), K8 (``int8``) and K9
+    (``splash``) against their plain versions at the bench shape (B=64,
+    N=1280, n_valid=1201, H=12, d=64, bf16): the bench's inputs (timed), a
+    case where min(s, 110) clamps (its count of clamped scores, on the plain
+    side, must be > 0), n_valid = N, and rows whose exponentials all
+    underflow (the plain side's unfloored l must be < 1e-30 there). Pass:
+    finite, max abs error <= 1.6e-2 (both sides round p and the output to
+    bf16 and sum in other orders: a few ulps at |o| <= 2)."""
+    import torch.nn.functional as F
+
+    from midvision_probe_torch import bench_attn as ba
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    B, N, H, d = BENCH_SHAPE
+    scale = d**-0.5
+    variants = {  # name: (kernel, wrapper, plain version)
+        "wide4": ("K7", lambda x, n: ba.wide_attention(x, scale, n, width=4 * d),
+                  ba._wide_attention_plain),
+        "stagger4": ("K7", lambda x, n: ba.wide_attention(x, scale, n, width=4 * d,
+                                                          stagger=True),
+                     ba._wide_attention_plain),
+        "wide12": ("K7", lambda x, n: ba.wide_attention(x, scale, n, width=12 * d),
+                   ba._wide_attention_plain),
+        "int8": ("K8", lambda x, n: ba.int8_attention(x, scale, n), ba._int8_attention_plain),
+        "splash": ("K9", lambda x, n: ba.splash_attention(x, scale, n),
+                   ba._splash_attention_plain),
+    }
+    nv = BENCH_N_VALID
+    cases = ([(v, "bench", nv, True) for v in variants]
+             + [(v, kind, n, False) for kind, n in (("clamp", nv), ("bench", N))
+                for v in ("wide4", "int8", "splash")]
+             + [(v, "underflow", nv, False) for v in ("wide4", "int8")])
+    results = []
+    for variant, kind, n_valid, timed in cases:
+        kernel, fn, plain = variants[variant]
+        qkv = bench_inputs(torch, gen, kind)
+        with torch.no_grad():
+            out = fn(qkv, n_valid)
+            ref = plain(qkv, scale, n_valid)
+        torch.cuda.synchronize()
+        err = (out.float() - ref.float()).abs().max().item()
+        finite = bool(torch.isfinite(out).all())
+        name = variant if kind == "bench" and n_valid == nv else (
+            f"{variant}_{kind}" if n_valid == nv else f"{variant}_n_valid_{n_valid}")
+        res = {"case": name, "kernel": kernel, "shape": [B, N, H, d], "n_valid": n_valid,
+               "inputs": kind, "max_abs_err": err, "tol": 1.6e-2, "finite": finite}
+        ok = finite and err <= 1.6e-2
+        if kind in ("clamp", "underflow") and kernel != "K9":  # the plain side's scores
+            scores = ba.int8_scores if kernel == "K8" else ba.wide_scores
+            s2 = scores(qkv, scale, n_valid)
+            if kind == "clamp":
+                res["clamped_scores"] = int((s2 > 110).sum())
+                ok = ok and res["clamped_scores"] > 0
+            else:
+                res["max_unfloored_l"] = (
+                    torch.exp2(s2[:, :, :64].clamp(max=110.0)).sum(-1).max().item())
+                res["max_abs_out_underflow_rows"] = ref[:, :64].float().abs().max().item()
+                ok = ok and res["max_unfloored_l"] < 1e-30
+            del s2
+        res["ok"] = ok
+        if timed:
+            q, k, v = qkv.permute(2, 0, 3, 1, 4).unbind(0)  # (B, H, N, d) views
+            with torch.no_grad():
+                if kernel == "K8":
+                    q8, k8, c = ba.quantize_qk(qkv, scale, n_valid)
+                    res["kernel_ms"] = cuda_ms(
+                        torch, lambda: ba._launch_int8(q8, k8, c, qkv, n_valid, 2 * d))
+                    res["with_prologue_ms"] = cuda_ms(torch, lambda: fn(qkv, n_valid))
+                    res["bound_ms"], res["bound_by"] = int8_attention_bound_ms(
+                        B, N, n_valid, H, d)
+                    # no single PyTorch call computes int8 attention; SDPA in
+                    # bf16 on the same keys is a comparison only
+                    res["library_ms"] = None
+                    res["sdpa_bf16_ms"] = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
+                        q, k[:, :, :n_valid], v[:, :, :n_valid], scale=scale))
+                    del q8, k8, c
+                else:
+                    res["kernel_ms"] = cuda_ms(torch, lambda: fn(qkv, n_valid))
+                    res["bound_ms"], res["bound_by"] = attention_bound_ms(
+                        B, N, n_valid, H, d, 2, PEAK_BF16_FLOPS)
+                    res["library_ms"] = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
+                        q, k[:, :, :n_valid], v[:, :, :n_valid], scale=scale))
+                res["plain_ms"] = cuda_ms(torch, lambda: plain(qkv, scale, n_valid), iters=3,
+                                          warmup=1)
+            del q, k, v
+        results.append(res)
+        del qkv, out, ref
+        torch.cuda.empty_cache()
+    emit({"phase": "variant_checks", "cases": results})
+    bad = [r["case"] for r in results if not r["ok"]]
+    if bad:
+        raise SystemExit(f"variant check failed: {bad}")
+    return {r["case"]: r for r in results}
+
+
+def mlp_inputs(torch, gen, M, C, H, dtype):
+    """x (M, C) ~ N(0, 1), w1 (C, H) and w2 (H, C) at std fan_in^-1/2,
+    biases at std 0.1, so that the hidden and output values are O(1)."""
+    def rnd(*shape, std=1.0):
+        return (torch.randn(*shape, device="cuda", generator=gen) * std).to(dtype)
+
+    return [rnd(M, C), rnd(C, H, std=C**-0.5), rnd(H, std=0.1), rnd(H, C, std=H**-0.5),
+            rnd(C, std=0.1)]
+
+
+def mlp_bound_ms(M, C, H, itemsize, peak) -> tuple[float, str]:
+    """Least time for one K6 call: the two products (4*M*C*H) at the
+    dtype's peak, or x, the weights and biases read once and the output
+    written once, at the memory rate."""
+    t_ops = 4.0 * M * C * H / peak
+    t_bytes = (2.0 * M * C + 2.0 * C * H + H + C) * itemsize / PEAK_BYTES
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+
+
+MLP_ROWS = 64 * 1201  # a 64-image batch of ViT-B/16 or ViT-H/16 tokens at 480x640
+
+
+def phase_mlp_checks(torch):
+    """K6 (``fused_mlp``) against ``_fused_mlp_plain``: DINO ViT-B/16's MLP
+    (M = 76,864, C = 768, H = 3072) and RADIO-v2 ViT-H/16's (C = 1280, H =
+    5120) in bf16 with gelu_tanh (the ViT's bf16 GELU), timed; every
+    activation in bf16 and f32 at M = 300; one backward on the card against
+    the CPU's. Pass: bf16 every element within one bf16 ulp of its plain
+    value plus one bf16 ulp of the largest plain output (the hidden
+    activations round to bf16 on both sides; a different f32 summation order
+    can flip one of those roundings, which moves a whole output row by a
+    hidden ulp times a W2 entry); f32 (TF32 off) 1e-5 abs; each gradient
+    within 1e-5 of its largest magnitude (sums over 64 to 3072 terms in
+    other orders on the two devices)."""
+    import torch.nn.functional as F
+
+    from midvision_probe_torch.ops.fused_mlp import ACTIVATIONS, _fused_mlp_plain, fused_mlp
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    bf16, f32 = torch.bfloat16, torch.float32
+    cases = [("dino_bf16", MLP_ROWS, 768, 3072, bf16, "gelu_tanh", True),
+             ("radio_bf16", MLP_ROWS, 1280, 5120, bf16, "gelu_tanh", True),
+             *[(f"{act}_{str(dt)[6:]}", 300, 768, 3072, dt, act, False)
+               for act in ACTIVATIONS for dt in (bf16, f32)]]
+    results = []
+    for name, M, C, H, dtype, act, timed in cases:
+        args = mlp_inputs(torch, gen, M, C, H, dtype)
+        with torch.no_grad():
+            out = fused_mlp(*args, act=act)
+            ref = _fused_mlp_plain(*args, act=act)
+        torch.cuda.synchronize()
+        diff = (out.float() - ref.float()).abs()
+        err = diff.max().item()
+        if dtype == f32:
+            ok = err <= 1e-5
+        else:
+            mag = ref.float().abs()
+            ok = bool((diff <= 2.0**-7 * (mag + mag.max())).all())
+            del mag
+        finite = bool(torch.isfinite(out).all())
+        res = {"case": name, "shape": [M, C, H], "dtype": str(dtype), "act": act,
+               "max_abs_err": err, "finite": finite, "ok": finite and ok}
+        if timed:
+            x, w1, b1, w2, b2 = args
+            approximate = "tanh" if act == "gelu_tanh" else "none"
+            with torch.no_grad():
+                res["kernel_ms"] = cuda_ms(torch, lambda: fused_mlp(*args, act=act), iters=10)
+                res["plain_ms"] = cuda_ms(torch, lambda: _fused_mlp_plain(*args, act=act),
+                                          iters=3, warmup=1)
+                res["library_ms"] = cuda_ms(torch, lambda: F.linear(
+                    F.gelu(F.linear(x, w1.t(), b1), approximate=approximate), w2.t(), b2),
+                    iters=10)
+            res["bound_ms"], res["bound_by"] = mlp_bound_ms(M, C, H, x.element_size(),
+                                                            PEAK_BF16_FLOPS)
+        results.append(res)
+        del args, out, ref, diff
+        torch.cuda.empty_cache()
+
+    args = mlp_inputs(torch, gen, 64, 768, 3072, f32)
+    grads = []
+    for device in ("cuda", "cpu"):
+        leaves = [a.detach().to(device).requires_grad_() for a in args]
+        (fused_mlp(*leaves, act="gelu") ** 2).sum().backward()
+        grads.append([t.grad.cpu() for t in leaves])
+    rel = max(((g - r).abs().max() / r.abs().max()).item() for g, r in zip(*grads))
+    results.append({"case": "backward_fp32", "shape": [64, 768, 3072], "act": "gelu",
+                    "max_err_over_max_grad": rel, "ok": rel <= 1e-5})
+    emit({"phase": "mlp_checks", "cases": results})
+    bad = [r["case"] for r in results if not r["ok"]]
+    if bad:
+        raise SystemExit(f"mlp check failed: {bad}")
+    return {r["case"]: r for r in results}
+
+
 # the launch counts read after every path: K1 fused_qkv_attention, K2
-# vit_attention, K3 the long-sequence route, K4 knn2, K5 rope_2d
-KERNELS = ("k1", "k2", "k3", "k4", "k5")
+# vit_attention, K3 the long-sequence route, K4 knn2, K5 rope_2d, K6
+# fused_mlp, K7 wide_attention, K8 int8_attention, K9 splash_attention
+KERNELS = ("k1", "k2", "k3", "k4", "k5", "k6", "k7", "k8", "k9")
 
 
 def _counters():
+    from midvision_probe_torch import bench_attn
     from midvision_probe_torch.ops.attention import _flash_attention
+    from midvision_probe_torch.ops.fused_mlp import fused_mlp
     from midvision_probe_torch.ops.matching import knn2
     from midvision_probe_torch.ops.rope2d import rope_2d
     from midvision_probe_torch.ops.vit_attention import fused_qkv_attention, vit_attention
 
     return dict(zip(KERNELS, (fused_qkv_attention, vit_attention, _flash_attention, knn2,
-                              rope_2d)))
+                              rope_2d, fused_mlp, bench_attn.wide_attention,
+                              bench_attn.int8_attention, bench_attn.splash_attention)))
 
 
 def reset_counts() -> None:
@@ -449,10 +697,84 @@ def per_forward_ok(counts: dict, per_forward: dict) -> bool:
         counts[k] == n * counts["forwards"] for k, n in per_forward.items())
 
 
-# launches per backbone forward of the three backbones
-DINO_PER_FORWARD = {"k1": 12, "k2": 0, "k3": 0, "k5": 0}
-CROCOV2_PER_FORWARD = {"k1": 0, "k2": 12, "k3": 0, "k5": 24}
-RADIO_PER_FORWARD = {"k1": 0, "k2": 32, "k3": 0, "k5": 0}
+# launches per backbone forward of the three backbones (no backbone
+# reaches K6-K9)
+NO_BENCH_KERNELS = {"k6": 0, "k7": 0, "k8": 0, "k9": 0}
+DINO_PER_FORWARD = {"k1": 12, "k2": 0, "k3": 0, "k5": 0, **NO_BENCH_KERNELS}
+CROCOV2_PER_FORWARD = {"k1": 0, "k2": 12, "k3": 0, "k5": 24, **NO_BENCH_KERNELS}
+RADIO_PER_FORWARD = {"k1": 0, "k2": 32, "k3": 0, "k5": 0, **NO_BENCH_KERNELS}
+
+
+BENCH_VARIANTS = ("base", "wide4", "stagger4", "wide12", "int8", "splash")
+# every bench variant's max abs error against the f32 oracle: a few bf16
+# ulps at the output's largest magnitude (~0.25), plus int8's quantization
+BENCH_ORACLE_BOUND = 5e-3
+
+
+def phase_bench_attn(torch, iters: int = 20):
+    """The attention bench through its entry point
+    (``midvision_probe_torch.bench_attn.main``) at its defaults with every
+    variant: its lines and numbers, the launch counts (each variant: one
+    warm-up, ``iters`` timed and one checked call; K1 for ``base``, K7 for
+    the three wide variants, K8, K9; every other count 0), and each
+    variant's max abs error against the f32 oracle within
+    ``BENCH_ORACLE_BOUND``. Returns the launch counts."""
+    from midvision_probe_torch import bench_attn
+
+    reset_counts()
+    t0 = time.perf_counter()
+    results = bench_attn.main(["--iters", str(iters), "--variants", *BENCH_VARIANTS])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    calls = iters + 2
+    expected = dict.fromkeys(KERNELS, 0)
+    expected.update(k1=calls, k7=3 * calls, k8=calls, k9=calls, forwards=0)
+    emit({"phase": "bench_attn", "results": results, "launches": counts,
+          "oracle_bound": BENCH_ORACLE_BOUND, "wall_s": wall})
+    checks = {
+        "every_variant": [r["variant"] for r in results] == list(BENCH_VARIANTS),
+        "within_oracle_bound": all(r["max_abs_err"] <= BENCH_ORACLE_BOUND for r in results),
+        "launches": counts == expected,
+    }
+    if not all(checks.values()):
+        raise SystemExit(f"bench_attn check failed: {checks}")
+    return counts
+
+
+def phase_path_fused_mlp(torch, blocks: int = 12):
+    """The fused MLP as a library op (no model dispatches it): a residual
+    stack ``x = x + fused_mlp(x, ...)`` of ``blocks`` blocks at DINO
+    ViT-B/16's MLP width over a 64-image batch at 480x640 (M = 76,864, C =
+    768, H = 3072, bf16, gelu_tanh, seeded random weights per block): wall
+    time, a finite output, launch counts (K6 once per block, every other
+    count 0). Returns the launch counts."""
+    from midvision_probe_torch.ops.fused_mlp import fused_mlp
+
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    x = mlp_inputs(torch, gen, MLP_ROWS, 768, 3072, torch.bfloat16)[0]
+    weights = [mlp_inputs(torch, gen, 1, 768, 3072, torch.bfloat16)[1:]
+               for _ in range(blocks)]
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        for w1, b1, w2, b2 in weights:
+            x = x + fused_mlp(x, w1, b1, w2, b2, act="gelu_tanh")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    expected = dict.fromkeys(KERNELS, 0)
+    expected.update(k6=blocks, forwards=0)
+    finite = bool(torch.isfinite(x).all())
+    emit({"phase": "path_fused_mlp", "shape": [MLP_ROWS, 768, 3072], "blocks": blocks,
+          "launches": counts, "finite": finite, "wall_s": wall,
+          "ms_per_block": wall * 1e3 / blocks})
+    if not finite or counts != expected:
+        raise SystemExit(f"path_fused_mlp check failed: finite {finite}, launches {counts}")
+    del x, weights
+    torch.cuda.empty_cache()
+    return counts
 
 
 def profile_entry(torch, module, argv) -> dict:
@@ -621,12 +943,16 @@ def phase_forward(torch, smi: str, model, batch, hw, dtype, per_forward, grid, w
 
 def kernel_entry(name, source, replaces, kernel, by_path, case, route="cuda") -> dict:
     """One entry of the closing ``kernels`` line: its launches on every
-    path and its numbers at the main path's shape (``case``)."""
+    path and its numbers at the main path's shape (``case``). ``replaces``:
+    the TPU kernel's file:line in the JAX package, or in the repository
+    where it starts with ``launch_script/``."""
     from midvision_probe_torch.config.core import JAX_PACKAGE
 
+    if not replaces.startswith("launch_script/"):
+        replaces = f"{JAX_PACKAGE}/{replaces}"
     launches = {path: counts[kernel] for path, counts in by_path.items()}
     return {"name": name, "route": route, "source": f"midvision_probe_torch/csrc/{source}",
-            "replaces": f"{JAX_PACKAGE}/{replaces}", "launches": sum(launches.values()),
+            "replaces": replaces, "launches": sum(launches.values()),
             "launches_by_path": launches, "max_abs_err": case["max_abs_err"],
             "ms": case["kernel_ms"], "plain_ms": case["plain_ms"],
             "bound_ms": case["bound_ms"], "bound_by": case["bound_by"],
@@ -661,6 +987,8 @@ def main() -> int:
     knn2_checks = phase_knn2_checks(torch)
     attn_checks = phase_attention_checks(torch)
     rope_checks = phase_rope_checks(torch)
+    variant_checks = phase_variant_checks(torch)
+    mlp_checks = phase_mlp_checks(torch)
     by_path = {"path": phase_path(torch, "path", "dino_b16", DINO_PER_FORWARD)}
     torch.cuda.empty_cache()
     from midvision_probe_torch import evaluate_navi_correspondence, render_scannet_correspondence
@@ -697,7 +1025,9 @@ def main() -> int:
     # package's split to its flash kernel (K3)
     by_path["forward_radio_v2_fp32_1024"] = phase_forward(
         torch, smi, "radio_v2", 2, (1024, 1024), torch.float32,
-        {"k1": 0, "k2": 0, "k3": 32, "k5": 0}, (64, 64), 1280, iters=3)
+        {"k1": 0, "k2": 0, "k3": 32, "k5": 0, **NO_BENCH_KERNELS}, (64, 64), 1280, iters=3)
+    by_path["bench_attn"] = phase_bench_attn(torch)
+    by_path["path_fused_mlp"] = phase_path_fused_mlp(torch)
     emit({"phase": "done", "total_s": time.perf_counter() - t_start})
 
     emit({"kernels": [
@@ -711,6 +1041,14 @@ def main() -> int:
                      "k3", by_path, attn_checks["k3_radio1024_fp32"]),
         kernel_entry("rope_2d", "rope2d.cu", "ops/rope2d.py:59", "k5", by_path,
                      rope_checks["crocov2_q_bf16"]),
+        kernel_entry("fused_mlp", "fused_mlp.cu", "ops/fused_mlp.py:63", "k6", by_path,
+                     mlp_checks["dino_bf16"]),
+        kernel_entry("wide_attention", "bench_attn.cu", "launch_script/bench_attn.py:52",
+                     "k7", by_path, variant_checks["wide4"]),
+        kernel_entry("int8_attention", "bench_attn.cu", "launch_script/bench_attn.py:133",
+                     "k8", by_path, variant_checks["int8"]),
+        kernel_entry("splash_attention", "vit_attention.cu", "launch_script/bench_attn.py:225",
+                     "k9", by_path, variant_checks["splash"]),
     ]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

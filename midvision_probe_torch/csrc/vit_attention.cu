@@ -13,7 +13,10 @@
 //     the output may be written straight into a (B, N, H, d) buffer. The
 //     JAX package's `_flash_attention` (the jax library's TPU flash kernel,
 //     taken when K+V exceed 2 MB of VMEM) is this same entry point: the
-//     KV-tile loop below is the flash algorithm and takes any N.
+//     KV-tile loop below is the flash algorithm and takes any N. So is the
+//     attention bench's `splash_attention` (launch_script/bench_attn.py, the
+//     jax library's TPU splash kernel with a mask over the valid keys): it
+//     passes n_valid < N.
 //
 // What it computes: non-causal softmax attention with the exact
 // max-subtracted online softmax (scores pre-scaled by scale*log2(e), exp2,
@@ -462,15 +465,18 @@ extern "C" int mvp_fused_qkv_attention(const void* qkv, void* out, int B, int N,
 }
 
 // K2. q, k, v, out: (B, H, N, D) by element strides (batch, head, token),
-// last dimension contiguous, every row 16-byte aligned; same dtype.
+// last dimension contiguous, every row 16-byte aligned; same dtype. Keys and
+// values at index >= n_valid (1 <= n_valid <= N) are excluded: K2 and K3
+// pass N; the bench's splash route (K9) passes its count of valid keys.
 extern "C" int mvp_vit_attention(const void* q, const void* k, const void* v, void* out,
-                                 int B, int N, int H, int D, long long q_sb, long long q_sh,
-                                 long long q_sn, long long k_sb, long long k_sh,
+                                 int B, int N, int H, int D, int n_valid,
+                                 long long q_sb, long long q_sh, long long q_sn,
+                                 long long k_sb, long long k_sh,
                                  long long k_sn, long long v_sb, long long v_sh,
                                  long long v_sn, long long o_sb, long long o_sh,
                                  long long o_sn, int scale_log2_bits, int is_bf16,
                                  void* stream) {
   return launch(q, k, v, out, Strides{q_sb, q_sh, q_sn}, Strides{k_sb, k_sh, k_sn},
-                Strides{v_sb, v_sh, v_sn}, Strides{o_sb, o_sh, o_sn}, B, N, H, D, N,
+                Strides{v_sb, v_sh, v_sn}, Strides{o_sb, o_sh, o_sn}, B, N, H, D, n_valid,
                 scale_log2_bits, is_bf16, stream);
 }

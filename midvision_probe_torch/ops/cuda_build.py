@@ -23,7 +23,7 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-KERNEL_SOURCES = ("vit_attention", "knn2", "rope2d")
+KERNEL_SOURCES = ("vit_attention", "knn2", "rope2d", "bench_attn", "fused_mlp")
 
 _LOADED: dict[str, ctypes.CDLL] = {}
 # per source: build seconds (0.0 when the library was already on disk) and

@@ -81,7 +81,7 @@ def _kernel():
 def _strided_kernel():
     fn = load_library("vit_attention").mvp_vit_attention
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
+        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
                        + [ctypes.c_int64] * 12 + [ctypes.c_int] * 2 + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
@@ -141,17 +141,22 @@ def _check_rows(name: str, t: torch.Tensor) -> None:
 
 
 def launch_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                     scale: float) -> torch.Tensor:
+                     scale: float, n_valid: int | None = None) -> torch.Tensor:
     """Launch the strided kernel on CUDA ``(B, H, N, d)`` operands; returns
-    the ``(B, H, N, d)`` view of a fresh ``(B, N, H, d)`` buffer. Raises on
-    anything the kernel does not take. The callers (``vit_attention`` and
-    ``ops.attention._flash_attention``) count the launch."""
+    the ``(B, H, N, d)`` view of a fresh ``(B, N, H, d)`` buffer. Keys and
+    values at index >= ``n_valid`` (default N) are excluded and never read.
+    Raises on anything the kernel does not take. The callers
+    (``vit_attention``, ``ops.attention._flash_attention`` and
+    ``bench_attn.splash_attention``) count the launch."""
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
     if q.ndim != 4 or q.shape != k.shape or q.shape != v.shape:
         raise ValueError("q, k, v must be (B, H, N, d) of one shape, got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
     B, H, N, d = q.shape
+    n_valid = N if n_valid is None else n_valid
+    if not 0 < n_valid <= N:
+        raise ValueError(f"n_valid={n_valid} outside [1, {N}]")
     if d not in _HEAD_DIMS:
         raise ValueError(f"head dim {d} not in {_HEAD_DIMS}")
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
@@ -167,7 +172,7 @@ def launch_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     out = torch.empty((B, N, H, d), dtype=q.dtype, device=q.device).transpose(1, 2)
     with torch.cuda.device(q.device):
         err = _strided_kernel()(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, N, H, d,
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, N, H, d, n_valid,
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
             float_bits(scale * _LOG2E), int(q.dtype == torch.bfloat16),
             torch.cuda.current_stream(q.device).cuda_stream)

@@ -87,3 +87,13 @@ def test_correspondence_drivers_raise_without_a_device_on_a_cpu_only_host(
         module.entry(["backbone=test_tiny", "num_corr=10", *argv,
                       f"output_dir={tmp_path}"])
     assert not list(tmp_path.iterdir())  # nothing ran on the CPU
+
+
+def test_attention_bench_raises_without_a_device_on_a_cpu_only_host(monkeypatch, capsys):
+    from midvision_probe_torch import bench_attn
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        bench_attn.main(["--batch", "1", "--n-valid", "10", "--heads", "1",
+                         "--variants", "base"])
+    assert capsys.readouterr().out == ""  # nothing ran on the CPU

@@ -282,3 +282,156 @@ def test_crocov2_shaped_vit_on_the_card_matches_the_cpu_plain_version(cuda):
                 torch.testing.assert_close(g.cpu(), r, atol=1e-4, rtol=0)
     finally:
         torch.backends.cudnn.allow_tf32 = True
+
+
+# ------------------------------------------------ K7, K8, K9: attention bench
+def _bench_qkv(B, N, H, d, seed, clamp=False):
+    """bf16 (B, N, 3, H, d) on the card: the bench's randn * 0.6, or (clamp)
+    q and k at std 5 (base-2 scores far above 110) with v at std 0.25 (so
+    that |o| stays near 1)."""
+    x = np.random.RandomState(seed).randn(B, N, 3, H, d).astype(np.float32)
+    x *= np.array([5.0, 5.0, 0.25] if clamp else [0.6] * 3, np.float32)[:, None, None]
+    return torch.from_numpy(x).to("cuda", torch.bfloat16)
+
+
+# (B, N, n_valid, H, d, clamp): the bench's padding, n_valid = N, ragged
+# tiles, every head dim of the kernels, the clamp active
+BENCH_CASES = [(2, 256, 200, 4, 64, False), (2, 256, 256, 4, 64, False),
+               (2, 384, 301, 12, 64, False), (1, 128, 77, 2, 32, False),
+               (1, 256, 250, 2, 128, False), (2, 256, 200, 4, 64, True)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,N,n_valid,H,d,clamp", BENCH_CASES)
+def test_bench_attention_kernels_match_plain_versions(cuda, B, N, n_valid, H, d, clamp):
+    """K7 at every width (one head to all heads per block, with and without
+    stagger), K8 and K9 against their plain versions; bf16 1.6e-2 abs (both
+    sides round p and the output to bf16 and sum in other orders: a few
+    ulps at |o| <= 2). The clamp case checks on the plain side that scores
+    above 110 occur."""
+    from midvision_probe_torch import bench_attn as ba
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    qkv = _bench_qkv(B, N, H, d, seed=N + n_valid + d, clamp=clamp)
+    scale = d**-0.5
+    if clamp:
+        assert (ba.wide_scores(qkv, scale, n_valid) > 110).any()
+        assert (ba.int8_scores(qkv, scale, n_valid) > 110).any()
+    calls = [(ba.wide_attention, ba._wide_attention_plain, dict(width=w, stagger=st))
+             for w in sorted({d, 2 * d, H * d}) if (H * d) % w == 0 for st in (False, True)]
+    calls += [(ba.int8_attention, ba._int8_attention_plain, dict(width=d)),
+              (ba.splash_attention, ba._splash_attention_plain, {})]
+    for fn, plain, kw in calls:
+        before = fn.launches
+        with torch.no_grad():
+            got = fn(qkv, scale, n_valid, **kw)
+            ref = plain(qkv, scale, n_valid)
+        torch.cuda.synchronize()
+        assert fn.launches == before + 1
+        assert got.shape == (B, N, H * d) and torch.isfinite(got).all(), fn.__name__
+        torch.testing.assert_close(got.float(), ref.float(), atol=1.6e-2, rtol=0,
+                                   msg=lambda m, n=fn.__name__, k=kw: f"{n} {k}: {m}")
+
+
+@pytest.mark.cuda
+def test_int8_attention_rows_whose_exponentials_underflow_get_zero(cuda):
+    """q rows of -64 against positive keys: every exp2 underflows, l takes
+    the 1e-30 floor, and those rows come out 0 on both sides."""
+    from midvision_probe_torch import bench_attn as ba
+
+    qkv = _bench_qkv(1, 128, 2, 64, seed=5)
+    qkv[:, :, 1] = qkv[:, :, 1].abs()
+    qkv[:, :16, 0] = -64.0
+    for fn, plain in ((ba.wide_attention, ba._wide_attention_plain),
+                      (ba.int8_attention, ba._int8_attention_plain)):
+        with torch.no_grad():
+            got, ref = fn(qkv, 0.125, 100, width=128), plain(qkv, 0.125, 100)
+        torch.cuda.synchronize()
+        assert ref[:, :16].abs().max().item() == 0, fn.__name__
+        torch.testing.assert_close(got.float(), ref.float(), atol=1.6e-2, rtol=0)
+
+
+@pytest.mark.cuda
+def test_bench_attention_kernels_reject_what_they_cannot_take(cuda):
+    from midvision_probe_torch import bench_attn as ba
+
+    qkv = torch.zeros(1, 128, 3, 2, 64, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="dtype"):
+        ba.wide_attention(qkv.float(), 0.1, 100, width=128)
+    with pytest.raises(ValueError, match="head dim"):
+        ba.int8_attention(torch.zeros(1, 128, 3, 2, 16, device=cuda, dtype=torch.bfloat16),
+                          0.1, 100, width=16)
+    with pytest.raises(ValueError, match="width"):
+        ba.wide_attention(qkv, 0.1, 100, width=96)
+    with pytest.raises(ValueError, match="n_valid"):
+        ba.splash_attention(qkv, 0.1, 129)
+
+
+# ------------------------------------------------------------- K6 fused_mlp
+def _mlp_inputs(M, C, H, dtype, seed):
+    rng = np.random.RandomState(seed)
+    arrays = [rng.randn(M, C), rng.randn(C, H) * C**-0.5, rng.randn(H) * 0.1,
+              rng.randn(H, C) * H**-0.5, rng.randn(C) * 0.1]
+    return [torch.from_numpy(a.astype(np.float32)).to("cuda", dtype) for a in arrays]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("act", ["gelu", "gelu_tanh", "quickgelu"])
+@pytest.mark.parametrize("M,C,H", [(300, 128, 256), (77, 768, 3072), (33, 1280, 160),
+                                   (1, 256, 32), (64, 512, 64), (40, 1024, 96)])
+def test_fused_mlp_kernel_matches_plain_version(cuda, act, M, C, H):
+    """bf16: every element within one bf16 ulp of its plain value plus one
+    bf16 ulp of the largest plain output (the hidden activations round to
+    bf16 on both sides; a different f32 summation order can flip one of
+    those roundings, which moves a whole output row by a hidden ulp times a
+    W2 entry); f32 with TF32 off: 1e-5 abs."""
+    from midvision_probe_torch.ops import fused_mlp as fm
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    for dtype in (torch.bfloat16, torch.float32):
+        args = _mlp_inputs(M, C, H, dtype, seed=M + C + H)
+        before = fm.fused_mlp.launches
+        with torch.no_grad():
+            got = fm.fused_mlp(*args, act=act)
+            ref = fm._fused_mlp_plain(*args, act=act)
+        torch.cuda.synchronize()
+        assert fm.fused_mlp.launches == before + 1
+        assert got.dtype == dtype and got.shape == (M, C) and torch.isfinite(got).all()
+        g, r = got.float(), ref.float()
+        if dtype == torch.float32:
+            torch.testing.assert_close(g, r, atol=1e-5, rtol=0)
+        else:
+            tol = 2.0**-7 * (r.abs() + r.abs().max())
+            assert bool(((g - r).abs() <= tol).all()), (g - r).abs().max().item()
+
+
+@pytest.mark.cuda
+def test_fused_mlp_backward_on_the_card_matches_the_cpu(cuda):
+    """The gradient (autograd through ``_plain``) on the card against the
+    same on the CPU, f32 with TF32 off: 1e-5 abs."""
+    from midvision_probe_torch.ops import fused_mlp as fm
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    args = _mlp_inputs(8, 128, 256, torch.float32, seed=3)
+    grads = []
+    for device in ("cuda", "cpu"):
+        leaves = [a.detach().to(device).requires_grad_() for a in args]
+        (fm.fused_mlp(*leaves, act="gelu") ** 2).sum().backward()
+        grads.append([t.grad.cpu() for t in leaves])
+    for g, r in zip(*grads):
+        torch.testing.assert_close(g, r, atol=1e-5, rtol=0)
+
+
+@pytest.mark.cuda
+def test_fused_mlp_kernel_rejects_what_it_cannot_take(cuda):
+    from midvision_probe_torch.ops import fused_mlp as fm
+
+    args = _mlp_inputs(4, 128, 64, torch.bfloat16, seed=0)
+    with pytest.raises(ValueError, match="dtype"):
+        fm.fused_mlp(*[a.half() for a in args])
+    with pytest.raises(ValueError, match="width"):
+        fm.fused_mlp(*_mlp_inputs(4, 192, 64, torch.bfloat16, seed=0))
+    with pytest.raises(ValueError, match="multiple of 32"):
+        fm.fused_mlp(*_mlp_inputs(4, 128, 48, torch.bfloat16, seed=0))
+    with pytest.raises(ValueError, match="act"):
+        fm.fused_mlp(*args, act="relu")
