@@ -40,13 +40,14 @@ JSON line per phase and fails on the first failing phase:
    bf16): the clamped exp2 attention K7 (``wide4``, ``stagger4``,
    ``wide12``), its int8 form K8, and K9 (exact softmax over the valid
    keys on K2's kernel); a case where min(s, 110) clamps, n_valid = N, and
-   rows whose exponentials all underflow; timed cases with SDPA on the
-   valid keys as the yardstick (K8: none; SDPA's bf16 time beside it).
+   rows whose exponentials all underflow; each with the largest plain
+   output beside its error; timed cases with SDPA on the valid keys as the
+   yardstick (K8: none; SDPA's bf16 time beside it).
 5b. ``mlp_checks``: the fused MLP (K6) against its plain version at DINO
    ViT-B/16's MLP (M = 64*1201, C=768, H=3072) and RADIO-v2's (C=1280,
    H=5120) in bf16 with gelu_tanh (timed, with ``F.linear`` -> GELU ->
-   ``F.linear`` as the yardstick), every activation in bf16 and f32 at
-   M=300, and one backward on the card against the CPU's.
+   ``F.linear`` as the yardstick), and every activation in bf16 and f32 at
+   M=300.
 6. ``path``: the depth trainer (``midvision_probe_torch.train_depth``)
    through its ``entry`` on full-width dino_b16 (random weights),
    synthetic 480x640 data, the DPT depth probe, a bf16 backbone: per-step
@@ -466,8 +467,10 @@ def phase_variant_checks(torch):
     case where min(s, 110) clamps (its count of clamped scores, on the plain
     side, must be > 0), n_valid = N, and rows whose exponentials all
     underflow (the plain side's unfloored l must be < 1e-30 there). Pass:
-    finite, max abs error <= 1.6e-2 (both sides round p and the output to
-    bf16 and sum in other orders: a few ulps at |o| <= 2)."""
+    finite, max abs error <= min(1.6e-2, 2^-6 * max|ref|): both sides round
+    p and the output to bf16 and sum in other orders, a few bf16 ulps of the
+    largest output (2^-6 of it is two to four such ulps; the cap binds only
+    where |o| nears 1, in the clamp case)."""
     import torch.nn.functional as F
 
     from midvision_probe_torch import bench_attn as ba
@@ -502,12 +505,15 @@ def phase_variant_checks(torch):
             ref = plain(qkv, scale, n_valid)
         torch.cuda.synchronize()
         err = (out.float() - ref.float()).abs().max().item()
+        max_ref = ref.float().abs().max().item()
+        tol = min(1.6e-2, 2.0**-6 * max_ref)
         finite = bool(torch.isfinite(out).all())
         name = variant if kind == "bench" and n_valid == nv else (
             f"{variant}_{kind}" if n_valid == nv else f"{variant}_n_valid_{n_valid}")
         res = {"case": name, "kernel": kernel, "shape": [B, N, H, d], "n_valid": n_valid,
-               "inputs": kind, "max_abs_err": err, "tol": 1.6e-2, "finite": finite}
-        ok = finite and err <= 1.6e-2
+               "inputs": kind, "max_abs_err": err, "max_abs_ref": max_ref, "tol": tol,
+               "finite": finite}
+        ok = finite and err <= tol
         if kind in ("clamp", "underflow") and kernel != "K9":  # the plain side's scores
             scores = ba.int8_scores if kernel == "K8" else ba.wide_scores
             s2 = scores(qkv, scale, n_valid)
@@ -582,14 +588,11 @@ def phase_mlp_checks(torch):
     """K6 (``fused_mlp``) against ``_fused_mlp_plain``: DINO ViT-B/16's MLP
     (M = 76,864, C = 768, H = 3072) and RADIO-v2 ViT-H/16's (C = 1280, H =
     5120) in bf16 with gelu_tanh (the ViT's bf16 GELU), timed; every
-    activation in bf16 and f32 at M = 300; one backward on the card against
-    the CPU's. Pass: bf16 every element within one bf16 ulp of its plain
-    value plus one bf16 ulp of the largest plain output (the hidden
-    activations round to bf16 on both sides; a different f32 summation order
-    can flip one of those roundings, which moves a whole output row by a
-    hidden ulp times a W2 entry); f32 (TF32 off) 1e-5 abs; each gradient
-    within 1e-5 of its largest magnitude (sums over 64 to 3072 terms in
-    other orders on the two devices)."""
+    activation in bf16 and f32 at M = 300. Pass: bf16 every element within
+    one bf16 ulp of its plain value plus one bf16 ulp of the largest plain
+    output (the hidden activations round to bf16 on both sides; a different
+    f32 summation order can flip one of those roundings, which moves a whole
+    output row by a hidden ulp times a W2 entry); f32 (TF32 off) 1e-5 abs."""
     import torch.nn.functional as F
 
     from midvision_probe_torch.ops.fused_mlp import ACTIVATIONS, _fused_mlp_plain, fused_mlp
@@ -635,15 +638,6 @@ def phase_mlp_checks(torch):
         del args, out, ref, diff
         torch.cuda.empty_cache()
 
-    args = mlp_inputs(torch, gen, 64, 768, 3072, f32)
-    grads = []
-    for device in ("cuda", "cpu"):
-        leaves = [a.detach().to(device).requires_grad_() for a in args]
-        (fused_mlp(*leaves, act="gelu") ** 2).sum().backward()
-        grads.append([t.grad.cpu() for t in leaves])
-    rel = max(((g - r).abs().max() / r.abs().max()).item() for g, r in zip(*grads))
-    results.append({"case": "backward_fp32", "shape": [64, 768, 3072], "act": "gelu",
-                    "max_err_over_max_grad": rel, "ok": rel <= 1e-5})
     emit({"phase": "mlp_checks", "cases": results})
     bad = [r["case"] for r in results if not r["ok"]]
     if bad:
@@ -944,12 +938,7 @@ def phase_forward(torch, smi: str, model, batch, hw, dtype, per_forward, grid, w
 def kernel_entry(name, source, replaces, kernel, by_path, case, route="cuda") -> dict:
     """One entry of the closing ``kernels`` line: its launches on every
     path and its numbers at the main path's shape (``case``). ``replaces``:
-    the TPU kernel's file:line in the JAX package, or in the repository
-    where it starts with ``launch_script/``."""
-    from midvision_probe_torch.config.core import JAX_PACKAGE
-
-    if not replaces.startswith("launch_script/"):
-        replaces = f"{JAX_PACKAGE}/{replaces}"
+    the TPU kernel's file:line in the repository."""
     launches = {path: counts[kernel] for path, counts in by_path.items()}
     return {"name": name, "route": route, "source": f"midvision_probe_torch/csrc/{source}",
             "replaces": replaces, "launches": sum(launches.values()),
@@ -1030,18 +1019,21 @@ def main() -> int:
     by_path["path_fused_mlp"] = phase_path_fused_mlp(torch)
     emit({"phase": "done", "total_s": time.perf_counter() - t_start})
 
+    from midvision_probe_torch.config.core import JAX_PACKAGE
+
+    ops = f"{JAX_PACKAGE}/ops"  # the TPU kernels of the JAX package
     emit({"kernels": [
-        kernel_entry("fused_qkv_attention", "vit_attention.cu", "ops/vit_attention.py:85",
+        kernel_entry("fused_qkv_attention", "vit_attention.cu", f"{ops}/vit_attention.py:85",
                      "k1", by_path, checks["main_bf16"]),
-        kernel_entry("knn2", "knn2.cu", "ops/matching.py:64", "k4", by_path,
+        kernel_entry("knn2", "knn2.cu", f"{ops}/matching.py:64", "k4", by_path,
                      knn2_checks["scannet_main"]),
-        kernel_entry("vit_attention", "vit_attention.cu", "ops/vit_attention.py:129",
+        kernel_entry("vit_attention", "vit_attention.cu", f"{ops}/vit_attention.py:129",
                      "k2", by_path, attn_checks["radio_main_bf16"]),
-        kernel_entry("flash_attention", "vit_attention.cu", "ops/attention.py:38",
+        kernel_entry("flash_attention", "vit_attention.cu", f"{ops}/attention.py:38",
                      "k3", by_path, attn_checks["k3_radio1024_fp32"]),
-        kernel_entry("rope_2d", "rope2d.cu", "ops/rope2d.py:59", "k5", by_path,
+        kernel_entry("rope_2d", "rope2d.cu", f"{ops}/rope2d.py:59", "k5", by_path,
                      rope_checks["crocov2_q_bf16"]),
-        kernel_entry("fused_mlp", "fused_mlp.cu", "ops/fused_mlp.py:63", "k6", by_path,
+        kernel_entry("fused_mlp", "fused_mlp.cu", f"{ops}/fused_mlp.py:63", "k6", by_path,
                      mlp_checks["dino_bf16"]),
         kernel_entry("wide_attention", "bench_attn.cu", "launch_script/bench_attn.py:52",
                      "k7", by_path, variant_checks["wide4"]),

@@ -236,6 +236,7 @@ def _launch_int8(q8: torch.Tensor, k8: torch.Tensor, c: torch.Tensor, qkv: torch
                  B, N, H, d, n_valid, width // d,
                  torch.cuda.current_stream(qkv.device).cuda_stream)
     _raise_on(err, "int8_attention")
+    int8_attention.launches += 1
     return out
 
 
@@ -247,12 +248,10 @@ def int8_attention(qkv: torch.Tensor, scale: float, n_valid: int,
     if qkv.device.type == "cpu":
         return _int8_attention_plain(qkv, scale, n_valid)
     _check_card(qkv, "int8_attention")
-    out = _launch_int8(*quantize_qk(qkv, scale, n_valid), qkv, n_valid, width)
-    int8_attention.launches += 1
-    return out
+    return _launch_int8(*quantize_qk(qkv, scale, n_valid), qkv, n_valid, width)
 
 
-int8_attention.launches = 0  # kernel launches (never the plain version)
+int8_attention.launches = 0  # kernel launches, counted in _launch_int8 (never the plain version)
 
 
 def splash_attention(qkv: torch.Tensor, scale: float, n_valid: int) -> torch.Tensor:

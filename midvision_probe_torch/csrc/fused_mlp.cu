@@ -35,8 +35,8 @@
 // W2 read through L1/L2), which keeps full f32 accuracy for parity runs; it
 // is not tuned.
 //
-// C in {128, 256, 512, 768, 1024, 1280} (one instance each: the output
-// accumulator is indexed at compile time); H a multiple of 32; any M >= 1.
+// C in {768, 1024, 1280}, the zoo's ViT widths (one instance each: the
+// output accumulator is indexed at compile time); H a multiple of 32; any M >= 1.
 // Plain C interface for ctypes; returns cudaGetLastError() after the launch.
 
 #include <cuda_bf16.h>
@@ -363,9 +363,6 @@ extern "C" int mvp_fused_mlp(const void* x, const void* w1, const void* b1, cons
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (C) {
-    case 128: return launch_c<128>(x, w1, b1, w2, b2, out, M, H, act, is_bf16, st);
-    case 256: return launch_c<256>(x, w1, b1, w2, b2, out, M, H, act, is_bf16, st);
-    case 512: return launch_c<512>(x, w1, b1, w2, b2, out, M, H, act, is_bf16, st);
     case 768: return launch_c<768>(x, w1, b1, w2, b2, out, M, H, act, is_bf16, st);
     case 1024: return launch_c<1024>(x, w1, b1, w2, b2, out, M, H, act, is_bf16, st);
     case 1280: return launch_c<1280>(x, w1, b1, w2, b2, out, M, H, act, is_bf16, st);

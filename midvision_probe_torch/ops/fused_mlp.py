@@ -37,7 +37,7 @@ import torch
 from midvision_probe_torch.ops.cuda_build import load_library
 
 ACTIVATIONS = ("gelu", "gelu_tanh", "quickgelu")  # kernel codes 0, 1, 2
-KERNEL_WIDTHS = (128, 256, 512, 768, 1024, 1280)  # C: the kernel's instances
+KERNEL_WIDTHS = (768, 1024, 1280)  # C: the kernel's instances (the zoo's ViT widths)
 _DTYPES = (torch.bfloat16, torch.float32)
 _SQRT_HALF = float(np.float32(np.sqrt(0.5)))
 _TANH_C = float(np.float32(np.sqrt(2.0 / np.pi)))

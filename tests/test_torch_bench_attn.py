@@ -10,9 +10,11 @@ compilation cache at a directory of its own for the whole process; the
 fixture puts both cache settings back at once, so no test here or after it
 in the same worker writes to that cache.
 
-Tolerance: bf16 1.6e-2 abs (both sides sum the same f32 scores in other
-orders and round p and the output to bf16: a few bf16 ulps at |o| <= 2; the
-splash kernel also normalises after its PV product, not before)."""
+Tolerance: bf16, max abs error <= min(1.6e-2, 2^-6 * max|ref|): both sides
+sum the same f32 scores in other orders and round p and the output to bf16,
+which is a few bf16 ulps of the largest output (2^-6 of it is two to four
+such ulps); the splash kernel also normalises after its PV product, not
+before. The cap of 1.6e-2 binds only where |o| nears 1 (the clamp case)."""
 
 import importlib.util
 import math
@@ -29,7 +31,8 @@ from midvision_probe_torch import bench_attn as t_bench
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 F32 = jax.default_matmul_precision("float32")
-TOL = 1.6e-2
+TOL = 1.6e-2  # the absolute cap
+REL = 2.0**-6  # of the largest reference output
 _CACHE_KEYS = ("jax_compilation_cache_dir", "jax_persistent_cache_min_compile_time_secs")
 
 
@@ -85,8 +88,9 @@ def _both(x):
 
 def _close(got, ref):
     assert got.dtype == torch.bfloat16
-    np.testing.assert_allclose(got.float().numpy(), np.asarray(ref.astype(jnp.float32)),
-                               atol=TOL, rtol=0)
+    ref = np.asarray(ref.astype(jnp.float32))
+    np.testing.assert_allclose(got.float().numpy(), ref, rtol=0,
+                               atol=min(TOL, REL * np.abs(ref).max()))
 
 
 B, N, H, D = 2, 256, 4, 64
@@ -184,7 +188,7 @@ def test_main_on_the_cpu_prints_one_line_per_variant(capsys):
     assert [r["variant"] for r in results] == variants
     for r, ln in zip(results, lines[1:]):
         assert "ms raw" in ln and "TF/s" in ln and "max-abs-err" in ln
-        assert r["device"] == "cpu" and r["max_abs_err"] <= TOL, r
+        assert r["device"] == "cpu" and r["max_abs_err"] <= TOL and r["rel_err"] <= REL, r
 
 
 def test_wrappers_reject_bad_arguments():

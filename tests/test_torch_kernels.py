@@ -301,14 +301,20 @@ BENCH_CASES = [(2, 256, 200, 4, 64, False), (2, 256, 256, 4, 64, False),
                (1, 256, 250, 2, 128, False), (2, 256, 200, 4, 64, True)]
 
 
+def _bench_tol(ref: torch.Tensor) -> float:
+    """The bench kernels' bar: a few bf16 ulps of the largest plain output,
+    capped at 1.6e-2 (where |o| nears 1)."""
+    return min(1.6e-2, 2.0**-6 * ref.float().abs().max().item())
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("B,N,n_valid,H,d,clamp", BENCH_CASES)
 def test_bench_attention_kernels_match_plain_versions(cuda, B, N, n_valid, H, d, clamp):
     """K7 at every width (one head to all heads per block, with and without
-    stagger), K8 and K9 against their plain versions; bf16 1.6e-2 abs (both
-    sides round p and the output to bf16 and sum in other orders: a few
-    ulps at |o| <= 2). The clamp case checks on the plain side that scores
-    above 110 occur."""
+    stagger), K8 and K9 against their plain versions; bf16, max abs error
+    <= min(1.6e-2, 2^-6 * max|ref|) (both sides round p and the output to
+    bf16 and sum in other orders: a few bf16 ulps of the largest output).
+    The clamp case checks on the plain side that scores above 110 occur."""
     from midvision_probe_torch import bench_attn as ba
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -329,7 +335,7 @@ def test_bench_attention_kernels_match_plain_versions(cuda, B, N, n_valid, H, d,
         torch.cuda.synchronize()
         assert fn.launches == before + 1
         assert got.shape == (B, N, H * d) and torch.isfinite(got).all(), fn.__name__
-        torch.testing.assert_close(got.float(), ref.float(), atol=1.6e-2, rtol=0,
+        torch.testing.assert_close(got.float(), ref.float(), atol=_bench_tol(ref), rtol=0,
                                    msg=lambda m, n=fn.__name__, k=kw: f"{n} {k}: {m}")
 
 
@@ -348,7 +354,7 @@ def test_int8_attention_rows_whose_exponentials_underflow_get_zero(cuda):
             got, ref = fn(qkv, 0.125, 100, width=128), plain(qkv, 0.125, 100)
         torch.cuda.synchronize()
         assert ref[:, :16].abs().max().item() == 0, fn.__name__
-        torch.testing.assert_close(got.float(), ref.float(), atol=1.6e-2, rtol=0)
+        torch.testing.assert_close(got.float(), ref.float(), atol=_bench_tol(ref), rtol=0)
 
 
 @pytest.mark.cuda
@@ -377,8 +383,8 @@ def _mlp_inputs(M, C, H, dtype, seed):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("act", ["gelu", "gelu_tanh", "quickgelu"])
-@pytest.mark.parametrize("M,C,H", [(300, 128, 256), (77, 768, 3072), (33, 1280, 160),
-                                   (1, 256, 32), (64, 512, 64), (40, 1024, 96)])
+@pytest.mark.parametrize("M,C,H", [(300, 768, 256), (77, 768, 3072), (33, 1280, 160),
+                                   (1, 768, 32), (64, 1280, 64), (40, 1024, 96)])
 def test_fused_mlp_kernel_matches_plain_version(cuda, act, M, C, H):
     """bf16: every element within one bf16 ulp of its plain value plus one
     bf16 ulp of the largest plain output (the hidden activations round to
@@ -408,15 +414,20 @@ def test_fused_mlp_kernel_matches_plain_version(cuda, act, M, C, H):
 @pytest.mark.cuda
 def test_fused_mlp_backward_on_the_card_matches_the_cpu(cuda):
     """The gradient (autograd through ``_plain``) on the card against the
-    same on the CPU, f32 with TF32 off: 1e-5 abs."""
+    same on the CPU, f32 with TF32 off: 1e-5 abs. The loss is linear in the
+    output (a seeded cotangent at std 0.25, gradients up to ~7), so the
+    forward output, which the kernel computes on the card and its plain
+    version on the CPU, does not enter the gradient."""
     from midvision_probe_torch.ops import fused_mlp as fm
 
     torch.backends.cuda.matmul.allow_tf32 = False
-    args = _mlp_inputs(8, 128, 256, torch.float32, seed=3)
+    args = _mlp_inputs(8, 768, 256, torch.float32, seed=3)
+    cotangent = np.random.RandomState(4).randn(8, 768).astype(np.float32) * 0.25
     grads = []
     for device in ("cuda", "cpu"):
         leaves = [a.detach().to(device).requires_grad_() for a in args]
-        (fm.fused_mlp(*leaves, act="gelu") ** 2).sum().backward()
+        out = fm.fused_mlp(*leaves, act="gelu")
+        (out * torch.from_numpy(cotangent).to(device)).sum().backward()
         grads.append([t.grad.cpu() for t in leaves])
     for g, r in zip(*grads):
         torch.testing.assert_close(g, r, atol=1e-5, rtol=0)
@@ -426,12 +437,12 @@ def test_fused_mlp_backward_on_the_card_matches_the_cpu(cuda):
 def test_fused_mlp_kernel_rejects_what_it_cannot_take(cuda):
     from midvision_probe_torch.ops import fused_mlp as fm
 
-    args = _mlp_inputs(4, 128, 64, torch.bfloat16, seed=0)
+    args = _mlp_inputs(4, 768, 64, torch.bfloat16, seed=0)
     with pytest.raises(ValueError, match="dtype"):
         fm.fused_mlp(*[a.half() for a in args])
     with pytest.raises(ValueError, match="width"):
-        fm.fused_mlp(*_mlp_inputs(4, 192, 64, torch.bfloat16, seed=0))
+        fm.fused_mlp(*_mlp_inputs(4, 128, 64, torch.bfloat16, seed=0))
     with pytest.raises(ValueError, match="multiple of 32"):
-        fm.fused_mlp(*_mlp_inputs(4, 128, 48, torch.bfloat16, seed=0))
+        fm.fused_mlp(*_mlp_inputs(4, 768, 48, torch.bfloat16, seed=0))
     with pytest.raises(ValueError, match="act"):
         fm.fused_mlp(*args, act="relu")
