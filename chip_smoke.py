@@ -10,7 +10,9 @@ when the port's package is not next to this file. Otherwise it prints one
 JSON line per phase and fails on the first failing phase:
 
 1. ``device``: the card (``nvidia-smi`` name and power limit), torch and
-   CUDA versions, and the time to build the CUDA kernels from ``csrc/``.
+   CUDA versions, the time to build the CUDA kernels from ``csrc/`` and
+   ``gpu_state`` (SM clock, power draw, temperature, throttle reasons,
+   sampled again in ``mlp_checks``, every ``forward`` and ``done``).
 2. ``kernel_checks``: the fused-qkv attention kernel (K1) against its plain
    PyTorch twin at the main path's shape (B=64, N=1201, H=12, d=64) in
    bfloat16 and in float32 (TF32 off for matmuls and cuDNN), with
@@ -83,7 +85,11 @@ JSON line per phase and fails on the first failing phase:
 
 Then a ``kernels`` summary line, the ``nvidia-smi`` name/power-limit line
 and, last, ``{"ok": true, "device": {...}}``. Every launch count is set to
-0 just before a path is driven and read just after it.
+0 just before a path is driven and read just after it, with the attention
+launches by route (``ops/vit_attention.py::attention_route``: ``wgmma`` for
+bf16 at d 64 and 80, ``mma_sync`` for the other bf16 head dims, ``simt``
+for f32); every attention check records the route it ran and fails if it
+is not the one ``attention_route`` names.
 """
 
 from __future__ import annotations
@@ -117,6 +123,15 @@ def nvidia_smi() -> str:
         capture_output=True, text=True, check=True, timeout=60).stdout.strip()
 
 
+def gpu_state() -> str:
+    """The card's SM clock (now and its maximum), power draw, temperature
+    and active throttle reasons, as ``nvidia-smi`` reports them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm,power.draw,temperature.gpu,"
+         "clocks_throttle_reasons.active", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+
+
 def cuda_ms(torch, fn, iters: int = 15, warmup: int = 3) -> float:
     """Median device time of ``fn`` over ``iters`` runs, CUDA events."""
     for _ in range(warmup):
@@ -143,11 +158,26 @@ def attention_bound_ms(B, N, n_valid, H, d, itemsize, peak_flops) -> tuple[float
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
 
+def route_ran(fn):
+    """``fn()`` and the attention route whose launch count moved during it
+    (None when no route of ``csrc/vit_attention.cu`` launched; raises if
+    more than one did)."""
+    from midvision_probe_torch.ops.vit_attention import route_launches
+
+    before = dict(route_launches)
+    out = fn()
+    moved = [r for r, n in route_launches.items() if n != before[r]]
+    if len(moved) > 1:
+        raise SystemExit(f"more than one attention route ran: {moved}")
+    return out, (moved[0] if moved else None)
+
+
 def phase_kernel_checks(torch):
     import torch.nn.functional as F
 
     from midvision_probe_torch.ops.vit_attention import (
         _fused_qkv_attention_plain,
+        attention_route,
         fused_qkv_attention,
     )
 
@@ -171,7 +201,7 @@ def phase_kernel_checks(torch):
             qkv[:, nv:] = float("nan")  # padded rows: the kernel must not read them
         scale = d**-0.5
         with torch.no_grad():
-            out = fused_qkv_attention(qkv, scale, nv)
+            out, ran = route_ran(lambda: fused_qkv_attention(qkv, scale, nv))
             ref = _fused_qkv_attention_plain(qkv, scale, nv)
         torch.cuda.synchronize()
         rows = nv or N
@@ -179,9 +209,11 @@ def phase_kernel_checks(torch):
         err = (o - r).abs().max().item()
         rel = err / max(r.abs().max().item(), 1e-30)
         finite = bool(torch.isfinite(o).all())
+        route = attention_route(d, dtype)
         res = {"case": name, "shape": [B, N, H, d], "n_valid": nv, "dtype": str(dtype),
-               "max_abs_err": err, "max_rel_err": rel, "tol": tol[dtype],
-               "finite": finite, "ok": finite and err <= tol[dtype]}
+               "route": route, "route_ran": ran, "max_abs_err": err, "max_rel_err": rel,
+               "tol": tol[dtype], "finite": finite,
+               "ok": finite and err <= tol[dtype] and ran == route}
         if timed:
             with torch.no_grad():
                 res["kernel_ms"] = cuda_ms(torch, lambda: fused_qkv_attention(qkv, scale))
@@ -316,7 +348,11 @@ def phase_attention_checks(torch):
     import torch.nn.functional as F
 
     from midvision_probe_torch.ops.attention import multi_head_attention
-    from midvision_probe_torch.ops.vit_attention import _vit_attention_plain, vit_attention
+    from midvision_probe_torch.ops.vit_attention import (
+        _vit_attention_plain,
+        attention_route,
+        vit_attention,
+    )
 
     torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(2)
@@ -340,14 +376,15 @@ def phase_attention_checks(torch):
         q, k, v = qkv.permute(2, 0, 3, 1, 4).unbind(0)  # strided (B, H, N, d) views
         scale = d**-0.5
         with torch.no_grad():
-            out = fn(q, k, v, scale)
+            out, ran = route_ran(lambda: fn(q, k, v, scale))
             ref = _vit_attention_plain(q, k, v, scale)
         torch.cuda.synchronize()
         err = (out.float() - ref.float()).abs().max().item()
         finite = bool(torch.isfinite(out).all())
+        route = attention_route(d, dtype)
         res = {"case": name, "kernel": kernel, "shape": [B, H, N, d], "dtype": str(dtype),
-               "max_abs_err": err, "tol": tol[dtype], "finite": finite,
-               "ok": finite and err <= tol[dtype]}
+               "route": route, "route_ran": ran, "max_abs_err": err, "tol": tol[dtype],
+               "finite": finite, "ok": finite and err <= tol[dtype] and ran == route}
         if timed:
             with torch.no_grad():
                 res["kernel_ms"] = cuda_ms(torch, lambda: fn(q, k, v, scale))
@@ -501,7 +538,7 @@ def phase_variant_checks(torch):
         kernel, fn, plain = variants[variant]
         qkv = bench_inputs(torch, gen, kind)
         with torch.no_grad():
-            out = fn(qkv, n_valid)
+            out, ran = route_ran(lambda: fn(qkv, n_valid))  # K7, K8: no route (None)
             ref = plain(qkv, scale, n_valid)
         torch.cuda.synchronize()
         err = (out.float() - ref.float()).abs().max().item()
@@ -511,9 +548,9 @@ def phase_variant_checks(torch):
         name = variant if kind == "bench" and n_valid == nv else (
             f"{variant}_{kind}" if n_valid == nv else f"{variant}_n_valid_{n_valid}")
         res = {"case": name, "kernel": kernel, "shape": [B, N, H, d], "n_valid": n_valid,
-               "inputs": kind, "max_abs_err": err, "max_abs_ref": max_ref, "tol": tol,
-               "finite": finite}
-        ok = finite and err <= tol
+               "inputs": kind, "route_ran": ran, "max_abs_err": err, "max_abs_ref": max_ref,
+               "tol": tol, "finite": finite}
+        ok = finite and err <= tol and ran == ("wgmma" if kernel == "K9" else None)
         if kind in ("clamp", "underflow") and kernel != "K9":  # the plain side's scores
             scores = ba.int8_scores if kernel == "K8" else ba.wide_scores
             s2 = scores(qkv, scale, n_valid)
@@ -638,7 +675,7 @@ def phase_mlp_checks(torch):
         del args, out, ref, diff
         torch.cuda.empty_cache()
 
-    emit({"phase": "mlp_checks", "cases": results})
+    emit({"phase": "mlp_checks", "cases": results, "gpu_state": gpu_state()})
     bad = [r["case"] for r in results if not r["ok"]]
     if bad:
         raise SystemExit(f"mlp check failed: {bad}")
@@ -664,39 +701,59 @@ def _counters():
                               bench_attn.int8_attention, bench_attn.splash_attention)))
 
 
+# the attention kernel's launches by route (``route_launches``): K1, K2, K3
+# and K9 together
+ROUTE_KEYS = ("route_wgmma", "route_mma_sync", "route_simt")
+
+
 def reset_counts() -> None:
-    """Zero every kernel's launch count and the backbone's forward count,
-    just before a path is driven."""
+    """Zero every kernel's launch count, the attention routes' counts and
+    the backbone's forward count, just before a path is driven."""
     from midvision_probe_torch.models.feature_extractor import FeatureExtractor
+    from midvision_probe_torch.ops.vit_attention import route_launches
 
     for fn in _counters().values():
         fn.launches = 0
+    for route in route_launches:
+        route_launches[route] = 0
     FeatureExtractor.forward_count = 0
 
 
 def read_counts() -> dict:
-    """Every kernel's launch count and the backbone forwards since the last
-    ``reset_counts``."""
+    """Every kernel's launch count, the attention launches by route and the
+    backbone forwards since the last ``reset_counts``."""
     from midvision_probe_torch.models.feature_extractor import FeatureExtractor
+    from midvision_probe_torch.ops.vit_attention import route_launches
 
     counts = {k: fn.launches for k, fn in _counters().items()}
+    counts.update({f"route_{r}": n for r, n in route_launches.items()})
     counts["forwards"] = FeatureExtractor.forward_count
     return counts
 
 
 def per_forward_ok(counts: dict, per_forward: dict) -> bool:
-    """Each attention kernel launched exactly its count per backbone
-    forward (and at least one forward ran)."""
+    """Each attention kernel and route launched exactly its count per
+    backbone forward (and at least one forward ran)."""
     return counts["forwards"] > 0 and all(
         counts[k] == n * counts["forwards"] for k, n in per_forward.items())
 
 
 # launches per backbone forward of the three backbones (no backbone
-# reaches K6-K9)
+# reaches K6-K9), and the attention route each takes: bf16 at d = 64 (DINO,
+# CroCo-v2) and d = 80 (RADIO-v2) on wgmma, f32 on simt
 NO_BENCH_KERNELS = {"k6": 0, "k7": 0, "k8": 0, "k9": 0}
-DINO_PER_FORWARD = {"k1": 12, "k2": 0, "k3": 0, "k5": 0, **NO_BENCH_KERNELS}
-CROCOV2_PER_FORWARD = {"k1": 0, "k2": 12, "k3": 0, "k5": 24, **NO_BENCH_KERNELS}
-RADIO_PER_FORWARD = {"k1": 0, "k2": 32, "k3": 0, "k5": 0, **NO_BENCH_KERNELS}
+
+
+def on_route(route: str, n: int) -> dict:
+    return {key: n if key == f"route_{route}" else 0 for key in ROUTE_KEYS}
+
+
+DINO_PER_FORWARD = {"k1": 12, "k2": 0, "k3": 0, "k5": 0, **NO_BENCH_KERNELS,
+                    **on_route("wgmma", 12)}
+CROCOV2_PER_FORWARD = {"k1": 0, "k2": 12, "k3": 0, "k5": 24, **NO_BENCH_KERNELS,
+                       **on_route("wgmma", 12)}
+RADIO_PER_FORWARD = {"k1": 0, "k2": 32, "k3": 0, "k5": 0, **NO_BENCH_KERNELS,
+                     **on_route("wgmma", 32)}
 
 
 BENCH_VARIANTS = ("base", "wide4", "stagger4", "wide12", "int8", "splash")
@@ -722,8 +779,9 @@ def phase_bench_attn(torch, iters: int = 20):
     wall = time.perf_counter() - t0
     counts = read_counts()
     calls = iters + 2
-    expected = dict.fromkeys(KERNELS, 0)
-    expected.update(k1=calls, k7=3 * calls, k8=calls, k9=calls, forwards=0)
+    expected = dict.fromkeys(KERNELS + ROUTE_KEYS, 0)  # base (K1) and splash (K9) on wgmma
+    expected.update(k1=calls, k7=3 * calls, k8=calls, k9=calls, route_wgmma=2 * calls,
+                    forwards=0)
     emit({"phase": "bench_attn", "results": results, "launches": counts,
           "oracle_bound": BENCH_ORACLE_BOUND, "wall_s": wall})
     checks = {
@@ -742,23 +800,25 @@ def phase_path_fused_mlp(torch, blocks: int = 12):
     ViT-B/16's MLP width over a 64-image batch at 480x640 (M = 76,864, C =
     768, H = 3072, bf16, gelu_tanh, seeded random weights per block): wall
     time, a finite output, launch counts (K6 once per block, every other
-    count 0). Returns the launch counts."""
+    count 0); the blocks share one hidden scratch. Returns the launch
+    counts."""
     from midvision_probe_torch.ops.fused_mlp import fused_mlp
 
     gen = torch.Generator(device="cuda").manual_seed(6)
     x = mlp_inputs(torch, gen, MLP_ROWS, 768, 3072, torch.bfloat16)[0]
     weights = [mlp_inputs(torch, gen, 1, 768, 3072, torch.bfloat16)[1:]
                for _ in range(blocks)]
+    hidden = torch.empty(MLP_ROWS, 3072, device="cuda", dtype=torch.bfloat16)  # every block's
     torch.cuda.synchronize()
     reset_counts()
     t0 = time.perf_counter()
     with torch.no_grad():
         for w1, b1, w2, b2 in weights:
-            x = x + fused_mlp(x, w1, b1, w2, b2, act="gelu_tanh")
+            x = x + fused_mlp(x, w1, b1, w2, b2, act="gelu_tanh", hidden=hidden)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = read_counts()
-    expected = dict.fromkeys(KERNELS, 0)
+    expected = dict.fromkeys(KERNELS + ROUTE_KEYS, 0)
     expected.update(k6=blocks, forwards=0)
     finite = bool(torch.isfinite(x).all())
     emit({"phase": "path_fused_mlp", "shape": [MLP_ROWS, 768, 3072], "blocks": blocks,
@@ -766,7 +826,7 @@ def phase_path_fused_mlp(torch, blocks: int = 12):
           "ms_per_block": wall * 1e3 / blocks})
     if not finite or counts != expected:
         raise SystemExit(f"path_fused_mlp check failed: finite {finite}, launches {counts}")
-    del x, weights
+    del x, weights, hidden
     torch.cuda.empty_cache()
     return counts
 
@@ -926,7 +986,7 @@ def phase_forward(torch, smi: str, model, batch, hw, dtype, per_forward, grid, w
           "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
           "profile_device_ms": device_ms,
           "profile_top": [[k[:80], t] for k, t in by_kernel[:8]],
-          "nvidia_smi": smi})
+          "nvidia_smi": smi, "gpu_state": gpu_state()})
     if not shapes_ok or not per_forward_ok(counts, per_forward):
         raise SystemExit(f"forward check failed for {model}: shapes {shapes_ok}, "
                          f"launches {counts}")
@@ -935,13 +995,15 @@ def phase_forward(torch, smi: str, model, batch, hw, dtype, per_forward, grid, w
     return counts
 
 
-def kernel_entry(name, source, replaces, kernel, by_path, case, route="cuda") -> dict:
+def kernel_entry(name, source, replaces, kernel, by_path, case, design,
+                 route="cuda") -> dict:
     """One entry of the closing ``kernels`` line: its launches on every
     path and its numbers at the main path's shape (``case``). ``replaces``:
-    the TPU kernel's file:line in the repository."""
+    the TPU kernel's file:line in the repository; ``design``: the kernel
+    that ran ``case`` (for the attention kernels, the route)."""
     launches = {path: counts[kernel] for path, counts in by_path.items()}
     return {"name": name, "route": route, "source": f"midvision_probe_torch/csrc/{source}",
-            "replaces": replaces, "launches": sum(launches.values()),
+            "replaces": replaces, "design": design, "launches": sum(launches.values()),
             "launches_by_path": launches, "max_abs_err": case["max_abs_err"],
             "ms": case["kernel_ms"], "plain_ms": case["plain_ms"],
             "bound_ms": case["bound_ms"], "bound_by": case["bound_by"],
@@ -970,7 +1032,7 @@ def main() -> int:
     emit({"phase": "device", "nvidia_smi": smi, "torch": torch.__version__,
           "cuda": torch.version.cuda, "device_name": torch.cuda.get_device_name(0),
           "sources": list(cuda_build.KERNEL_SOURCES),
-          "build_s": time.perf_counter() - t0, "ptxas": ptxas})
+          "build_s": time.perf_counter() - t0, "ptxas": ptxas, "gpu_state": gpu_state()})
 
     checks = phase_kernel_checks(torch)
     knn2_checks = phase_knn2_checks(torch)
@@ -1014,33 +1076,37 @@ def main() -> int:
     # package's split to its flash kernel (K3)
     by_path["forward_radio_v2_fp32_1024"] = phase_forward(
         torch, smi, "radio_v2", 2, (1024, 1024), torch.float32,
-        {"k1": 0, "k2": 0, "k3": 32, "k5": 0, **NO_BENCH_KERNELS}, (64, 64), 1280, iters=3)
+        {"k1": 0, "k2": 0, "k3": 32, "k5": 0, **NO_BENCH_KERNELS, **on_route("simt", 32)},
+        (64, 64), 1280, iters=3)
     by_path["bench_attn"] = phase_bench_attn(torch)
     by_path["path_fused_mlp"] = phase_path_fused_mlp(torch)
-    emit({"phase": "done", "total_s": time.perf_counter() - t_start})
+    emit({"phase": "done", "total_s": time.perf_counter() - t_start, "gpu_state": gpu_state()})
 
     from midvision_probe_torch.config.core import JAX_PACKAGE
 
     ops = f"{JAX_PACKAGE}/ops"  # the TPU kernels of the JAX package
     emit({"kernels": [
         kernel_entry("fused_qkv_attention", "vit_attention.cu", f"{ops}/vit_attention.py:85",
-                     "k1", by_path, checks["main_bf16"]),
+                     "k1", by_path, checks["main_bf16"], checks["main_bf16"]["route_ran"]),
         kernel_entry("knn2", "knn2.cu", f"{ops}/matching.py:64", "k4", by_path,
-                     knn2_checks["scannet_main"]),
+                     knn2_checks["scannet_main"], "mma_sync"),
         kernel_entry("vit_attention", "vit_attention.cu", f"{ops}/vit_attention.py:129",
-                     "k2", by_path, attn_checks["radio_main_bf16"]),
+                     "k2", by_path, attn_checks["radio_main_bf16"],
+                     attn_checks["radio_main_bf16"]["route_ran"]),
         kernel_entry("flash_attention", "vit_attention.cu", f"{ops}/attention.py:38",
-                     "k3", by_path, attn_checks["k3_radio1024_fp32"]),
+                     "k3", by_path, attn_checks["k3_radio1024_fp32"],
+                     attn_checks["k3_radio1024_fp32"]["route_ran"]),
         kernel_entry("rope_2d", "rope2d.cu", f"{ops}/rope2d.py:59", "k5", by_path,
-                     rope_checks["crocov2_q_bf16"]),
+                     rope_checks["crocov2_q_bf16"], "simt"),
         kernel_entry("fused_mlp", "fused_mlp.cu", f"{ops}/fused_mlp.py:63", "k6", by_path,
-                     mlp_checks["dino_bf16"]),
+                     mlp_checks["dino_bf16"], "wgmma"),
         kernel_entry("wide_attention", "bench_attn.cu", "launch_script/bench_attn.py:52",
-                     "k7", by_path, variant_checks["wide4"]),
+                     "k7", by_path, variant_checks["wide4"], "mma_sync"),
         kernel_entry("int8_attention", "bench_attn.cu", "launch_script/bench_attn.py:133",
-                     "k8", by_path, variant_checks["int8"]),
+                     "k8", by_path, variant_checks["int8"], "mma_sync"),
         kernel_entry("splash_attention", "vit_attention.cu", "launch_script/bench_attn.py:225",
-                     "k9", by_path, variant_checks["splash"]),
+                     "k9", by_path, variant_checks["splash"],
+                     variant_checks["splash"]["route_ran"]),
     ]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -133,8 +133,8 @@ def _int8_attention_plain(qkv: torch.Tensor, scale: float, n_valid: int) -> torc
 
 
 def _splash_q(qkv: torch.Tensor, scale: float) -> torch.Tensor:
-    """``bf16(f32(q) * scale)``, as the bench's splash variant feeds the
-    kernel, (B, N, H, d)."""
+    """``bf16(f32(q) * scale)``, the q that K9's scores see, (B, N, H, d)
+    (on a card the kernel rounds it itself)."""
     return (qkv[:, :, 0].float() * scale).to(qkv.dtype)
 
 
@@ -257,13 +257,13 @@ int8_attention.launches = 0  # kernel launches, counted in _launch_int8 (never t
 def splash_attention(qkv: torch.Tensor, scale: float, n_valid: int) -> torch.Tensor:
     """K9: exact softmax attention of ``bf16(q * scale)`` with scale 1 over
     the keys < n_valid -> (B, N, H*d); on a card the strided attention
-    kernel on (B, H, N, d) views, counted here."""
+    kernel on (B, H, N, d) views of qkv, which rounds ``q * scale`` to bf16
+    itself (``q_scale``), counted here."""
     B, N, H, d = _check_qkv(qkv, n_valid)
     if qkv.device.type == "cpu":
         return _splash_attention_plain(qkv, scale, n_valid)
-    q = _splash_q(qkv, scale).transpose(1, 2)
-    k, v = (t.transpose(1, 2) for t in qkv[:, :, 1:].unbind(2))
-    out = launch_attention(q, k, v, 1.0, n_valid)  # a view of (B, N, H, d)
+    q, k, v = (t.transpose(1, 2) for t in qkv.unbind(2))
+    out = launch_attention(q, k, v, 1.0, n_valid, q_scale=scale)  # a view of (B, N, H, d)
     splash_attention.launches += 1
     return out.transpose(1, 2).reshape(B, N, H * d)
 

@@ -4,100 +4,89 @@
 // Replaces the JAX package's Pallas TPU kernel `fused_mlp`
 // (ops/fused_mlp.py, `_forward` -> `_mlp_kernel`), a library op that no
 // model dispatches. Entry point mvp_fused_mlp; x (M, C), W1 (C, H), b1 (H),
-// W2 (H, C), b2 (C), out (M, C), all contiguous and of one dtype.
+// W2 (H, C), b2 (C), out (M, C), all contiguous and of one dtype; bf16 also
+// takes an (M, H) scratch for the hidden activations.
 //
 // What it computes: h = x @ W1 accumulated in f32, plus f32(b1); act(h) in
 // f32 with the TPU kernel's activations (gelu with the Abramowitz-Stegun
 // rational erf, gelu_tanh, quickgelu); h rounded to x's dtype; o = h @ W2
-// accumulated in f32, plus f32(b2), rounded to x's dtype. The hidden
-// activations never go to device memory.
+// accumulated in f32, plus f32(b2), rounded to x's dtype. The rounding
+// points are the TPU kernel's; only the f32 summation order differs.
 //
 // What bounds it on an H100: at DINO ViT-B/16's MLP over a 64-image batch
 // at 480x640 (M = 64*1201 = 76,864, C = 768, H = 3072, bf16) the work is
 // 4*M*C*H = 7.25e11 tensor-core operations against ~0.25 GB of x, weights
-// and output: bound by operations (0.733 ms at 989 TFLOP/s; 0.073 ms of
-// bytes). The design: a block owns 32 rows and walks the hidden dimension
-// in chunks of 32. Per chunk it computes the (32 x 32) hidden tile from the
-// block's x rows (resident in shared memory) and W1 tiles streamed through
-// a two-stage cp.async ring, applies bias and activation in registers,
-// rounds the tile to bf16 into shared memory, and multiplies it with the
-// chunk's 32 rows of W2 (staged whole in shared memory) into the block's
-// (32 x C) f32 output accumulator, which lives in registers split across
-// 8 warps by columns (C/8 floats a thread: 160 at C = 1280, hence 32 rows).
-// Both products run on mma.sync m16n8k16 (bf16 in, f32 accumulate); the
-// W1/W2 fragments come from row-major tiles through ldmatrix .trans. W1 and
-// W2 (9.4 MB in bf16 at ViT-B, 26 MB at ViT-H) are re-read by every block
-// and stay in the 50 MB L2. 32 rows per block make that L2 traffic the
-// limit of this simple design (32 operations per byte of weights read);
-// wgmma with 128-row tiles and TMA is the next step.
+// and output: bound by operations (0.733 ms at 989 TFLOP/s).
+//
+// The bf16 design: one warp-specialised wgmma GEMM with a fused epilogue,
+// launched twice (fc1 into the scratch, fc2 from it). Keeping the hidden
+// activations on chip would need a (rows x C) f32 accumulator for the whole
+// hidden loop: at wgmma's least M of 64 rows that is 196 KB of registers at
+// C = 768 and 320 KB at C = 1280, more than an SM's 256 KB, so a one-SM
+// fused design is held to small row blocks (32 on mma.sync) that re-read W1
+// and W2 from L2 for every block. The hidden instead makes one round trip through
+// device memory in bf16 (472 MB written and read at DINO's shape); both
+// products stay above the card's ridge, so the kernel stays bound by
+// operations. The GEMM:
+//   * a persistent grid (one block per SM) walks 128 x 256 output tiles,
+//     the N tile fastest, so that concurrent blocks share A rows in L2 and
+//     the weights (4.7 MB at ViT-B, 13 MB at ViT-H) stay there;
+//   * one producer thread keeps a 4-stage ring of 64-wide K slices in
+//     flight with TMA (A 128 x 64 = 16 KB, K-major; B 64 x 256 = 32 KB, read
+//     in place from the row-major weight, MN-major), each stage guarded by
+//     a full and an empty mbarrier; the producer warpgroup gives its
+//     registers to the consumers (setmaxnreg 40 / 232);
+//   * two consumer warpgroups each own 64 rows of the tile and issue
+//     wgmma.m64n256k16 (bf16 in, f32 accumulate, 128 accumulator registers
+//     a thread), keeping one K slice's products in flight while the next
+//     slice's are issued;
+//   * the epilogue adds f32(bias), applies the activation (a runtime
+//     argument, -1 for none: fc2) in f32, rounds to bf16 and stores with
+//     row and column masks, while the producer already loads the block's
+//     next tile.
+// Ragged M, N and K need no padding: TMA fills rows and columns outside the
+// tensors with zeros, and the stores are masked.
+// On the card (NVIDIA H100 80GB HBM3, 700 W) this runs at ~4x its bound
+// at DINO's shape (3.1 ms). L2 bandwidth does not bound it (a 2-CTA
+// cluster that multicasts each B slice ran 42% slower), nor does the
+// serial epilogue alone (a schedule in which the two warpgroups take whole
+// 128 x 128 tiles in turn, one's epilogue beside the other's products, ran
+// 6% slower); the epilogue's exact activation math is a large share (gelu,
+// with its f32 division and expf, costs 0.5-0.65 ms more than gelu_tanh).
+// PERF.md has the numbers.
 //
 // float32 takes a SIMT path (f32 FMA, no TF32, 16 rows per block, W1 and
-// W2 read through L1/L2), which keeps full f32 accuracy for parity runs; it
-// is not tuned.
+// W2 read through L1/L2, the hidden kept in shared memory), which keeps
+// full f32 accuracy for parity runs; it is not tuned.
 //
-// C in {768, 1024, 1280}, the zoo's ViT widths (one instance each: the
-// output accumulator is indexed at compile time); H a multiple of 32; any M >= 1.
-// Plain C interface for ctypes; returns cudaGetLastError() after the launch.
+// bf16: any C and H that are multiples of 8 (the wrapper keeps the zoo's
+// widths and H a multiple of 32); f32: C in {768, 1024, 1280} (one instance
+// each: the output accumulator is indexed at compile time), H a multiple of
+// 32; any M >= 1. Plain C interface for ctypes; returns cudaGetLastError()
+// after the launches (or the tensor-map encoding's error).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
+
 namespace {
 
-constexpr int kThreads = 256;  // 8 warps
-constexpr int kRows = 32;      // bf16 path: rows of x per block
-constexpr int kHC = 32;        // hidden units per chunk
-constexpr int kKT = 64;        // bf16 path: rows of a W1 tile (along C)
-constexpr int kLW = kHC + 8;   // padded row of a W1 tile and of the hidden tile, halves
+constexpr int kThreads = 256;  // f32 path: 8 warps
+constexpr int kHC = 32;        // f32 path: hidden units per chunk
 constexpr int kRowsF = 16;     // f32 path: rows of x per block
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(smem)),
-               "l"(gmem));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int kPending>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending));
-}
-
-// B fragments of m16n8k16 from a row-major [k][n] bf16 tile: x2 gives
-// {b0, b1} of one n-tile (lanes 0-15 address rows k0..k0+15 at column n0),
-// x4 those of two (lanes 16-31 address the same rows at column n0 + 8).
-__device__ __forceinline__ void ldmatrix_x2_trans(uint32_t (&r)[2], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0,%1}, [%2];\n"
-               : "=r"(r[0]), "=r"(r[1])
-               : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-
-// c += a * b: a 16x16 bf16 (row), b 16x8 bf16 (col), c 16x8 f32
-__device__ __forceinline__ void mma_16816(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                          uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t ld_u32(const uint16_t* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
+constexpr int kBM = 128;                        // GEMM tile rows (two warpgroups of 64)
+constexpr int kBN = 256;                        // GEMM tile columns
+constexpr int kBK = 64;                         // K slice: 128 bytes of bf16
+constexpr int kStages = 4;                      // TMA ring depth
+constexpr int kABytes = kBM * kBK * 2;          // 16 KB
+constexpr int kBBytes = kBK * kBN * 2;          // 32 KB
+constexpr int kStageBytes = kABytes + kBBytes;  // 48 KB
+constexpr int kBChunk = kBK * 128;              // one 64-column block of B: 8 KB
+constexpr int kGemmThreads = 384;               // 2 consumer warpgroups + 1 producer
+constexpr int kGemmSmem = kStages * kStageBytes + 2 * kStages * 8 + 1024;
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
@@ -128,143 +117,117 @@ __device__ __forceinline__ float activation(float h, int act) {
   return h * (1.f / (1.f + expf(-1.702f * h)));
 }
 
-template <int C>
-__global__ void __launch_bounds__(kThreads, 1)
-    fused_mlp_bf16(const uint16_t* __restrict__ x, const uint16_t* __restrict__ w1,
-                   const uint16_t* __restrict__ b1, const uint16_t* __restrict__ w2,
-                   const uint16_t* __restrict__ b2, uint16_t* __restrict__ out, int M, int H,
-                   int act) {
-  constexpr int LX = C + 8;       // padded row of x and of a W2 chunk, halves
-  constexpr int CX = C / 8;       // 16-byte chunks per row of x / W2
-  constexpr int NKT = C / kKT;    // W1 tiles per hidden chunk
-  constexpr int CW = C / 4;       // output columns per warp
-  constexpr int NTB = CW / 8;     // output n-tiles per warp
-
-  extern __shared__ __align__(16) uint16_t smem[];
-  uint16_t* sX = smem;               // [kRows][LX]
-  uint16_t* sW2 = sX + kRows * LX;   // [kHC][LX]
-  uint16_t* sW1 = sW2 + kHC * LX;    // [2][kKT][kLW]
-  uint16_t* sH = sW1 + 2 * kKT * kLW;  // [kRows][kLW]
-
-  const int m0 = blockIdx.x * kRows;
+// out (M, N) = epilogue(A (M, K) @ B (K, N)), A and B bf16 row-major by
+// tensor map; epilogue: + f32(bias[n]), activation `act` (-1: none), bf16.
+__global__ void __launch_bounds__(kGemmThreads, 1)
+    gemm_bias_act(const __grid_constant__ CUtensorMap map_a,
+                  const __grid_constant__ CUtensorMap map_b, const uint16_t* __restrict__ bias,
+                  uint16_t* __restrict__ out, int M, int N, int K, int act) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = align_1024(smem_raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + kStages * kStageBytes);
+  uint64_t* empty = full + kStages;
   const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int g = lane >> 2;
-  const int tq = lane & 3;
-  const int rg = warp & 1;   // rows rg*16 .. rg*16+15 in both products
-  const int cg = warp >> 1;  // hidden columns cg*8 (fc1); output columns cg*CW (fc2)
-
-  for (int i = tid; i < kRows * CX; i += kThreads) {
-    const int r = i / CX, c = i % CX;
-    uint16_t* dst = sX + r * LX + c * 8;
-    if (m0 + r < M) {
-      cp_async16(dst, x + static_cast<long long>(m0 + r) * C + c * 8);
-    } else {
-      *reinterpret_cast<uint4*>(dst) = make_uint4(0u, 0u, 0u, 0u);
+  if (tid == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 8);  // one arrival per consumer warp
     }
+    fence_barrier_init();
   }
-  auto fetch_w1 = [&](int h0, int kt, int stage) {  // W1[kt*64 .. +64][h0 .. h0+32]
-    uint16_t* dst = sW1 + stage * kKT * kLW;
-    for (int i = tid; i < kKT * (kHC / 8); i += kThreads) {
-      const int r = i / (kHC / 8), c = i % (kHC / 8);
-      cp_async16(dst + r * kLW + c * 8,
-                 w1 + static_cast<long long>(kt * kKT + r) * H + h0 + c * 8);
-    }
-  };
+  __syncthreads();
 
-  float o[NTB][4];
-#pragma unroll
-  for (int nt = 0; nt < NTB; ++nt) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) o[nt][e] = 0.f;
-  }
+  const int n_tiles = (N + kBN - 1) / kBN;
+  const int tiles = ((M + kBM - 1) / kBM) * n_tiles;
+  const int k_blocks = (K + kBK - 1) / kBK;
 
-  for (int h0 = 0; h0 < H; h0 += kHC) {
-    // this chunk's 32 rows of W2 and the first W1 tile, in one group
-    for (int i = tid; i < kHC * CX; i += kThreads) {
-      const int r = i / CX, c = i % CX;
-      cp_async16(sW2 + r * LX + c * 8, w2 + static_cast<long long>(h0 + r) * C + c * 8);
-    }
-    fetch_w1(h0, 0, 0);
-    cp_async_commit();
-
-    // fc1: this warp's 16 x 8 tile of the hidden chunk
-    float acc[4] = {0.f, 0.f, 0.f, 0.f};
-    for (int kt = 0; kt < NKT; ++kt) {
-      if (kt + 1 < NKT) {
-        fetch_w1(h0, kt + 1, (kt + 1) & 1);
-        cp_async_commit();
-        cp_async_wait<1>();
-      } else {
-        cp_async_wait<0>();
-      }
-      __syncthreads();
-      const uint16_t* tile = sW1 + (kt & 1) * kKT * kLW;
+  if (tid >= 2 * 128) {  // producer warpgroup: one thread issues every load
+    setmaxnreg_dec<40>();
+    if (tid == 2 * 128) {
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+        const int m0 = (t / n_tiles) * kBM;
+        const int n0 = (t % n_tiles) * kBN;
+        for (int kb = 0; kb < k_blocks; ++kb) {
+          mbar_wait(&empty[stage], phase ^ 1);
+          uint8_t* a = smem + stage * kStageBytes;
+          mbar_expect_tx(&full[stage], kStageBytes);
+          tma_load_2d(a, &map_a, &full[stage], kb * kBK, m0);
 #pragma unroll
-      for (int ks = 0; ks < kKT / 16; ++ks) {
-        const uint16_t* xa = sX + (rg * 16 + g) * LX + kt * kKT + ks * 16 + tq * 2;
-        uint32_t a[4];
-        a[0] = ld_u32(xa);
-        a[1] = ld_u32(xa + 8 * LX);
-        a[2] = ld_u32(xa + 8);
-        a[3] = ld_u32(xa + 8 * LX + 8);
-        uint32_t b[2];
-        ldmatrix_x2_trans(b, tile + (ks * 16 + (lane & 15)) * kLW + cg * 8);
-        mma_16816(acc, a, b[0], b[1]);
-      }
-      __syncthreads();  // the next fetch refills this stage
-    }
-
-    // bias + activation in f32, rounded to bf16 into the hidden tile
-    {
-      const int col = cg * 8 + tq * 2;
-      const float bb0 = bf16_to_f32(b1[h0 + col]);
-      const float bb1 = bf16_to_f32(b1[h0 + col + 1]);
-      uint16_t* hr = sH + (rg * 16 + g) * kLW + col;
-      *reinterpret_cast<uint32_t*>(hr) =
-          pack_bf16(activation(acc[0] + bb0, act), activation(acc[1] + bb1, act));
-      *reinterpret_cast<uint32_t*>(hr + 8 * kLW) =
-          pack_bf16(activation(acc[2] + bb0, act), activation(acc[3] + bb1, act));
-    }
-    __syncthreads();
-
-    // fc2: this warp's 16 rows x CW columns += hidden (16 x 32) @ W2 chunk
-#pragma unroll
-    for (int ks = 0; ks < kHC / 16; ++ks) {
-      const uint16_t* ha = sH + (rg * 16 + g) * kLW + ks * 16 + tq * 2;
-      uint32_t a[4];
-      a[0] = ld_u32(ha);
-      a[1] = ld_u32(ha + 8 * kLW);
-      a[2] = ld_u32(ha + 8);
-      a[3] = ld_u32(ha + 8 * kLW + 8);
-      const uint16_t* wb =
-          sW2 + (ks * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * LX + cg * CW + (lane >> 4) * 8;
-#pragma unroll
-      for (int np = 0; np < NTB / 2; ++np) {
-        uint32_t b[4];
-        ldmatrix_x4_trans(b, wb + np * 16);
-        mma_16816(o[2 * np], a, b[0], b[1]);
-        mma_16816(o[2 * np + 1], a, b[2], b[3]);
+          for (int i = 0; i < kBN / 64; ++i) {
+            tma_load_2d(a + kABytes + i * kBChunk, &map_b, &full[stage], n0 + 64 * i, kb * kBK);
+          }
+          if (++stage == kStages) {
+            stage = 0;
+            phase ^= 1;
+          }
+        }
       }
     }
-    __syncthreads();  // the next chunk refills W2 and the hidden tile
-  }
-
-  const int ra = m0 + rg * 16 + g;
-  const int rb = ra + 8;
+  } else {  // two consumer warpgroups, 64 rows of the tile each
+    setmaxnreg_inc<232>();
+    const int wg = tid >> 7;
+    const int warp = (tid >> 5) & 3;
+    const int lane = tid & 31;
+    int stage = 0;
+    uint32_t phase = 0;
+    float acc[128];
 #pragma unroll
-  for (int nt = 0; nt < NTB; ++nt) {
-    const int col = cg * CW + nt * 8 + tq * 2;
-    const float bb0 = bf16_to_f32(b2[col]);
-    const float bb1 = bf16_to_f32(b2[col + 1]);
-    if (ra < M) {
-      *reinterpret_cast<uint32_t*>(out + static_cast<long long>(ra) * C + col) =
-          pack_bf16(o[nt][0] + bb0, o[nt][1] + bb1);
-    }
-    if (rb < M) {
-      *reinterpret_cast<uint32_t*>(out + static_cast<long long>(rb) * C + col) =
-          pack_bf16(o[nt][2] + bb0, o[nt][3] + bb1);
+    for (int i = 0; i < 128; ++i) acc[i] = 0.f;
+
+    for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+      const int m0 = (t / n_tiles) * kBM;
+      const int n0 = (t % n_tiles) * kBN;
+      int prev = 0;
+      for (int kb = 0; kb < k_blocks; ++kb) {
+        mbar_wait(&full[stage], phase);
+        const uint32_t a = smem_u32(smem + stage * kStageBytes) + wg * (64 * 128);
+        const uint32_t b = smem_u32(smem + stage * kStageBytes + kABytes);
+        fence_operands(acc);
+        wgmma_fence();
+#pragma unroll
+        for (int ks = 0; ks < kBK / 16; ++ks) {
+          wgmma_m64n256k16_ss<1>(acc, smem_desc(a + 32 * ks, 16, 1024),
+                                 smem_desc(b + 2048 * ks, kBChunk, 1024), kb + ks > 0);
+        }
+        wgmma_commit();
+        wgmma_wait<1>();  // the previous slice's products are done: free its stage
+        if (kb > 0 && lane == 0) mbar_arrive(&empty[prev]);
+        prev = stage;
+        if (++stage == kStages) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+      wgmma_wait<0>();
+      fence_operands(acc);
+      if (lane == 0) mbar_arrive(&empty[prev]);
+
+      const long long row = m0 + wg * 64 + warp * 16 + (lane >> 2);
+      const int cb = n0 + (lane & 3) * 2;
+#pragma unroll
+      for (int j = 0; j < kBN / 8; ++j) {
+        const int col = cb + 8 * j;
+        if (col < N) {  // N is even: col + 1 < N too
+          const float b0 = bf16_to_f32(bias[col]);
+          const float b1 = bf16_to_f32(bias[col + 1]);
+          float v0 = acc[4 * j] + b0, v1 = acc[4 * j + 1] + b1;
+          float v2 = acc[4 * j + 2] + b0, v3 = acc[4 * j + 3] + b1;
+          if (act >= 0) {
+            v0 = activation(v0, act);
+            v1 = activation(v1, act);
+            v2 = activation(v2, act);
+            v3 = activation(v3, act);
+          }
+          if (row < M) {
+            *reinterpret_cast<uint32_t*>(out + row * N + col) = pack_bf16(v0, v1);
+          }
+          if (row + 8 < M) {
+            *reinterpret_cast<uint32_t*>(out + (row + 8) * N + col) = pack_bf16(v2, v3);
+          }
+        }
+      }
     }
   }
 }
@@ -328,44 +291,62 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// one GEMM launch: out (M, N) = epilogue(a (M, K) @ b (K, N))
+int launch_gemm(const void* a, const void* b, const void* bias, void* out, int M, int N, int K,
+                int act, cudaStream_t stream) {
+  CUtensorMap map_a, map_b;
+  const uint64_t dims_a[2] = {static_cast<uint64_t>(K), static_cast<uint64_t>(M)};
+  const uint64_t dims_b[2] = {static_cast<uint64_t>(N), static_cast<uint64_t>(K)};
+  const uint64_t stride_a[1] = {static_cast<uint64_t>(K) * 2};
+  const uint64_t stride_b[1] = {static_cast<uint64_t>(N) * 2};
+  const uint32_t box_a[2] = {kBK, kBM};
+  const uint32_t box_b[2] = {64, kBK};
+  int err = encode_tensor_map(&map_a, a, 2, dims_a, stride_a, box_a);
+  if (err == 0) err = encode_tensor_map(&map_b, b, 2, dims_b, stride_b, box_b);
+  if (err != 0) return err;
+  const int tiles = ((M + kBM - 1) / kBM) * ((N + kBN - 1) / kBN);
+  const int sms = sm_count();
+  cudaFuncSetAttribute(gemm_bias_act, cudaFuncAttributeMaxDynamicSharedMemorySize, kGemmSmem);
+  gemm_bias_act<<<tiles < sms ? tiles : sms, kGemmThreads, kGemmSmem, stream>>>(
+      map_a, map_b, static_cast<const uint16_t*>(bias), static_cast<uint16_t*>(out), M, N, K,
+      act);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <int C>
-int launch_c(const void* x, const void* w1, const void* b1, const void* w2, const void* b2,
-             void* out, int M, int H, int act, int is_bf16, cudaStream_t stream) {
-  if (is_bf16) {
-    const int smem = ((kRows + kHC) * (C + 8) + 2 * kKT * kLW + kRows * kLW) *
-                     static_cast<int>(sizeof(uint16_t));
-    cudaFuncSetAttribute(fused_mlp_bf16<C>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    fused_mlp_bf16<C><<<(M + kRows - 1) / kRows, kThreads, smem, stream>>>(
-        static_cast<const uint16_t*>(x), static_cast<const uint16_t*>(w1),
-        static_cast<const uint16_t*>(b1), static_cast<const uint16_t*>(w2),
-        static_cast<const uint16_t*>(b2), static_cast<uint16_t*>(out), M, H, act);
-  } else {
-    const int smem = (kRowsF * C + kRowsF * kHC) * static_cast<int>(sizeof(float));
-    cudaFuncSetAttribute(fused_mlp_f32<C>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    fused_mlp_f32<C><<<(M + kRowsF - 1) / kRowsF, kThreads, smem, stream>>>(
-        static_cast<const float*>(x), static_cast<const float*>(w1),
-        static_cast<const float*>(b1), static_cast<const float*>(w2),
-        static_cast<const float*>(b2), static_cast<float*>(out), M, H, act);
-  }
+int launch_f32(const void* x, const void* w1, const void* b1, const void* w2, const void* b2,
+               void* out, int M, int H, int act, cudaStream_t stream) {
+  const int smem = (kRowsF * C + kRowsF * kHC) * static_cast<int>(sizeof(float));
+  cudaFuncSetAttribute(fused_mlp_f32<C>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  fused_mlp_f32<C><<<(M + kRowsF - 1) / kRowsF, kThreads, smem, stream>>>(
+      static_cast<const float*>(x), static_cast<const float*>(w1),
+      static_cast<const float*>(b1), static_cast<const float*>(w2),
+      static_cast<const float*>(b2), static_cast<float*>(out), M, H, act);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // x (M, C), w1 (C, H), b1 (H), w2 (H, C), b2 (C), out (M, C): contiguous, one
-// dtype (is_bf16: 1 bfloat16, 0 float32). act: 0 gelu, 1 gelu_tanh,
-// 2 quickgelu.
+// dtype (is_bf16: 1 bfloat16, 0 float32). hidden: an (M, H) bf16 scratch for
+// the bf16 path (unused, may be null, for float32). act: 0 gelu,
+// 1 gelu_tanh, 2 quickgelu.
 extern "C" int mvp_fused_mlp(const void* x, const void* w1, const void* b1, const void* w2,
-                             const void* b2, void* out, int M, int C, int H, int act,
-                             int is_bf16, void* stream) {
+                             const void* b2, void* out, void* hidden, int M, int C, int H,
+                             int act, int is_bf16, void* stream) {
   if (M <= 0 || H <= 0 || H % kHC || act < 0 || act > 2) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (is_bf16) {
+    if (hidden == nullptr || C <= 0 || C % 8) return static_cast<int>(cudaErrorInvalidValue);
+    const int err = launch_gemm(x, w1, b1, hidden, M, H, C, act, st);  // fc1 + act
+    return err != 0 ? err : launch_gemm(hidden, w2, b2, out, M, C, H, -1, st);  // fc2
+  }
   switch (C) {
-    case 768: return launch_c<768>(x, w1, b1, w2, b2, out, M, H, act, is_bf16, st);
-    case 1024: return launch_c<1024>(x, w1, b1, w2, b2, out, M, H, act, is_bf16, st);
-    case 1280: return launch_c<1280>(x, w1, b1, w2, b2, out, M, H, act, is_bf16, st);
+    case 768: return launch_f32<768>(x, w1, b1, w2, b2, out, M, H, act, st);
+    case 1024: return launch_f32<1024>(x, w1, b1, w2, b2, out, M, H, act, st);
+    case 1280: return launch_f32<1280>(x, w1, b1, w2, b2, out, M, H, act, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

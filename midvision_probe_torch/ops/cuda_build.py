@@ -3,9 +3,12 @@
 Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled with
 ``nvcc`` into its own shared library on first use, then loaded with
 ``ctypes``. Libraries land in ``build/torch_kernels/`` at the repository
-root (git-ignored), named by a hash of the source and flags, so a changed
-source never loads a stale build. ``build_all`` starts one ``nvcc`` per
-source at once. Nothing here runs at import time.
+root (git-ignored), named by a hash of the source, the shared headers and
+the flags, so a changed source never loads a stale build. The ``wgmma``
+kernels need the ``sm_90a`` target; their TMA tensor maps are encoded
+through ``cudaGetDriverEntryPoint``, so nothing links libcuda.
+``build_all`` starts one ``nvcc`` per source at once. Nothing here runs at
+import time.
 """
 
 from __future__ import annotations
@@ -43,8 +46,12 @@ def _nvcc() -> str:
 
 
 def _library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    """The library's path, named by a hash of its source, the shared
+    headers (``csrc/*.cuh``) and the flags."""
+    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}_{digest.hexdigest()[:16]}.so"
 
 

@@ -5,7 +5,12 @@ Counterpart of the JAX package's Pallas TPU kernel ``fused_mlp``
 (``ops/fused_mlp.py``, ``_forward`` -> ``_mlp_kernel``). It is a library op:
 no model dispatches it (the ViT's MLP runs two linears). The kernel is
 ``csrc/fused_mlp.cu``; its header says what bounds it on an H100 and what
-its design does about it.
+its design does about it. In bf16 it is one ``wgmma`` GEMM with a fused
+epilogue launched twice: fc1 with bias and activation into an ``(M, H)``
+bf16 scratch that the wrapper allocates, then fc2 with bias from it. The
+hidden activations therefore make one round trip through device memory,
+rounded to bf16 where the TPU kernel rounds them (a one-SM design that keeps
+them on chip cannot hold the (rows x C) f32 accumulator at wgmma's 64 rows).
 
 * ``fused_mlp(x, w1, b1, w2, b2, act="gelu")``: x ``(..., C)``, w1
   ``(C, H)``, b1 ``(H,)``, w2 ``(H, C)``, b2 ``(C,)`` (the JAX argument
@@ -22,9 +27,9 @@ its design does about it.
 Activations: ``gelu`` (erf form), ``gelu_tanh`` (tanh form, the ViT's bf16
 GELU) and ``quickgelu`` (``x * sigmoid(1.702 x)``).
 
-Constraints of the CUDA kernel: dtype bfloat16 (``mma.sync`` path) or
-float32 (SIMT path, no TF32); C in ``KERNEL_WIDTHS``; H a multiple of 32;
-contiguous, 16-byte aligned operands.
+Constraints of the CUDA kernel: dtype bfloat16 (``wgmma`` path) or float32
+(SIMT path, no TF32, the hidden kept in shared memory); C in
+``KERNEL_WIDTHS``; H a multiple of 32; contiguous, 16-byte aligned operands.
 """
 
 from __future__ import annotations
@@ -94,16 +99,32 @@ def _check(x, w1, b1, w2, b2, act) -> tuple[int, int]:
     return C, H
 
 
+def _check_hidden(hidden: torch.Tensor, x: torch.Tensor, M: int, H: int) -> None:
+    """A caller's scratch for the hidden activations (the bf16 path's; the
+    f32 path and the plain version ignore it): a contiguous ``(M, H)``
+    tensor of x's dtype on x's device."""
+    if tuple(hidden.shape) != (M, H):
+        raise ValueError(f"hidden scratch must be ({M}, {H}), got {tuple(hidden.shape)}")
+    if hidden.dtype != x.dtype or hidden.device != x.device:
+        raise ValueError(f"hidden scratch must be {x.dtype} on {x.device}, got "
+                         f"{hidden.dtype} on {hidden.device}")
+    if not hidden.is_contiguous() or hidden.data_ptr() % 16:
+        raise ValueError("hidden scratch must be contiguous and 16-byte aligned")
+
+
 def _kernel():
     fn = load_library("fused_mlp").mvp_fused_mlp
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
 
 
-def _forward(x, w1, b1, w2, b2, act: str) -> torch.Tensor:
+def _forward(x, w1, b1, w2, b2, act: str, hidden=None) -> torch.Tensor:
     C, H = _check(x, w1, b1, w2, b2, act)
+    M = x.numel() // C
+    if hidden is not None:
+        _check_hidden(hidden, x, M, H)
     if x.device.type == "cpu":
         return _fused_mlp_plain(x, w1, b1, w2, b2, act)
     if x.device.type != "cuda":
@@ -116,14 +137,18 @@ def _forward(x, w1, b1, w2, b2, act: str) -> torch.Tensor:
         raise ValueError(f"hidden width H={H} must be a multiple of 32")
     if not all(t.is_contiguous() and t.data_ptr() % 16 == 0 for t in (x, w1, b1, w2, b2)):
         raise ValueError("x, w1, b1, w2, b2 must be contiguous and 16-byte aligned")
-    M = x.numel() // C
     out = torch.empty_like(x)
     if M == 0:
         return out
+    if x.dtype != torch.bfloat16:
+        hidden = None
+    elif hidden is None:
+        hidden = torch.empty((M, H), dtype=x.dtype, device=x.device)
     with torch.cuda.device(x.device):
         err = _kernel()(x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
-                        b2.data_ptr(), out.data_ptr(), M, C, H, ACTIVATIONS.index(act),
-                        int(x.dtype == torch.bfloat16),
+                        b2.data_ptr(), out.data_ptr(),
+                        None if hidden is None else hidden.data_ptr(), M, C, H,
+                        ACTIVATIONS.index(act), int(x.dtype == torch.bfloat16),
                         torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"fused_mlp kernel launch failed: cudaError {err}")
@@ -136,10 +161,10 @@ class _FusedMLP(torch.autograd.Function):
     the gradient of ``_plain``."""
 
     @staticmethod
-    def forward(ctx, x, w1, b1, w2, b2, act):
+    def forward(ctx, x, w1, b1, w2, b2, act, hidden):
         ctx.save_for_backward(x, w1, b1, w2, b2)
         ctx.act = act
-        return _forward(x, w1, b1, w2, b2, act)
+        return _forward(x, w1, b1, w2, b2, act, hidden)
 
     @staticmethod
     def backward(ctx, grad):
@@ -147,14 +172,17 @@ class _FusedMLP(torch.autograd.Function):
         with torch.enable_grad():
             out = _plain(*inputs, ctx.act)
             grads = torch.autograd.grad(out, inputs, grad)
-        return (*grads, None)
+        return (*grads, None, None)
 
 
-def fused_mlp(x, w1, b1, w2, b2, act: str = "gelu") -> torch.Tensor:
-    """``act(x @ w1 + b1) @ w2 + b2`` with the hidden activations kept on
-    chip: x ``(..., C)``, w1 ``(C, H)``, b1 ``(H,)``, w2 ``(H, C)``, b2
-    ``(C,)``."""
-    return _FusedMLP.apply(x, w1, b1, w2, b2, act)
+def fused_mlp(x, w1, b1, w2, b2, act: str = "gelu", hidden=None) -> torch.Tensor:
+    """``act(x @ w1 + b1) @ w2 + b2``: x ``(..., C)``, w1 ``(C, H)``, b1
+    ``(H,)``, w2 ``(H, C)``, b2 ``(C,)``. ``hidden``: an optional ``(M, H)``
+    scratch of x's dtype (M = rows of x) that the bf16 kernel writes the
+    hidden activations to, for a caller that reuses one across calls; by
+    default the wrapper allocates it. One call (two launches of the GEMM in
+    bf16) counts as one launch."""
+    return _FusedMLP.apply(x, w1, b1, w2, b2, act, hidden)
 
 
 fused_mlp.launches = 0  # kernel launches (never the plain version)

@@ -4,10 +4,20 @@ wrappers that choose between them.
 
 Counterpart of the JAX package's Pallas TPU kernels ``fused_qkv_attention``
 (``ops/vit_attention.py``, ``_fused_forward`` -> ``_fused_kernel``) and
-``vit_attention`` (``_forward`` -> ``_attn_kernel``). Both are one kernel in
-``csrc/vit_attention.cu`` with two entry points; its header says what bounds
-it on an H100 (tensor-core operations at the probing shapes) and what the
-design does about it.
+``vit_attention`` (``_forward`` -> ``_attn_kernel``). Both are
+``csrc/vit_attention.cu``, with two entry points over three kernels (the
+routes); its header says what bounds attention on an H100 (tensor-core
+operations at the probing shapes) and what each route's design does about
+it. ``attention_route(d, dtype)`` is the one place that picks the route:
+
+* ``"wgmma"``: bf16 at d = 64 (DINO, CroCo-v2, the bench) and d = 80
+  (RADIO-v2): warp-specialised, TMA-fed, ``wgmma`` products, 128 query
+  rows a work item;
+* ``"mma_sync"``: bf16 at d in {16, 32, 128}: the ``mma.sync`` kernel, 64
+  query rows a block;
+* ``"simt"``: float32 at every head dim (f32 FMA, no TF32).
+
+``route_launches`` counts the launches of each route.
 
 * ``fused_qkv_attention(qkv, scale, n_valid=None)``: qkv ``(B, N, 3, H, d)``
   -> ``(B, N, H*d)``.
@@ -15,6 +25,9 @@ design does about it.
   a contiguous last dimension (q/k/v may be views of the qkv projection) ->
   ``(B, H, N, d)``, on a card a view of a ``(B, N, H, d)`` buffer so that the
   transpose back to tokens before ``proj`` is free.
+* ``launch_attention(q, k, v, scale, n_valid=None, q_scale=1.0)``: the
+  strided launch behind ``vit_attention``, K3 and K9; ``q_scale`` multiplies
+  q and rounds it to q's dtype before the scores (K9's ``bf16(q * scale)``).
 * For a CPU tensor each runs its plain version; for a CUDA tensor it
   launches the kernel or raises. There is no fallback.
 * ``_fused_qkv_attention_plain`` / ``_vit_attention_plain``: the einsum +
@@ -22,28 +35,45 @@ design does about it.
   ``_einsum_ref`` (``q * scale`` in the input dtype, f32 scores and softmax,
   probabilities cast to the input dtype before the PV product).
 
-Constraints of the CUDA kernel (they replace the TPU-only gates of the JAX
+Constraints of the CUDA kernels (they replace the TPU-only gates of the JAX
 package: 128-lane divisibility, the VMEM cap, N >= 256 and the 128-padding
 do not apply): head dim d in {16, 32, 64, 80, 128}; K1 keeps the JAX fused
 kernel's d | 128 (so a model takes the same branch as on the TPU); dtype
-bfloat16 or float32 (float32 runs a SIMT path with no TF32); 16-byte aligned
-rows; any N >= 1 (K1: 1 <= n_valid <= N); forward only (the backbone is
-frozen, so no gradient flows through it).
+bfloat16 or float32; 16-byte aligned rows; any N >= 1 (1 <= n_valid <= N);
+forward only (the backbone is frozen, so no gradient flows through it).
 """
 
 from __future__ import annotations
 
 import ctypes
 import math
+import numbers
 
 import torch
 
 from midvision_probe_torch.ops.cuda_build import float_bits, load_library
 
 _LOG2E = math.log2(math.e)
-_HEAD_DIMS = (16, 32, 64, 80, 128)  # the kernel's
+_HEAD_DIMS = (16, 32, 64, 80, 128)  # the kernels'
 FUSED_HEAD_DIMS = (16, 32, 64, 128)  # K1: the JAX fused kernel's d | 128
+WGMMA_HEAD_DIMS = (64, 80)  # bf16 head dims on the wgmma route
 _DTYPES = (torch.bfloat16, torch.float32)
+ROUTES = ("wgmma", "mma_sync", "simt")  # the C entry points' route codes 0, 1, 2
+route_launches = dict.fromkeys(ROUTES, 0)  # kernel launches by route
+
+
+def attention_route(d: int, dtype: torch.dtype) -> str:
+    """The kernel that runs attention at head dim ``d`` in ``dtype`` on a
+    card: ``"wgmma"`` (bf16, d in ``WGMMA_HEAD_DIMS``), ``"mma_sync"``
+    (bf16, other head dims) or ``"simt"`` (float32). Raises on what no
+    kernel takes."""
+    if d not in _HEAD_DIMS:
+        raise ValueError(f"head dim {d} not in {_HEAD_DIMS}")
+    if dtype == torch.float32:
+        return "simt"
+    if dtype == torch.bfloat16:
+        return "wgmma" if d in WGMMA_HEAD_DIMS else "mma_sync"
+    raise ValueError(f"dtype {dtype} not in {_DTYPES}")
 
 
 def _fused_qkv_attention_plain(qkv: torch.Tensor, scale: float,
@@ -82,7 +112,7 @@ def _strided_kernel():
     fn = load_library("vit_attention").mvp_vit_attention
     if fn.argtypes is None:
         fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
-                       + [ctypes.c_int64] * 12 + [ctypes.c_int] * 2 + [ctypes.c_void_p])
+                       + [ctypes.c_int64] * 12 + [ctypes.c_int] * 3 + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
 
@@ -112,17 +142,18 @@ def fused_qkv_attention(qkv: torch.Tensor, scale: float,
     if qkv.requires_grad and torch.is_grad_enabled():
         raise RuntimeError("the fused attention kernel is forward-only "
                            "(frozen backbone); run it under torch.no_grad()")
+    route = attention_route(d, qkv.dtype)
     out = torch.empty((B, N, H * d), dtype=qkv.dtype, device=qkv.device)
     with torch.cuda.device(qkv.device):
         err = _kernel()(
             qkv.data_ptr(), out.data_ptr(), B, N, H, d,
             N if n_valid is None else n_valid, float_bits(scale * _LOG2E),
-            int(qkv.dtype == torch.bfloat16),
-            torch.cuda.current_stream(qkv.device).cuda_stream)
+            ROUTES.index(route), torch.cuda.current_stream(qkv.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"fused_qkv_attention kernel launch failed: "
                            f"cudaError {err}")
     fused_qkv_attention.launches += 1
+    route_launches[route] += 1
     return out
 
 
@@ -141,15 +172,17 @@ def _check_rows(name: str, t: torch.Tensor) -> None:
 
 
 def launch_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                     scale: float, n_valid: int | None = None) -> torch.Tensor:
+                     scale: float, n_valid: int | None = None,
+                     q_scale: float = 1.0) -> torch.Tensor:
     """Launch the strided kernel on CUDA ``(B, H, N, d)`` operands; returns
     the ``(B, H, N, d)`` view of a fresh ``(B, N, H, d)`` buffer. Keys and
     values at index >= ``n_valid`` (default N) are excluded and never read.
-    Raises on anything the kernel does not take. The callers
-    (``vit_attention``, ``ops.attention._flash_attention`` and
-    ``bench_attn.splash_attention``) count the launch."""
-    if q.device.type != "cuda":
-        raise ValueError(f"unsupported device {q.device}")
+    ``q_scale`` (a finite float): q enters the scores as ``q * q_scale``
+    rounded to q's dtype (K9 passes its softmax scale here and ``scale`` 1).
+    Raises on anything the kernel does not take; the arguments are checked
+    before the device. The callers (``vit_attention``,
+    ``ops.attention._flash_attention`` and ``bench_attn.splash_attention``)
+    count the launch; ``route_launches`` counts it by route."""
     if q.ndim != 4 or q.shape != k.shape or q.shape != v.shape:
         raise ValueError("q, k, v must be (B, H, N, d) of one shape, got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
@@ -157,11 +190,13 @@ def launch_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     n_valid = N if n_valid is None else n_valid
     if not 0 < n_valid <= N:
         raise ValueError(f"n_valid={n_valid} outside [1, {N}]")
-    if d not in _HEAD_DIMS:
-        raise ValueError(f"head dim {d} not in {_HEAD_DIMS}")
-    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise ValueError(f"dtypes {q.dtype}, {k.dtype}, {v.dtype}: one of {_DTYPES} "
-                         "for all three")
+    if not isinstance(q_scale, numbers.Real) or not math.isfinite(q_scale):
+        raise ValueError(f"q_scale must be a finite float, got {q_scale!r}")
+    if k.dtype != q.dtype or v.dtype != q.dtype:
+        raise ValueError(f"dtypes {q.dtype}, {k.dtype}, {v.dtype}: q, k, v must share one")
+    route = attention_route(d, q.dtype)  # raises on a head dim or dtype no kernel takes
+    if q.device.type != "cuda":
+        raise ValueError(f"unsupported device {q.device}")
     if k.device != q.device or v.device != q.device:
         raise ValueError("q, k, v must be on one device")
     for name, t in (("q", q), ("k", k), ("v", v)):
@@ -174,10 +209,11 @@ def launch_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         err = _strided_kernel()(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, N, H, d, n_valid,
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
-            float_bits(scale * _LOG2E), int(q.dtype == torch.bfloat16),
+            float_bits(scale * _LOG2E), float_bits(float(q_scale)), ROUTES.index(route),
             torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"attention kernel launch failed: cudaError {err}")
+    route_launches[route] += 1
     return out
 
 

@@ -220,6 +220,50 @@ def test_vit_attention_kernel_rejects_what_it_cannot_take(cuda):
         attn.vit_attention(z.float().requires_grad_(), z.float(), z.float(), 0.1)
 
 
+# ------------------------------------------ the wgmma route (bf16, d 64 and 80)
+# (B, H, N, n_valid, d): N not a multiple of 128 with n_valid < N (one or
+# two KV tiles, a ragged last tile), d = 80's two-part rows, one token
+WGMMA_CASES = [(2, 3, 300, 200, 64), (1, 2, 257, 129, 80), (2, 2, 77, 50, 80),
+               (1, 1, 1, 1, 64)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,N,n_valid,d", WGMMA_CASES)
+def test_wgmma_route_never_reads_keys_past_n_valid(cuda, B, H, N, n_valid, d):
+    """Strided (B, H, N, d) views of a (B, N, 3, H, d) projection whose k and
+    v rows >= n_valid are NaN, through the strided launch: the wgmma route
+    runs, every output row is finite and within K1's bf16 tolerance of the
+    plain version over the valid keys."""
+    x = np.random.RandomState(N + d).randn(B, N, 3, H, d).astype(np.float32)
+    x[:, n_valid:, 1:] = np.nan
+    q, k, v = torch.from_numpy(x).to(cuda, torch.bfloat16).permute(2, 0, 3, 1, 4).unbind(0)
+    assert attn.attention_route(d, torch.bfloat16) == "wgmma"
+    before = attn.route_launches["wgmma"]
+    with torch.no_grad():
+        got = attn.launch_attention(q, k, v, d**-0.5, n_valid)
+        ref = attn._vit_attention_plain(q, k[:, :, :n_valid], v[:, :, :n_valid], d**-0.5)
+    torch.cuda.synchronize()
+    assert attn.route_launches["wgmma"] == before + 1
+    assert tuple(got.shape) == (B, H, N, d) and torch.isfinite(got).all()
+    torch.testing.assert_close(got.float(), ref.float(), atol=1.6e-2, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 80])
+def test_wgmma_route_takes_contiguous_and_transposed_operands(cuda, d):
+    """The tensor maps follow the strides: contiguous (B, H, N, d) operands
+    (head stride above the token stride) and (B, N, H, d) transposes (head
+    stride below it) give the strided views' result."""
+    q, k, v = _strided_qkv(2, 130, 3, d, torch.bfloat16, seed=d)
+    with torch.no_grad():
+        ref = attn._vit_attention_plain(q, k, v, d**-0.5)
+        for layout in (lambda t: t.contiguous(),
+                       lambda t: t.transpose(1, 2).contiguous().transpose(1, 2)):
+            got = attn.vit_attention(*(layout(t) for t in (q, k, v)), d**-0.5)
+            torch.cuda.synchronize()
+            torch.testing.assert_close(got.float(), ref.float(), atol=1.6e-2, rtol=0)
+
+
 # ----------------------------------------------------------------- K5 rope2d
 def _rope_inputs(B, H, gh, gw, dim, dtype, prefix, seed):
     """q as a strided (B, H, N, dim) view of a (B, N, 3, H, dim) projection
@@ -358,6 +402,28 @@ def test_int8_attention_rows_whose_exponentials_underflow_get_zero(cuda):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("d", [32, 64, 80, 128])
+def test_splash_attention_at_a_scale_that_is_not_a_power_of_two(cuda, d):
+    """K9 with scale 80^-1/2: the kernel rounds q * scale to bf16 itself
+    (``q_scale``), as ``_splash_q`` does; every head dim, on its route (d 64
+    and 80 on wgmma, 32 and 128 on mma_sync), within the bench kernels'
+    bar."""
+    from midvision_probe_torch import bench_attn as ba
+
+    qkv = _bench_qkv(2, 300, 3, d, seed=d)
+    scale = 80**-0.5
+    route = attn.attention_route(d, torch.bfloat16)
+    before = attn.route_launches[route]
+    with torch.no_grad():
+        got = ba.splash_attention(qkv, scale, 250)
+        ref = ba._splash_attention_plain(qkv, scale, 250)
+    torch.cuda.synchronize()
+    assert attn.route_launches[route] == before + 1
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got.float(), ref.float(), atol=_bench_tol(ref), rtol=0)
+
+
+@pytest.mark.cuda
 def test_bench_attention_kernels_reject_what_they_cannot_take(cuda):
     from midvision_probe_torch import bench_attn as ba
 
@@ -409,6 +475,52 @@ def test_fused_mlp_kernel_matches_plain_version(cuda, act, M, C, H):
         else:
             tol = 2.0**-7 * (r.abs() + r.abs().max())
             assert bool(((g - r).abs() <= tol).all()), (g - r).abs().max().item()
+
+
+def _mlp_close(got: torch.Tensor, ref: torch.Tensor) -> None:
+    """One bf16 ulp of each output plus one of the largest (see above)."""
+    g, r = got.float(), ref.float()
+    tol = 2.0**-7 * (r.abs() + r.abs().max())
+    assert bool(((g - r).abs() <= tol).all()), (g - r).abs().max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("act", ["gelu", "gelu_tanh", "quickgelu"])
+@pytest.mark.parametrize("C", [768, 1024, 1280])
+@pytest.mark.parametrize("M,H", [(77, 160), (300, 3072)])
+def test_fused_mlp_wgmma_gemm_at_every_width(cuda, act, C, M, H):
+    """The bf16 GEMM at each of the zoo's widths: ragged M (one and three
+    128-row tiles), H = 160 (a ragged 256-column tile in fc1, a ragged
+    64-deep K slice in fc2) and H = 3072."""
+    from midvision_probe_torch.ops import fused_mlp as fm
+
+    args = _mlp_inputs(M, C, H, torch.bfloat16, seed=M + C + H + len(act))
+    with torch.no_grad():
+        got = fm.fused_mlp(*args, act=act)
+        ref = fm._fused_mlp_plain(*args, act=act)
+    torch.cuda.synchronize()
+    assert got.shape == (M, C) and torch.isfinite(got).all()
+    _mlp_close(got, ref)
+
+
+@pytest.mark.cuda
+def test_fused_mlp_writes_the_hidden_into_a_callers_scratch(cuda):
+    """fc1's epilogue (bias, activation in f32, bf16) lands in the caller's
+    (M, H) scratch: within one bf16 ulp (+1e-4 where the f32 sum cancels)
+    of the plain version's hidden; the output as ever."""
+    from midvision_probe_torch.ops import fused_mlp as fm
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    x, w1, b1, w2, b2 = _mlp_inputs(300, 768, 3072, torch.bfloat16, seed=9)
+    hidden = torch.empty(300, 3072, device=cuda, dtype=torch.bfloat16)
+    with torch.no_grad():
+        got = fm.fused_mlp(x, w1, b1, w2, b2, act="gelu_tanh", hidden=hidden)
+        h_ref = fm._act(x.float() @ w1.float() + b1.float(), "gelu_tanh").to(torch.bfloat16)
+        ref = fm._fused_mlp_plain(x, w1, b1, w2, b2, act="gelu_tanh")
+    torch.cuda.synchronize()
+    h, r = hidden.float(), h_ref.float()
+    assert bool(((h - r).abs() <= 2.0**-7 * r.abs() + 1e-4).all()), (h - r).abs().max().item()
+    _mlp_close(got, ref)
 
 
 @pytest.mark.cuda
