@@ -86,10 +86,10 @@ JSON line per phase and fails on the first failing phase:
 Then a ``kernels`` summary line, the ``nvidia-smi`` name/power-limit line
 and, last, ``{"ok": true, "device": {...}}``. Every launch count is set to
 0 just before a path is driven and read just after it, with the attention
-launches by route (``ops/vit_attention.py::attention_route``: ``wgmma`` for
-bf16 at d 64 and 80, ``mma_sync`` for the other bf16 head dims, ``simt``
-for f32); every attention check records the route it ran and fails if it
-is not the one ``attention_route`` names.
+launches by the route the kernel reports (``wgmma`` for bf16 at d 64 and
+80, ``mma_sync`` for the other bf16 head dims, ``simt`` for f32); every
+attention check records the route that ran and fails if it is not the one
+``ops/vit_attention.py::attention_route`` names.
 """
 
 from __future__ import annotations
@@ -800,21 +800,19 @@ def phase_path_fused_mlp(torch, blocks: int = 12):
     ViT-B/16's MLP width over a 64-image batch at 480x640 (M = 76,864, C =
     768, H = 3072, bf16, gelu_tanh, seeded random weights per block): wall
     time, a finite output, launch counts (K6 once per block, every other
-    count 0); the blocks share one hidden scratch. Returns the launch
-    counts."""
+    count 0). Returns the launch counts."""
     from midvision_probe_torch.ops.fused_mlp import fused_mlp
 
     gen = torch.Generator(device="cuda").manual_seed(6)
     x = mlp_inputs(torch, gen, MLP_ROWS, 768, 3072, torch.bfloat16)[0]
     weights = [mlp_inputs(torch, gen, 1, 768, 3072, torch.bfloat16)[1:]
                for _ in range(blocks)]
-    hidden = torch.empty(MLP_ROWS, 3072, device="cuda", dtype=torch.bfloat16)  # every block's
     torch.cuda.synchronize()
     reset_counts()
     t0 = time.perf_counter()
     with torch.no_grad():
         for w1, b1, w2, b2 in weights:
-            x = x + fused_mlp(x, w1, b1, w2, b2, act="gelu_tanh", hidden=hidden)
+            x = x + fused_mlp(x, w1, b1, w2, b2, act="gelu_tanh")
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = read_counts()
@@ -826,7 +824,7 @@ def phase_path_fused_mlp(torch, blocks: int = 12):
           "ms_per_block": wall * 1e3 / blocks})
     if not finite or counts != expected:
         raise SystemExit(f"path_fused_mlp check failed: finite {finite}, launches {counts}")
-    del x, weights, hidden
+    del x, weights
     torch.cuda.empty_cache()
     return counts
 

@@ -47,13 +47,13 @@
 // Ragged M, N and K need no padding: TMA fills rows and columns outside the
 // tensors with zeros, and the stores are masked.
 // On the card (NVIDIA H100 80GB HBM3, 700 W) this runs at ~4x its bound
-// at DINO's shape (3.1 ms). L2 bandwidth does not bound it (a 2-CTA
-// cluster that multicasts each B slice ran 42% slower), nor does the
-// serial epilogue alone (a schedule in which the two warpgroups take whole
-// 128 x 128 tiles in turn, one's epilogue beside the other's products, ran
-// 6% slower); the epilogue's exact activation math is a large share (gelu,
-// with its f32 division and expf, costs 0.5-0.65 ms more than gelu_tanh).
-// PERF.md has the numbers.
+// at DINO's shape (3.1 ms). Two variants ran slower in the same call and
+// were dropped: a 2-CTA cluster that multicasts each B slice (so L2
+// bandwidth does not bound the tile), and a schedule in which the two
+// warpgroups take whole 128 x 128 tiles in turn, one's epilogue beside the
+// other's products. The epilogue's exact activation math is a large share:
+// gelu, with its f32 division and expf, is slower than gelu_tanh. PERF.md
+// has the numbers.
 //
 // float32 takes a SIMT path (f32 FMA, no TF32, 16 rows per block, W1 and
 // W2 read through L1/L2, the hidden kept in shared memory), which keeps

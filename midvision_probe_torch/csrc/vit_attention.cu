@@ -36,7 +36,9 @@
 // regime. Every route keeps the N x N scores out of device memory (online
 // softmax over KV tiles in shared memory, fp32 accumulators in registers).
 //
-// Routes (chosen by the caller, ops/vit_attention.py `attention_route`):
+// Routes (chosen here by head dim and dtype, `route_of`, and reported back
+// to the caller through `route_ran`; ops/vit_attention.py `attention_route`
+// mirrors the choice):
 //   * 0, wgmma: bf16 at d in {64, 80} (DINO, CroCo-v2, the bench, RADIO-v2).
 //     Only wgmma reaches the full tensor-core rate, and the mma.sync
 //     design below spends its issue slots on scalar shared loads (4 per PV
@@ -784,14 +786,19 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* out, Strides
   return static_cast<int>(cudaGetLastError());
 }
 
-// routes, chosen by the caller (ops/vit_attention.py `attention_route`)
-constexpr int kRouteWgmma = 0;    // bf16, d in {64, 80}
-constexpr int kRouteMmaSync = 1;  // bf16, d in {16, 32, 128}
-constexpr int kRouteSimt = 2;     // fp32, every head dim
+// the routes' codes, as reported through route_ran
+constexpr int kRouteWgmma = 0;
+constexpr int kRouteMmaSync = 1;
+constexpr int kRouteSimt = 2;
+
+int route_of(int D, int is_bf16) {
+  if (!is_bf16) return kRouteSimt;
+  return D == 64 || D == 80 ? kRouteWgmma : kRouteMmaSync;
+}
 
 int launch(const void* q, const void* k, const void* v, void* out, Strides sq, Strides sk,
            Strides sv, Strides so, int B, int N, int H, int D, int n_valid,
-           int scale_log2_bits, int q_scale_bits, int route, void* stream) {
+           int scale_log2_bits, int q_scale_bits, int is_bf16, int* route_ran, void* stream) {
   float sl2, q_scale;
   memcpy(&sl2, &scale_log2_bits, sizeof(sl2));
   memcpy(&q_scale, &q_scale_bits, sizeof(q_scale));
@@ -799,14 +806,12 @@ int launch(const void* q, const void* k, const void* v, void* out, Strides sq, S
   if (B <= 0 || N <= 0 || H <= 0 || n_valid <= 0 || n_valid > N) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  const int route = route_of(D, is_bf16);
+  *route_ran = route;
   if (route == kRouteWgmma) {
-    if (D == 64) {
-      return launch_wgmma<64>(q, k, v, out, sq, sk, sv, so, B, N, H, n_valid, sl2, q_scale, st);
-    }
-    if (D == 80) {
-      return launch_wgmma<80>(q, k, v, out, sq, sk, sv, so, B, N, H, n_valid, sl2, q_scale, st);
-    }
-    return static_cast<int>(cudaErrorInvalidValue);
+    return D == 64
+        ? launch_wgmma<64>(q, k, v, out, sq, sk, sv, so, B, N, H, n_valid, sl2, q_scale, st)
+        : launch_wgmma<80>(q, k, v, out, sq, sk, sv, so, B, N, H, n_valid, sl2, q_scale, st);
   }
 #define MVP_ATTN_CASE(DIM, LAUNCH)                                                      \
   case DIM:                                                                             \
@@ -819,7 +824,7 @@ int launch(const void* q, const void* k, const void* v, void* out, Strides sq, S
       MVP_ATTN_CASE(128, launch_bf16)
       default: return static_cast<int>(cudaErrorInvalidValue);
     }
-  } else if (route == kRouteSimt) {
+  } else {
     switch (D) {
       MVP_ATTN_CASE(16, launch_f32)
       MVP_ATTN_CASE(32, launch_f32)
@@ -828,8 +833,6 @@ int launch(const void* q, const void* k, const void* v, void* out, Strides sq, S
       MVP_ATTN_CASE(128, launch_f32)
       default: return static_cast<int>(cudaErrorInvalidValue);
     }
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
   }
 #undef MVP_ATTN_CASE
   return static_cast<int>(cudaGetLastError());
@@ -838,22 +841,22 @@ int launch(const void* q, const void* k, const void* v, void* out, Strides sq, S
 }  // namespace
 
 // K1. qkv: contiguous (B, N, 3, H, D); out: contiguous (B, N, H*D), same
-// dtype (bfloat16 for routes 0 and 1, float32 for route 2).
-// scale_log2_bits: the float softmax scale * log2(e), passed as its 32-bit
-// pattern.
+// dtype (is_bf16: 1 bfloat16, 0 float32). scale_log2_bits: the float
+// softmax scale * log2(e), passed as its 32-bit pattern. *route_ran: the
+// route taken (0 wgmma, 1 mma_sync, 2 simt), set before the launch.
 extern "C" int mvp_fused_qkv_attention(const void* qkv, void* out, int B, int N, int H,
-                                       int D, int n_valid, int scale_log2_bits, int route,
-                                       void* stream) {
+                                       int D, int n_valid, int scale_log2_bits, int is_bf16,
+                                       int* route_ran, void* stream) {
   const long long hd = static_cast<long long>(H) * D;
   const Strides in{N * 3 * hd, D, 3 * hd};
   const Strides so{N * hd, D, hd};
-  const size_t esize = route == kRouteSimt ? 4 : 2;
+  const size_t esize = is_bf16 ? 2 : 4;
   const char* base = static_cast<const char*>(qkv);
   const float one = 1.f;
   int one_bits;
   memcpy(&one_bits, &one, sizeof(one_bits));
   return launch(base, base + hd * esize, base + 2 * hd * esize, out, in, in, in, so, B, N,
-                H, D, n_valid, scale_log2_bits, one_bits, route, stream);
+                H, D, n_valid, scale_log2_bits, one_bits, is_bf16, route_ran, stream);
 }
 
 // K2. q, k, v, out: (B, H, N, D) by element strides (batch, head, token),
@@ -862,6 +865,7 @@ extern "C" int mvp_fused_qkv_attention(const void* qkv, void* out, int B, int N,
 // pass N; the bench's splash route (K9) passes its count of valid keys.
 // q_scale_bits: the float q_scale (q is taken as q * q_scale, rounded to
 // q's dtype, before the scores; 1 for K2 and K3, the softmax scale for K9).
+// is_bf16 and route_ran as for K1.
 extern "C" int mvp_vit_attention(const void* q, const void* k, const void* v, void* out,
                                  int B, int N, int H, int D, int n_valid,
                                  long long q_sb, long long q_sh, long long q_sn,
@@ -869,8 +873,8 @@ extern "C" int mvp_vit_attention(const void* q, const void* k, const void* v, vo
                                  long long k_sn, long long v_sb, long long v_sh,
                                  long long v_sn, long long o_sb, long long o_sh,
                                  long long o_sn, int scale_log2_bits, int q_scale_bits,
-                                 int route, void* stream) {
+                                 int is_bf16, int* route_ran, void* stream) {
   return launch(q, k, v, out, Strides{q_sb, q_sh, q_sn}, Strides{k_sb, k_sh, k_sn},
                 Strides{v_sb, v_sh, v_sn}, Strides{o_sb, o_sh, o_sn}, B, N, H, D, n_valid,
-                scale_log2_bits, q_scale_bits, route, stream);
+                scale_log2_bits, q_scale_bits, is_bf16, route_ran, stream);
 }

@@ -99,19 +99,6 @@ def _check(x, w1, b1, w2, b2, act) -> tuple[int, int]:
     return C, H
 
 
-def _check_hidden(hidden: torch.Tensor, x: torch.Tensor, M: int, H: int) -> None:
-    """A caller's scratch for the hidden activations (the bf16 path's; the
-    f32 path and the plain version ignore it): a contiguous ``(M, H)``
-    tensor of x's dtype on x's device."""
-    if tuple(hidden.shape) != (M, H):
-        raise ValueError(f"hidden scratch must be ({M}, {H}), got {tuple(hidden.shape)}")
-    if hidden.dtype != x.dtype or hidden.device != x.device:
-        raise ValueError(f"hidden scratch must be {x.dtype} on {x.device}, got "
-                         f"{hidden.dtype} on {hidden.device}")
-    if not hidden.is_contiguous() or hidden.data_ptr() % 16:
-        raise ValueError("hidden scratch must be contiguous and 16-byte aligned")
-
-
 def _kernel():
     fn = load_library("fused_mlp").mvp_fused_mlp
     if fn.argtypes is None:
@@ -120,11 +107,8 @@ def _kernel():
     return fn
 
 
-def _forward(x, w1, b1, w2, b2, act: str, hidden=None) -> torch.Tensor:
+def _forward(x, w1, b1, w2, b2, act: str) -> torch.Tensor:
     C, H = _check(x, w1, b1, w2, b2, act)
-    M = x.numel() // C
-    if hidden is not None:
-        _check_hidden(hidden, x, M, H)
     if x.device.type == "cpu":
         return _fused_mlp_plain(x, w1, b1, w2, b2, act)
     if x.device.type != "cuda":
@@ -137,12 +121,12 @@ def _forward(x, w1, b1, w2, b2, act: str, hidden=None) -> torch.Tensor:
         raise ValueError(f"hidden width H={H} must be a multiple of 32")
     if not all(t.is_contiguous() and t.data_ptr() % 16 == 0 for t in (x, w1, b1, w2, b2)):
         raise ValueError("x, w1, b1, w2, b2 must be contiguous and 16-byte aligned")
+    M = x.numel() // C
     out = torch.empty_like(x)
     if M == 0:
         return out
-    if x.dtype != torch.bfloat16:
-        hidden = None
-    elif hidden is None:
+    hidden = None  # the f32 path keeps the hidden on chip
+    if x.dtype == torch.bfloat16:  # fc1's output and fc2's input
         hidden = torch.empty((M, H), dtype=x.dtype, device=x.device)
     with torch.cuda.device(x.device):
         err = _kernel()(x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
@@ -161,10 +145,10 @@ class _FusedMLP(torch.autograd.Function):
     the gradient of ``_plain``."""
 
     @staticmethod
-    def forward(ctx, x, w1, b1, w2, b2, act, hidden):
+    def forward(ctx, x, w1, b1, w2, b2, act):
         ctx.save_for_backward(x, w1, b1, w2, b2)
         ctx.act = act
-        return _forward(x, w1, b1, w2, b2, act, hidden)
+        return _forward(x, w1, b1, w2, b2, act)
 
     @staticmethod
     def backward(ctx, grad):
@@ -172,17 +156,14 @@ class _FusedMLP(torch.autograd.Function):
         with torch.enable_grad():
             out = _plain(*inputs, ctx.act)
             grads = torch.autograd.grad(out, inputs, grad)
-        return (*grads, None, None)
+        return (*grads, None)
 
 
-def fused_mlp(x, w1, b1, w2, b2, act: str = "gelu", hidden=None) -> torch.Tensor:
+def fused_mlp(x, w1, b1, w2, b2, act: str = "gelu") -> torch.Tensor:
     """``act(x @ w1 + b1) @ w2 + b2``: x ``(..., C)``, w1 ``(C, H)``, b1
-    ``(H,)``, w2 ``(H, C)``, b2 ``(C,)``. ``hidden``: an optional ``(M, H)``
-    scratch of x's dtype (M = rows of x) that the bf16 kernel writes the
-    hidden activations to, for a caller that reuses one across calls; by
-    default the wrapper allocates it. One call (two launches of the GEMM in
-    bf16) counts as one launch."""
-    return _FusedMLP.apply(x, w1, b1, w2, b2, act, hidden)
+    ``(H,)``, w2 ``(H, C)``, b2 ``(C,)``. One call (two launches of the
+    GEMM in bf16) counts as one launch."""
+    return _FusedMLP.apply(x, w1, b1, w2, b2, act)
 
 
 fused_mlp.launches = 0  # kernel launches (never the plain version)

@@ -8,7 +8,9 @@ Counterpart of the JAX package's Pallas TPU kernels ``fused_qkv_attention``
 ``csrc/vit_attention.cu``, with two entry points over three kernels (the
 routes); its header says what bounds attention on an H100 (tensor-core
 operations at the probing shapes) and what each route's design does about
-it. ``attention_route(d, dtype)`` is the one place that picks the route:
+it. The kernel picks the route by head dim and dtype and reports the one it
+took; ``attention_route(d, dtype)`` mirrors that choice (for the checks made
+before the device, and for reports that name the expected route):
 
 * ``"wgmma"``: bf16 at d = 64 (DINO, CroCo-v2, the bench) and d = 80
   (RADIO-v2): warp-specialised, TMA-fed, ``wgmma`` products, 128 query
@@ -17,7 +19,8 @@ it. ``attention_route(d, dtype)`` is the one place that picks the route:
   query rows a block;
 * ``"simt"``: float32 at every head dim (f32 FMA, no TF32).
 
-``route_launches`` counts the launches of each route.
+``route_launches`` counts the launches of each route, as the kernel reported
+it.
 
 * ``fused_qkv_attention(qkv, scale, n_valid=None)``: qkv ``(B, N, 3, H, d)``
   -> ``(B, N, H*d)``.
@@ -58,14 +61,15 @@ _HEAD_DIMS = (16, 32, 64, 80, 128)  # the kernels'
 FUSED_HEAD_DIMS = (16, 32, 64, 128)  # K1: the JAX fused kernel's d | 128
 WGMMA_HEAD_DIMS = (64, 80)  # bf16 head dims on the wgmma route
 _DTYPES = (torch.bfloat16, torch.float32)
-ROUTES = ("wgmma", "mma_sync", "simt")  # the C entry points' route codes 0, 1, 2
+ROUTES = ("wgmma", "mma_sync", "simt")  # by the route code the C entry points report
 route_launches = dict.fromkeys(ROUTES, 0)  # kernel launches by route
 
 
 def attention_route(d: int, dtype: torch.dtype) -> str:
     """The kernel that runs attention at head dim ``d`` in ``dtype`` on a
     card: ``"wgmma"`` (bf16, d in ``WGMMA_HEAD_DIMS``), ``"mma_sync"``
-    (bf16, other head dims) or ``"simt"`` (float32). Raises on what no
+    (bf16, other head dims) or ``"simt"`` (float32), as
+    ``csrc/vit_attention.cu``'s ``route_of`` chooses. Raises on what no
     kernel takes."""
     if d not in _HEAD_DIMS:
         raise ValueError(f"head dim {d} not in {_HEAD_DIMS}")
@@ -103,7 +107,7 @@ def _kernel():
     fn = lib.mvp_fused_qkv_attention
     if fn.argtypes is None:
         fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 7 + [
-            ctypes.c_void_p]
+            ctypes.POINTER(ctypes.c_int), ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
 
@@ -112,7 +116,8 @@ def _strided_kernel():
     fn = load_library("vit_attention").mvp_vit_attention
     if fn.argtypes is None:
         fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
-                       + [ctypes.c_int64] * 12 + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+                       + [ctypes.c_int64] * 12 + [ctypes.c_int] * 3
+                       + [ctypes.POINTER(ctypes.c_int), ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
 
@@ -142,18 +147,19 @@ def fused_qkv_attention(qkv: torch.Tensor, scale: float,
     if qkv.requires_grad and torch.is_grad_enabled():
         raise RuntimeError("the fused attention kernel is forward-only "
                            "(frozen backbone); run it under torch.no_grad()")
-    route = attention_route(d, qkv.dtype)
     out = torch.empty((B, N, H * d), dtype=qkv.dtype, device=qkv.device)
+    ran = ctypes.c_int(-1)
     with torch.cuda.device(qkv.device):
         err = _kernel()(
             qkv.data_ptr(), out.data_ptr(), B, N, H, d,
             N if n_valid is None else n_valid, float_bits(scale * _LOG2E),
-            ROUTES.index(route), torch.cuda.current_stream(qkv.device).cuda_stream)
+            int(qkv.dtype == torch.bfloat16), ctypes.byref(ran),
+            torch.cuda.current_stream(qkv.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"fused_qkv_attention kernel launch failed: "
                            f"cudaError {err}")
     fused_qkv_attention.launches += 1
-    route_launches[route] += 1
+    route_launches[ROUTES[ran.value]] += 1
     return out
 
 
@@ -194,7 +200,7 @@ def launch_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"q_scale must be a finite float, got {q_scale!r}")
     if k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(f"dtypes {q.dtype}, {k.dtype}, {v.dtype}: q, k, v must share one")
-    route = attention_route(d, q.dtype)  # raises on a head dim or dtype no kernel takes
+    attention_route(d, q.dtype)  # raises on a head dim or dtype no kernel takes
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
     if k.device != q.device or v.device != q.device:
@@ -205,15 +211,17 @@ def launch_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise RuntimeError("the attention kernel is forward-only (frozen "
                            "backbone); run it under torch.no_grad()")
     out = torch.empty((B, N, H, d), dtype=q.dtype, device=q.device).transpose(1, 2)
+    ran = ctypes.c_int(-1)
     with torch.cuda.device(q.device):
         err = _strided_kernel()(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, N, H, d, n_valid,
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
-            float_bits(scale * _LOG2E), float_bits(float(q_scale)), ROUTES.index(route),
+            float_bits(scale * _LOG2E), float_bits(float(q_scale)),
+            int(q.dtype == torch.bfloat16), ctypes.byref(ran),
             torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"attention kernel launch failed: cudaError {err}")
-    route_launches[route] += 1
+    route_launches[ROUTES[ran.value]] += 1
     return out
 
 

@@ -1,7 +1,7 @@
 """The Python side of the port's Hopper kernels that runs without a card:
-the choice of attention route by head dim and dtype, and the checks of the
-arguments that the wgmma designs added (the strided launch's ``q_scale``,
-the fused MLP's hidden scratch). The kernels themselves run in
+the choice of attention route by head dim and dtype, the check of the
+strided launch's ``q_scale``, and the wrappers' CPU path (the plain version,
+no launch counted). The kernels themselves run in
 ``tests/test_torch_kernels.py`` on the card."""
 
 import numpy as np
@@ -73,22 +73,15 @@ def _mlp_args(M=6, C=16, H=32, dtype=torch.bfloat16):
     return [torch.from_numpy(rng.randn(*s).astype(np.float32) * 0.3).to(dtype) for s in shapes]
 
 
-@pytest.mark.parametrize("make,match", [
-    (lambda: torch.empty(6, 16, dtype=torch.bfloat16), r"\(6, 32\)"),
-    (lambda: torch.empty(6, 32, dtype=torch.float32), "bfloat16"),
-    (lambda: torch.empty(32, 6, dtype=torch.bfloat16).t(), "contiguous"),
-])
-def test_fused_mlp_rejects_a_bad_hidden_scratch(make, match):
-    with pytest.raises(ValueError, match=match):
-        fm.fused_mlp(*_mlp_args(), act="gelu_tanh", hidden=make())
-
-
-def test_fused_mlp_with_a_good_scratch_on_the_cpu_runs_the_plain_version():
-    """A (M, H) scratch of x's dtype passes the check, for any leading shape
-    of x (M counts its rows); the CPU runs the plain version, no launch."""
-    args = _mlp_args()
-    args[0] = args[0].reshape(2, 3, 16)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("lead", [(6,), (2, 3), (1, 2, 3)])
+def test_fused_mlp_on_the_cpu_is_its_plain_version(lead, dtype):
+    """Any leading shape of x (its rows flattened), either dtype; the CPU
+    runs the plain version and counts no launch."""
+    args = _mlp_args(dtype=dtype)
+    args[0] = args[0].reshape(*lead, 16)
     before = fm.fused_mlp.launches
-    got = fm.fused_mlp(*args, act="gelu_tanh", hidden=torch.empty(6, 32, dtype=torch.bfloat16))
-    assert fm.fused_mlp.launches == before and got.shape == (2, 3, 16)
+    got = fm.fused_mlp(*args, act="gelu_tanh")
+    assert fm.fused_mlp.launches == before
+    assert got.shape == (*lead, 16) and got.dtype == dtype
     torch.testing.assert_close(got, fm._fused_mlp_plain(*args, act="gelu_tanh"), atol=0, rtol=0)
