@@ -33,7 +33,9 @@ JSON line per phase and fails on the first failing phase:
    projection: RADIO-v2's launch (B=64, H=16, N=1201, d=80) in bf16 and
    f32, CroCo-v2's (B=64, H=12, N=196, d=64), every head dim at N=77, and
    the long sequences (B=2, H=16, N=4097, d=80 f32; B=2, H=12, N=8192,
-   d=64 bf16); timed cases with SDPA's time as the yardstick.
+   d=64 bf16); timed cases with SDPA's time as the yardstick, the f32 ones
+   with the bound of the ``tf32x3`` design (``bound_ms``) and of f32 FMA
+   (``bound_simt_ms``).
 5. ``rope_checks``: the 2D RoPE kernel (K5) against its plain version:
    CroCo-v2's q launch (B=64, H=12, 14x14 grid, dim 64, a strided view),
    f32, a non-square grid, a one-token prefix slice and dim 16.
@@ -48,8 +50,8 @@ JSON line per phase and fails on the first failing phase:
 5b. ``mlp_checks``: the fused MLP (K6) against its plain version at DINO
    ViT-B/16's MLP (M = 64*1201, C=768, H=3072) and RADIO-v2's (C=1280,
    H=5120) in bf16 with gelu_tanh (timed, with ``F.linear`` -> GELU ->
-   ``F.linear`` as the yardstick), and every activation in bf16 and f32 at
-   M=300.
+   ``F.linear`` as the yardstick), DINO's in f32 (timed likewise), and every
+   activation in bf16 and f32 at M=300.
 6. ``path``: the depth trainer (``midvision_probe_torch.train_depth``)
    through its ``entry`` on full-width dino_b16 (random weights),
    synthetic 480x640 data, the DPT depth probe, a bf16 backbone: per-step
@@ -87,7 +89,8 @@ Then a ``kernels`` summary line, the ``nvidia-smi`` name/power-limit line
 and, last, ``{"ok": true, "device": {...}}``. Every launch count is set to
 0 just before a path is driven and read just after it, with the attention
 launches by the route the kernel reports (``wgmma`` for bf16 at d 64 and
-80, ``mma_sync`` for the other bf16 head dims, ``simt`` for f32); every
+80, ``mma_sync`` for the other bf16 head dims, ``tf32x3`` for f32; K7's
+``wgmma`` at d 64 and 80, ``mma_sync`` at 32 and 128); every
 attention check records the route that ran and fails if it is not the one
 ``ops/vit_attention.py::attention_route`` names.
 """
@@ -110,6 +113,7 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 PEAK_BF16_FLOPS = 989e12
 PEAK_INT8_OPS = 1979e12
 PEAK_FP32_FLOPS = 67e12  # SIMT, outside the tensor cores
+PEAK_TF32_FLOPS = 495e12
 PEAK_BYTES = 3.35e12
 
 
@@ -156,6 +160,16 @@ def attention_bound_ms(B, N, n_valid, H, d, itemsize, peak_flops) -> tuple[float
     nbytes = (B * N * 3 * H * d + B * N * H * d) * itemsize
     t_ops, t_bytes = flops / peak_flops, nbytes / PEAK_BYTES
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def f32_attention_bounds(B, N, n_valid, H, d) -> dict:
+    """The least time of an f32 attention call for both designs: ``tf32x3``
+    (the kernel's: three TF32 products per product, 3*4*B*H*N*n_valid*d FLOP
+    at the TF32 peak) as ``bound_ms``, and f32 FMA outside the tensor cores
+    (the SIMT kernel's that it replaced) as ``bound_simt_ms``."""
+    simt, _ = attention_bound_ms(B, N, n_valid, H, d, 4, PEAK_FP32_FLOPS)
+    tf32, by = attention_bound_ms(B, N, n_valid, H, d, 4, PEAK_TF32_FLOPS / 3)
+    return {"bound_ms": tf32, "bound_by": by, "bound_simt_ms": simt}
 
 
 def route_ran(fn):
@@ -222,9 +236,11 @@ def phase_kernel_checks(torch):
                 q, k, v = qkv.permute(2, 0, 3, 1, 4).unbind(0)  # (B, H, N, d)
                 res["library_ms"] = cuda_ms(
                     torch, lambda: F.scaled_dot_product_attention(q, k, v, scale=scale))
-            peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_FP32_FLOPS
-            res["bound_ms"], res["bound_by"] = attention_bound_ms(
-                B, N, N, H, d, qkv.element_size(), peak)
+            if dtype == torch.bfloat16:
+                res["bound_ms"], res["bound_by"] = attention_bound_ms(
+                    B, N, N, H, d, 2, PEAK_BF16_FLOPS)
+            else:
+                res.update(f32_attention_bounds(B, N, N, H, d))
         results.append(res)
         del qkv, out, ref, o, r
         torch.cuda.empty_cache()
@@ -363,7 +379,7 @@ def phase_attention_checks(torch):
     cases = [
         ("radio_main_bf16", "K2", 64, 16, 1201, 80, bf16, True),
         ("crocov2_bf16", "K2", 64, 12, 196, 64, bf16, True),
-        ("radio_fp32", "K2", 64, 16, 1201, 80, f32, False),
+        ("radio_fp32", "K2", 64, 16, 1201, 80, f32, True),
         *[(f"d{d}_n77_{str(dt)[6:]}", "K2", 2, 3, 77, d, dt, False)
           for d in (16, 32, 64, 80, 128) for dt in (bf16, f32)],
         ("k3_radio1024_fp32", "K3", 2, 16, 4097, 80, f32, True),
@@ -392,9 +408,11 @@ def phase_attention_checks(torch):
                     torch, lambda: _vit_attention_plain(q, k, v, scale), iters=5, warmup=1)
                 res["library_ms"] = cuda_ms(
                     torch, lambda: F.scaled_dot_product_attention(q, k, v, scale=scale))
-            peak = PEAK_BF16_FLOPS if dtype == bf16 else PEAK_FP32_FLOPS
-            res["bound_ms"], res["bound_by"] = attention_bound_ms(
-                B, N, N, H, d, qkv.element_size(), peak)
+            if dtype == bf16:
+                res["bound_ms"], res["bound_by"] = attention_bound_ms(
+                    B, N, N, H, d, 2, PEAK_BF16_FLOPS)
+            else:
+                res.update(f32_attention_bounds(B, N, N, H, d))
         results.append(res)
         del qkv, q, k, v, out, ref
         torch.cuda.empty_cache()
@@ -538,8 +556,9 @@ def phase_variant_checks(torch):
         kernel, fn, plain = variants[variant]
         qkv = bench_inputs(torch, gen, kind)
         with torch.no_grad():
-            out, ran = route_ran(lambda: fn(qkv, n_valid))  # K7, K8: no route (None)
+            out, ran = route_ran(lambda: fn(qkv, n_valid))  # K8: no route (None)
             ref = plain(qkv, scale, n_valid)
+        route = {"K7": ba.wide_route(d), "K8": None, "K9": "wgmma"}[kernel]
         torch.cuda.synchronize()
         err = (out.float() - ref.float()).abs().max().item()
         max_ref = ref.float().abs().max().item()
@@ -548,9 +567,9 @@ def phase_variant_checks(torch):
         name = variant if kind == "bench" and n_valid == nv else (
             f"{variant}_{kind}" if n_valid == nv else f"{variant}_n_valid_{n_valid}")
         res = {"case": name, "kernel": kernel, "shape": [B, N, H, d], "n_valid": n_valid,
-               "inputs": kind, "route_ran": ran, "max_abs_err": err, "max_abs_ref": max_ref,
-               "tol": tol, "finite": finite}
-        ok = finite and err <= tol and ran == ("wgmma" if kernel == "K9" else None)
+               "inputs": kind, "route": route, "route_ran": ran, "max_abs_err": err,
+               "max_abs_ref": max_ref, "tol": tol, "finite": finite}
+        ok = finite and err <= tol and ran == route
         if kind in ("clamp", "underflow") and kernel != "K9":  # the plain side's scores
             scores = ba.int8_scores if kernel == "K8" else ba.wide_scores
             s2 = scores(qkv, scale, n_valid)
@@ -624,7 +643,8 @@ MLP_ROWS = 64 * 1201  # a 64-image batch of ViT-B/16 or ViT-H/16 tokens at 480x6
 def phase_mlp_checks(torch):
     """K6 (``fused_mlp``) against ``_fused_mlp_plain``: DINO ViT-B/16's MLP
     (M = 76,864, C = 768, H = 3072) and RADIO-v2 ViT-H/16's (C = 1280, H =
-    5120) in bf16 with gelu_tanh (the ViT's bf16 GELU), timed; every
+    5120) in bf16 with gelu_tanh (the ViT's bf16 GELU), timed; DINO's in
+    f32 (the SIMT kernel, timed against its f32 FMA bound); every
     activation in bf16 and f32 at M = 300. Pass: bf16 every element within
     one bf16 ulp of its plain value plus one bf16 ulp of the largest plain
     output (the hidden activations round to bf16 on both sides; a different
@@ -638,6 +658,7 @@ def phase_mlp_checks(torch):
     gen = torch.Generator(device="cuda").manual_seed(5)
     bf16, f32 = torch.bfloat16, torch.float32
     cases = [("dino_bf16", MLP_ROWS, 768, 3072, bf16, "gelu_tanh", True),
+             ("dino_fp32", MLP_ROWS, 768, 3072, f32, "gelu_tanh", True),
              ("radio_bf16", MLP_ROWS, 1280, 5120, bf16, "gelu_tanh", True),
              *[(f"{act}_{str(dt)[6:]}", 300, 768, 3072, dt, act, False)
                for act in ACTIVATIONS for dt in (bf16, f32)]]
@@ -669,8 +690,9 @@ def phase_mlp_checks(torch):
                 res["library_ms"] = cuda_ms(torch, lambda: F.linear(
                     F.gelu(F.linear(x, w1.t(), b1), approximate=approximate), w2.t(), b2),
                     iters=10)
-            res["bound_ms"], res["bound_by"] = mlp_bound_ms(M, C, H, x.element_size(),
-                                                            PEAK_BF16_FLOPS)
+            # f32: the SIMT kernel's bound (f32 FMA outside the tensor cores)
+            res["bound_ms"], res["bound_by"] = mlp_bound_ms(
+                M, C, H, x.element_size(), PEAK_BF16_FLOPS if dtype == bf16 else PEAK_FP32_FLOPS)
         results.append(res)
         del args, out, ref, diff
         torch.cuda.empty_cache()
@@ -703,7 +725,7 @@ def _counters():
 
 # the attention kernel's launches by route (``route_launches``): K1, K2, K3
 # and K9 together
-ROUTE_KEYS = ("route_wgmma", "route_mma_sync", "route_simt")
+ROUTE_KEYS = ("route_wgmma", "route_mma_sync", "route_tf32x3")
 
 
 def reset_counts() -> None:
@@ -740,7 +762,7 @@ def per_forward_ok(counts: dict, per_forward: dict) -> bool:
 
 # launches per backbone forward of the three backbones (no backbone
 # reaches K6-K9), and the attention route each takes: bf16 at d = 64 (DINO,
-# CroCo-v2) and d = 80 (RADIO-v2) on wgmma, f32 on simt
+# CroCo-v2) and d = 80 (RADIO-v2) on wgmma, f32 on tf32x3
 NO_BENCH_KERNELS = {"k6": 0, "k7": 0, "k8": 0, "k9": 0}
 
 
@@ -779,8 +801,9 @@ def phase_bench_attn(torch, iters: int = 20):
     wall = time.perf_counter() - t0
     counts = read_counts()
     calls = iters + 2
-    expected = dict.fromkeys(KERNELS + ROUTE_KEYS, 0)  # base (K1) and splash (K9) on wgmma
-    expected.update(k1=calls, k7=3 * calls, k8=calls, k9=calls, route_wgmma=2 * calls,
+    expected = dict.fromkeys(KERNELS + ROUTE_KEYS, 0)
+    # base (K1), the three wide variants (K7 at d = 64) and splash (K9) on wgmma
+    expected.update(k1=calls, k7=3 * calls, k8=calls, k9=calls, route_wgmma=5 * calls,
                     forwards=0)
     emit({"phase": "bench_attn", "results": results, "launches": counts,
           "oracle_bound": BENCH_ORACLE_BOUND, "wall_s": wall})
@@ -1074,7 +1097,7 @@ def main() -> int:
     # package's split to its flash kernel (K3)
     by_path["forward_radio_v2_fp32_1024"] = phase_forward(
         torch, smi, "radio_v2", 2, (1024, 1024), torch.float32,
-        {"k1": 0, "k2": 0, "k3": 32, "k5": 0, **NO_BENCH_KERNELS, **on_route("simt", 32)},
+        {"k1": 0, "k2": 0, "k3": 32, "k5": 0, **NO_BENCH_KERNELS, **on_route("tf32x3", 32)},
         (64, 64), 1280, iters=3)
     by_path["bench_attn"] = phase_bench_attn(torch)
     by_path["path_fused_mlp"] = phase_path_fused_mlp(torch)
@@ -1099,7 +1122,8 @@ def main() -> int:
         kernel_entry("fused_mlp", "fused_mlp.cu", f"{ops}/fused_mlp.py:63", "k6", by_path,
                      mlp_checks["dino_bf16"], "wgmma"),
         kernel_entry("wide_attention", "bench_attn.cu", "launch_script/bench_attn.py:52",
-                     "k7", by_path, variant_checks["wide4"], "mma_sync"),
+                     "k7", by_path, variant_checks["wide4"],
+                     variant_checks["wide4"]["route_ran"]),
         kernel_entry("int8_attention", "bench_attn.cu", "launch_script/bench_attn.py:133",
                      "k8", by_path, variant_checks["int8"], "mma_sync"),
         kernel_entry("splash_attention", "vit_attention.cu", "launch_script/bench_attn.py:225",

@@ -19,9 +19,14 @@ from ``np.random.RandomState(0)``, ``randn * 0.6``):
 
 K7 and K8 compute the bench's clamped exp2 attention: ``exp2(min(s, 110))``
 with no max subtraction, keys >= n_valid masked, ``l = max(sum p, 1e-30)``,
-``o = (bf16(p) v) / l``. Their kernels are ``csrc/bench_attn.cu``; K9 runs
-the strided attention kernel of ``csrc/vit_attention.cu`` (K2's) on
-``bf16(q * scale)`` with scale 1 and ``n_valid``.
+``o = (bf16(p) v) / l``. K8's kernel is ``csrc/bench_attn.cu``. K7 takes
+one of two routes by head dim (``wide_route``), counted in
+``ops.vit_attention.route_launches`` as the kernel reports it: ``wgmma`` at
+d = 64 and 80 (the attention kernel of ``csrc/vit_attention.cu`` in its
+clamped mode, entry ``mvp_clamp_attention``) and ``mma_sync`` at d = 32 and
+128 (``csrc/bench_attn.cu``). K9 runs the strided attention kernel of
+``csrc/vit_attention.cu`` (K2's) on ``bf16(q * scale)`` with scale 1 and
+``n_valid``.
 
 Per variant it prints the time per call on the host clock (synchronised
 every iteration, so it includes one host round trip), that time less the
@@ -49,16 +54,29 @@ import torch
 
 from midvision_probe_torch.ops.cuda_build import float_bits, load_library
 from midvision_probe_torch.ops.vit_attention import (
+    ROUTES,
+    WGMMA_HEAD_DIMS,
     _vit_attention_plain,
     fused_qkv_attention,
     launch_attention,
+    route_launches,
 )
 from midvision_probe_torch.utils.device import resolve_device
 
 _LOG2E = math.log2(math.e)
 _CLAMP = 110.0  # exp2(110) * n_valid stays inside f32's range
 _L_FLOOR = 1e-30
-_HEAD_DIMS = (32, 64, 128)  # the kernels'
+_HEAD_DIMS = (32, 64, 128)  # K8's kernel
+WIDE_HEAD_DIMS = (32, 64, 80, 128)  # K7's two routes
+
+
+def wide_route(d: int) -> str:
+    """The route of K7 at head dim ``d`` on a card: ``"wgmma"`` at d in
+    ``WGMMA_HEAD_DIMS`` (the attention kernel's clamped mode), else
+    ``"mma_sync"`` (``csrc/bench_attn.cu``). Raises on what neither takes."""
+    if d not in WIDE_HEAD_DIMS:
+        raise ValueError(f"wide_attention: head dim {d} not in {WIDE_HEAD_DIMS}")
+    return "wgmma" if d in WGMMA_HEAD_DIMS else "mma_sync"
 
 
 # ------------------------------------------------------------ plain versions
@@ -171,23 +189,23 @@ def _check_qkv(qkv: torch.Tensor, n_valid: int, width: int | None = None):
     return B, N, H, d
 
 
-def _check_card(qkv: torch.Tensor, name: str) -> None:
+def _check_card(qkv: torch.Tensor, name: str, head_dims=_HEAD_DIMS) -> None:
     """What the bench kernels take: a contiguous, 16-byte aligned bf16
-    tensor on a card, a head dim in ``_HEAD_DIMS``, no gradient."""
+    tensor on a card, a head dim in ``head_dims``, no gradient."""
     if qkv.device.type != "cuda":
         raise ValueError(f"unsupported device {qkv.device}")
     if qkv.dtype != torch.bfloat16:
         raise ValueError(f"{name}: dtype {qkv.dtype}, the kernel takes bfloat16")
-    if qkv.shape[-1] not in _HEAD_DIMS:
-        raise ValueError(f"{name}: head dim {qkv.shape[-1]} not in {_HEAD_DIMS}")
+    if qkv.shape[-1] not in head_dims:
+        raise ValueError(f"{name}: head dim {qkv.shape[-1]} not in {head_dims}")
     if not qkv.is_contiguous() or qkv.data_ptr() % 16:
         raise ValueError(f"{name}: qkv must be contiguous and 16-byte aligned")
     if qkv.requires_grad and torch.is_grad_enabled():
         raise RuntimeError(f"{name} is forward-only; run it under torch.no_grad()")
 
 
-def _entry(name: str, argtypes):
-    fn = getattr(load_library("bench_attn"), name)
+def _entry(name: str, argtypes, library: str = "bench_attn"):
+    fn = getattr(load_library(library), name)
     if fn.argtypes is None:
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
@@ -202,22 +220,33 @@ def _raise_on(err: int, name: str) -> None:
 def wide_attention(qkv: torch.Tensor, scale: float, n_valid: int, width: int = 256,
                    stagger: bool = False) -> torch.Tensor:
     """K7: the clamped exp2 attention on qkv (B, N, 3, H, d) bf16 ->
-    (B, N, H*d). ``width`` (a multiple of d dividing H*d) sets the heads per
-    kernel block, ``stagger`` the cross-head prefetch; neither changes the
-    result."""
+    (B, N, H*d). ``width`` (a multiple of d dividing H*d) and ``stagger``
+    schedule the work and do not change the result: ``width / d`` heads of
+    one query tile are taken by one block in turn; ``stagger`` loads the
+    next head's first tiles while the current head's last is consumed. On
+    the ``wgmma`` route (``wide_route``) ``stagger`` has no counterpart: the
+    producer warpgroup always runs ahead across heads, so both settings run
+    the same schedule."""
     B, N, H, d = _check_qkv(qkv, n_valid, width)
     if qkv.device.type == "cpu":
         return _wide_attention_plain(qkv, scale, n_valid)
-    _check_card(qkv, "wide_attention")
+    _check_card(qkv, "wide_attention", WIDE_HEAD_DIMS)
     out = torch.empty((B, N, H * d), dtype=qkv.dtype, device=qkv.device)
-    fn = _entry("mvp_wide_attention", [ctypes.c_void_p] * 2 + [ctypes.c_int] * 8
-                + [ctypes.c_void_p])
+    ran = ctypes.c_int(-1)
+    head = [qkv.data_ptr(), out.data_ptr(), B, N, H, d, n_valid, width // d]
+    if wide_route(d) == "wgmma":
+        fn = _entry("mvp_clamp_attention", [ctypes.c_void_p] * 2 + [ctypes.c_int] * 7
+                    + [ctypes.POINTER(ctypes.c_int), ctypes.c_void_p], "vit_attention")
+    else:
+        fn = _entry("mvp_wide_attention", [ctypes.c_void_p] * 2 + [ctypes.c_int] * 8
+                    + [ctypes.POINTER(ctypes.c_int), ctypes.c_void_p])
+        head.append(int(stagger))
     with torch.cuda.device(qkv.device):
-        err = fn(qkv.data_ptr(), out.data_ptr(), B, N, H, d, n_valid, width // d,
-                 int(stagger), float_bits(scale * _LOG2E),
+        err = fn(*head, float_bits(scale * _LOG2E), ctypes.byref(ran),
                  torch.cuda.current_stream(qkv.device).cuda_stream)
     _raise_on(err, "wide_attention")
     wide_attention.launches += 1
+    route_launches[ROUTES[ran.value]] += 1
     return out
 
 

@@ -12,6 +12,18 @@ tree's kernels, then measures with that tree's ``midvision_probe_torch``:
   bf16), mean of 20 calls by CUDA events;
 * ``k6_ms``: K6 (``fused_mlp``) at DINO's MLP (76,864 x 768 -> 3072, bf16)
   for each activation, mean of 10 calls by CUDA events;
+* ``kernel_ms``: the other kernels at ``chip_smoke.py``'s main shapes, mean
+  of 10 calls by CUDA events: K3 in f32 (``_flash_attention`` on strided
+  views, B=2, H=16, N=4097, d=80), K2 at RADIO-v2's launch (bf16, B=64,
+  H=16, N=1201, d=80), K4 at ScanNet's (4 x 19200^2 x 768), K5 at
+  CroCo-v2's q (bf16, 64 x 12 heads, 14 x 14, dim 64), and the bench's K7
+  (``wide4``), K8 (with its prologue) and K9 (``splash``) at B=64, N=1280,
+  n_valid=1201, H=12, d=64; with SDPA's time on K3's and K7's inputs as the
+  yardstick (``sdpa_f32_ms``, ``sdpa_bench_ms``; the same call in both
+  trees);
+* ``forward_imgs_per_s``: the frozen bf16 forwards of dino_vitb16 (480x640),
+  crocov2_vitb16 (224x224) and radio_v2 (480x640) at batch 64, 4 taps,
+  images per second from the mean of 5 forwards by CUDA events;
 * ``depth``: the depth trainer on full-width ``dino_b16`` with
   ``chip_smoke.py``'s ``path`` arguments, three times (wall seconds),
   then once under ``torch.profiler``: wall, device time summed over the
@@ -51,6 +63,64 @@ def _events_ms(torch, fn, iters: int, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def _kernel_ms(torch, gen) -> dict:
+    """``kernel_ms`` above (this tree's wrappers)."""
+    import torch.nn.functional as F
+
+    from midvision_probe_torch import bench_attn as ba
+    from midvision_probe_torch.ops.attention import _flash_attention
+    from midvision_probe_torch.ops.matching import _knn2_sq
+    from midvision_probe_torch.ops.rope2d import rope_2d
+    from midvision_probe_torch.ops.vit_attention import vit_attention
+
+    out = {}
+    torch.backends.cuda.matmul.allow_tf32 = False
+    qkv = torch.randn(2, 4097, 3, 16, 80, device="cuda", generator=gen)
+    q, k, v = qkv.permute(2, 0, 3, 1, 4).unbind(0)
+    out["k3_f32"] = _events_ms(torch, lambda: _flash_attention(q, k, v, 80**-0.5), 10)
+    out["sdpa_f32_ms"] = _events_ms(
+        torch, lambda: F.scaled_dot_product_attention(q, k, v, scale=80**-0.5), 10)
+    qkv = torch.randn(64, 1201, 3, 16, 80, device="cuda", generator=gen).bfloat16()
+    q, k, v = qkv.permute(2, 0, 3, 1, 4).unbind(0)
+    out["k2_radio"] = _events_ms(torch, lambda: vit_attention(q, k, v, 80**-0.5), 10)
+    del qkv, q, k, v
+    qt = [torch.nn.functional.normalize(torch.randn(4, 19200, 768, device="cuda",
+                                                    generator=gen), dim=-1) for _ in range(2)]
+    out["k4_scannet"] = _events_ms(torch, lambda: _knn2_sq(*qt), 10)
+    del qt
+    qkv = torch.randn(64, 196, 3, 12, 64, device="cuda", generator=gen).bfloat16()
+    yy, xx = torch.meshgrid(torch.arange(14, device="cuda", dtype=torch.int32),
+                            torch.arange(14, device="cuda", dtype=torch.int32), indexing="ij")
+    pos = torch.stack([yy.reshape(-1), xx.reshape(-1)], -1)[None].expand(64, 196, 2)
+    out["k5_crocov2"] = _events_ms(torch, lambda: rope_2d(qkv.permute(2, 0, 3, 1, 4)[0], pos),
+                                   10)
+    qkv = (torch.randn(64, 1280, 3, 12, 64, device="cuda", generator=gen) * 0.6).bfloat16()
+    q, k, v = qkv.permute(2, 0, 3, 1, 4).unbind(0)
+    out["k7_wide4"] = _events_ms(torch, lambda: ba.wide_attention(qkv, 0.125, 1201, width=256),
+                                 10)
+    out["k8_int8"] = _events_ms(torch, lambda: ba.int8_attention(qkv, 0.125, 1201), 10)
+    out["k9_splash"] = _events_ms(torch, lambda: ba.splash_attention(qkv, 0.125, 1201), 10)
+    out["sdpa_bench_ms"] = _events_ms(torch, lambda: F.scaled_dot_product_attention(
+        q, k[:, :, :1201], v[:, :, :1201], scale=0.125), 10)
+    return out
+
+
+def _forwards(torch) -> dict:
+    """``forward_imgs_per_s`` above."""
+    from midvision_probe_torch.models.zoo import build_vit_extractor
+
+    out = {}
+    for model, hw in (("dino_vitb16", (480, 640)), ("crocov2_vitb16", (224, 224)),
+                      ("radio_v2", (480, 640))):
+        backbone = build_vit_extractor(model, return_multilayer=True, dtype=torch.bfloat16,
+                                       device="cuda")
+        images = torch.randn(64, *hw, 3, device="cuda")
+        out[model] = 64 / (_events_ms(torch, lambda: backbone.features(images), 5, 2) / 1e3)
+        del backbone, images
+        torch.cuda.empty_cache()
+    return out
 
 
 def _depth_run(torch, train_depth) -> float:
@@ -102,6 +172,10 @@ def measure(tree: str) -> dict:
         res["k6_ms"] = {act: _events_ms(torch, lambda: fused_mlp(x, w1, b1, w2, b2, act=act), 10)
                         for act in ACTIVATIONS}
         del x, w1, b1, w2, b2
+        torch.cuda.empty_cache()
+        res["kernel_ms"] = _kernel_ms(torch, gen)
+        torch.cuda.empty_cache()
+        res["forward_imgs_per_s"] = _forwards(torch)
     torch.cuda.empty_cache()
     res["depth_wall_s"] = [_depth_run(torch, train_depth) for _ in range(DEPTH_REPS)]
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
@@ -146,6 +220,8 @@ def main(argv=None) -> int:
             "host_us_per_launch": [r["host_us_per_launch"] for r in mine],
             "k1_ms": [r["k1_ms"] for r in mine],
             "k6_ms": [r["k6_ms"] for r in mine],
+            "kernel_ms": [r["kernel_ms"] for r in mine],
+            "forward_imgs_per_s": [r["forward_imgs_per_s"] for r in mine],
             "depth_wall_s": [r["depth_wall_s"] for r in mine],
             "depth_profiled": [[r["depth_profiled"]["wall_s"], r["depth_profiled"]["device_ms"]]
                                for r in mine]}

@@ -4,8 +4,9 @@
 // Replaces two Pallas TPU kernels of the repository's attention bench
 // (launch_script/bench_attn.py):
 //   * K7 `wide_attention` (-> `_wide_kernel`), entry point
-//     mvp_wide_attention: q, k, v read by stride out of the (B, N, 3, H, d)
-//     bf16 qkv projection;
+//     mvp_wide_attention, at d = 32 and 128 (its mma_sync route; d = 64 and
+//     80 run on the wgmma route, mvp_clamp_attention in vit_attention.cu):
+//     q, k, v read by stride out of the (B, N, 3, H, d) bf16 qkv projection;
 //   * K8 `int8_attention` (-> `_int8_kernel`), entry point
 //     mvp_int8_attention: q and k as int8 (B, N, H, d) tensors that the
 //     wrapper quantizes (per-head scales over the valid rows of the whole
@@ -48,7 +49,7 @@
 // fragments hold two, so both paths load their QK^T fragments with the same
 // 32-bit shared-memory loads on byte offsets (no ldmatrix).
 //
-// Head dims 32, 64, 128; bf16 only. Plain C interface for ctypes: every
+// Head dims: K7 32, 128; K8 32, 64, 128; bf16 only. Plain C interface for ctypes: every
 // argument is a pointer or an int (the scale arrives as the bit pattern of a
 // float); each entry point returns cudaGetLastError() after the launch.
 
@@ -363,8 +364,12 @@ int launch(const void* q, const void* k, const void* v, void* out, const float* 
   switch (D) {
     case 32: return launch_d<32, kInt8>(q, k, v, out, c, sq, sk, sv, B, N, H, n_valid, G,
                                         stagger, sl2, st);
-    case 64: return launch_d<64, kInt8>(q, k, v, out, c, sq, sk, sv, B, N, H, n_valid, G,
-                                        stagger, sl2, st);
+    case 64:  // K7 takes the wgmma route at d = 64
+      if constexpr (kInt8) {
+        return launch_d<64, true>(q, k, v, out, c, sq, sk, sv, B, N, H, n_valid, G, stagger,
+                                  sl2, st);
+      }
+      return static_cast<int>(cudaErrorInvalidValue);
     case 128: return launch_d<128, kInt8>(q, k, v, out, c, sq, sk, sv, B, N, H, n_valid, G,
                                           stagger, sl2, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
@@ -373,12 +378,15 @@ int launch(const void* q, const void* k, const void* v, void* out, const float* 
 
 }  // namespace
 
-// K7. qkv: contiguous (B, N, 3, H, D) bf16; out: contiguous (B, N, H*D) bf16.
-// heads_per_block: width / D (divides H); stagger: 0 or 1. scale_log2_bits:
-// the float scale * log2(e), passed as its 32-bit pattern.
+// K7 at D in {32, 128}. qkv: contiguous (B, N, 3, H, D) bf16; out:
+// contiguous (B, N, H*D) bf16. heads_per_block: width / D (divides H);
+// stagger: 0 or 1. scale_log2_bits: the float scale * log2(e), passed as
+// its 32-bit pattern. *route_ran: 1 (mma_sync, the code of
+// vit_attention.cu's route table), set before the launch.
 extern "C" int mvp_wide_attention(const void* qkv, void* out, int B, int N, int H, int D,
                                   int n_valid, int heads_per_block, int stagger,
-                                  int scale_log2_bits, void* stream) {
+                                  int scale_log2_bits, int* route_ran, void* stream) {
+  *route_ran = 1;
   float sl2;
   memcpy(&sl2, &scale_log2_bits, sizeof(sl2));
   const long long hd = 2LL * H * D;  // one role's bytes per token

@@ -59,8 +59,8 @@
 // W2 read through L1/L2, the hidden kept in shared memory), which keeps
 // full f32 accuracy for parity runs; it is not tuned.
 //
-// bf16: any C and H that are multiples of 8 (the wrapper keeps the zoo's
-// widths and H a multiple of 32); f32: C in {768, 1024, 1280} (one instance
+// bf16: any C and H that are multiples of 8 (the wrapper asks H to be a
+// multiple of 32 on both paths); f32: C in {768, 1024, 1280} (one instance
 // each: the output accumulator is indexed at compile time), H a multiple of
 // 32; any M >= 1. Plain C interface for ctypes; returns cudaGetLastError()
 // after the launches (or the tensor-map encoding's error).

@@ -9,9 +9,12 @@
   reach the same kernel, whose KV-tile online softmax is the flash
   algorithm and takes any N; the split only decides which launch count
   counts.
-* A bias (BEiT's relative-position bias): ``_einsum_attention``, the plain
-  f32-softmax formulation; ``use_flash=True`` with a bias raises, because
-  the kernel has no bias input.
+* A bias (BEiT's relative-position bias), or a head dim and dtype that no
+  route of the kernel takes (``kernel_takes``, beside the route table in
+  ``ops/vit_attention.py``): ``_einsum_attention``, the plain f32-softmax
+  formulation, on the operands' own device, as the JAX package computes
+  every call off the TPU; ``use_flash=True`` with either raises, because
+  the kernel has no bias input and no such head dim.
 
 The JAX package's TPU gates (N >= 256, d <= 256) were chosen for the TPU's
 launch overhead and VMEM; they do not apply to the card and are dropped.
@@ -23,6 +26,7 @@ import torch
 
 from midvision_probe_torch.ops.vit_attention import (
     _vit_attention_plain,
+    kernel_takes,
     launch_attention,
     vit_attention,
 )
@@ -57,12 +61,15 @@ def multi_head_attention(q, k, v, bias=None, scale: float = 1.0,
                          use_flash: bool | None = None):
     """Attention over ``(B, H, N, d)`` operands.
 
-    ``use_flash=None``: without a bias, K+V up to 2 MB go to
-    ``vit_attention``, longer sequences to ``_flash_attention``; with a bias,
-    ``_einsum_attention``. ``use_flash=True`` forces ``_flash_attention``
-    (a bias then raises); ``use_flash=False`` forces ``_einsum_attention``."""
+    ``use_flash=None``: without a bias, at a head dim and dtype that the
+    kernel takes, K+V up to 2 MB go to ``vit_attention``, longer sequences
+    to ``_flash_attention``; otherwise ``_einsum_attention``.
+    ``use_flash=True`` forces ``_flash_attention`` (a bias or a head dim the
+    kernel does not take then raises); ``use_flash=False`` forces
+    ``_einsum_attention``."""
+    takes = kernel_takes(q.shape[-1], q.dtype)
     if use_flash is None:
-        if bias is not None:
+        if bias is not None or not takes:
             return _einsum_attention(q, k, v, bias, scale)
         kv_bytes = q.shape[2] * q.shape[-1] * q.element_size() * 2
         if kv_bytes <= _KV_RESIDENT_BYTES:
@@ -74,5 +81,9 @@ def multi_head_attention(q, k, v, bias=None, scale: float = 1.0,
         if bias is not None:
             raise ValueError("use_flash=True cannot apply an attention bias; pass "
                              "use_flash=None/False for biased (BEiT-style) attention")
+        if not takes:
+            raise ValueError(f"use_flash=True: no attention kernel takes head dim "
+                             f"{q.shape[-1]} in {q.dtype}; pass use_flash=None/False "
+                             "for the einsum path")
         return _flash_attention(q, k, v, float(scale))
     return _einsum_attention(q, k, v, bias, scale)

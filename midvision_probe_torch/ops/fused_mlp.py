@@ -27,9 +27,11 @@ them on chip cannot hold the (rows x C) f32 accumulator at wgmma's 64 rows).
 Activations: ``gelu`` (erf form), ``gelu_tanh`` (tanh form, the ViT's bf16
 GELU) and ``quickgelu`` (``x * sigmoid(1.702 x)``).
 
-Constraints of the CUDA kernel: dtype bfloat16 (``wgmma`` path) or float32
-(SIMT path, no TF32, the hidden kept in shared memory); C in
-``KERNEL_WIDTHS``; H a multiple of 32; contiguous, 16-byte aligned operands.
+Constraints of the CUDA kernel (``check_kernel_widths``): dtype bfloat16
+(``wgmma`` path: any C that is a multiple of 8, so every width the JAX op
+takes, 384 and 1536 included) or float32 (SIMT path, no TF32, the hidden
+kept in shared memory: C in ``KERNEL_WIDTHS``, one compiled instance each);
+H a multiple of 32; contiguous, 16-byte aligned operands.
 """
 
 from __future__ import annotations
@@ -42,7 +44,7 @@ import torch
 from midvision_probe_torch.ops.cuda_build import load_library
 
 ACTIVATIONS = ("gelu", "gelu_tanh", "quickgelu")  # kernel codes 0, 1, 2
-KERNEL_WIDTHS = (768, 1024, 1280)  # C: the kernel's instances (the zoo's ViT widths)
+KERNEL_WIDTHS = (768, 1024, 1280)  # float32 C: the SIMT kernel's instances (the zoo's widths)
 _DTYPES = (torch.bfloat16, torch.float32)
 _SQRT_HALF = float(np.float32(np.sqrt(0.5)))
 _TANH_C = float(np.float32(np.sqrt(2.0 / np.pi)))
@@ -99,6 +101,20 @@ def _check(x, w1, b1, w2, b2, act) -> tuple[int, int]:
     return C, H
 
 
+def check_kernel_widths(C: int, H: int, dtype: torch.dtype) -> None:
+    """Raise unless the kernel takes widths C and H in ``dtype``: bf16 any C
+    that is a multiple of 8 (the ``wgmma`` GEMM's 16-byte rows), float32 C
+    in ``KERNEL_WIDTHS``; H a multiple of 32 in both."""
+    if dtype not in _DTYPES:
+        raise ValueError(f"dtype {dtype} not in {_DTYPES}")
+    if dtype == torch.float32 and C not in KERNEL_WIDTHS:
+        raise ValueError(f"float32 width C={C} not in {KERNEL_WIDTHS}")
+    if C % 8:
+        raise ValueError(f"width C={C} must be a multiple of 8")
+    if H % 32:
+        raise ValueError(f"hidden width H={H} must be a multiple of 32")
+
+
 def _kernel():
     fn = load_library("fused_mlp").mvp_fused_mlp
     if fn.argtypes is None:
@@ -113,12 +129,7 @@ def _forward(x, w1, b1, w2, b2, act: str) -> torch.Tensor:
         return _fused_mlp_plain(x, w1, b1, w2, b2, act)
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
-    if x.dtype not in _DTYPES:
-        raise ValueError(f"dtype {x.dtype} not in {_DTYPES}")
-    if C not in KERNEL_WIDTHS:
-        raise ValueError(f"width C={C} not in {KERNEL_WIDTHS}")
-    if H % 32:
-        raise ValueError(f"hidden width H={H} must be a multiple of 32")
+    check_kernel_widths(C, H, x.dtype)
     if not all(t.is_contiguous() and t.data_ptr() % 16 == 0 for t in (x, w1, b1, w2, b2)):
         raise ValueError("x, w1, b1, w2, b2 must be contiguous and 16-byte aligned")
     M = x.numel() // C

@@ -17,8 +17,14 @@ before the device, and for reports that name the expected route):
   rows a work item;
 * ``"mma_sync"``: bf16 at d in {16, 32, 128}: the ``mma.sync`` kernel, 64
   query rows a block;
-* ``"simt"``: float32 at every head dim (f32 FMA, no TF32).
+* ``"tf32x3"``: float32 at every head dim: each product split into
+  ``hi + lo`` TF32 halves on the tensor cores (``hi*hi + hi*lo + lo*hi``,
+  summed in f32), 112 query rows a block; a pre-pass splits k and v once
+  into a scratch of (hi, lo) pairs (``2 * B*H*n_valid*d`` float pairs, which
+  the wrapper allocates per call), read through a ``cp.async`` ring.
 
+``kernel_takes(d, dtype)`` says whether any route takes a call at all (the
+dispatch in ``ops/attention.py`` sends the others to einsum).
 ``route_launches`` counts the launches of each route, as the kernel reported
 it.
 
@@ -61,23 +67,29 @@ _HEAD_DIMS = (16, 32, 64, 80, 128)  # the kernels'
 FUSED_HEAD_DIMS = (16, 32, 64, 128)  # K1: the JAX fused kernel's d | 128
 WGMMA_HEAD_DIMS = (64, 80)  # bf16 head dims on the wgmma route
 _DTYPES = (torch.bfloat16, torch.float32)
-ROUTES = ("wgmma", "mma_sync", "simt")  # by the route code the C entry points report
+ROUTES = ("wgmma", "mma_sync", "tf32x3")  # by the route code the C entry points report
 route_launches = dict.fromkeys(ROUTES, 0)  # kernel launches by route
+
+
+def kernel_takes(d: int, dtype: torch.dtype) -> bool:
+    """Whether a route of the attention kernel takes head dim ``d`` in
+    ``dtype`` (the table ``attention_route`` reads)."""
+    return d in _HEAD_DIMS and dtype in _DTYPES
 
 
 def attention_route(d: int, dtype: torch.dtype) -> str:
     """The kernel that runs attention at head dim ``d`` in ``dtype`` on a
     card: ``"wgmma"`` (bf16, d in ``WGMMA_HEAD_DIMS``), ``"mma_sync"``
-    (bf16, other head dims) or ``"simt"`` (float32), as
+    (bf16, other head dims) or ``"tf32x3"`` (float32), as
     ``csrc/vit_attention.cu``'s ``route_of`` chooses. Raises on what no
     kernel takes."""
-    if d not in _HEAD_DIMS:
-        raise ValueError(f"head dim {d} not in {_HEAD_DIMS}")
+    if not kernel_takes(d, dtype):
+        if d not in _HEAD_DIMS:
+            raise ValueError(f"head dim {d} not in {_HEAD_DIMS}")
+        raise ValueError(f"dtype {dtype} not in {_DTYPES}")
     if dtype == torch.float32:
-        return "simt"
-    if dtype == torch.bfloat16:
-        return "wgmma" if d in WGMMA_HEAD_DIMS else "mma_sync"
-    raise ValueError(f"dtype {dtype} not in {_DTYPES}")
+        return "tf32x3"
+    return "wgmma" if d in WGMMA_HEAD_DIMS else "mma_sync"
 
 
 def _fused_qkv_attention_plain(qkv: torch.Tensor, scale: float,
@@ -106,7 +118,7 @@ def _kernel():
     lib = load_library("vit_attention")
     fn = lib.mvp_fused_qkv_attention
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 7 + [
+        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7 + [
             ctypes.POINTER(ctypes.c_int), ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
@@ -115,11 +127,19 @@ def _kernel():
 def _strided_kernel():
     fn = load_library("vit_attention").mvp_vit_attention
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
+        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
                        + [ctypes.c_int64] * 12 + [ctypes.c_int] * 3
                        + [ctypes.POINTER(ctypes.c_int), ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
+
+
+def _pairs(B: int, H: int, n_valid: int, d: int, dtype: torch.dtype, device):
+    """The tf32x3 route's scratch: the (hi, lo) TF32 pairs of k and v, which
+    its pre-pass writes once per call (None for bf16)."""
+    if dtype != torch.float32:
+        return None
+    return torch.empty((2, B, H, n_valid, d, 2), dtype=dtype, device=device)
 
 
 def fused_qkv_attention(qkv: torch.Tensor, scale: float,
@@ -148,10 +168,13 @@ def fused_qkv_attention(qkv: torch.Tensor, scale: float,
         raise RuntimeError("the fused attention kernel is forward-only "
                            "(frozen backbone); run it under torch.no_grad()")
     out = torch.empty((B, N, H * d), dtype=qkv.dtype, device=qkv.device)
+    nv = N if n_valid is None else n_valid
+    pairs = _pairs(B, H, nv, d, qkv.dtype, qkv.device)
     ran = ctypes.c_int(-1)
     with torch.cuda.device(qkv.device):
         err = _kernel()(
-            qkv.data_ptr(), out.data_ptr(), B, N, H, d,
+            qkv.data_ptr(), out.data_ptr(), None if pairs is None else pairs.data_ptr(),
+            B, N, H, d,
             N if n_valid is None else n_valid, float_bits(scale * _LOG2E),
             int(qkv.dtype == torch.bfloat16), ctypes.byref(ran),
             torch.cuda.current_stream(qkv.device).cuda_stream)
@@ -211,10 +234,12 @@ def launch_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise RuntimeError("the attention kernel is forward-only (frozen "
                            "backbone); run it under torch.no_grad()")
     out = torch.empty((B, N, H, d), dtype=q.dtype, device=q.device).transpose(1, 2)
+    pairs = _pairs(B, H, n_valid, d, q.dtype, q.device)
     ran = ctypes.c_int(-1)
     with torch.cuda.device(q.device):
         err = _strided_kernel()(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, N, H, d, n_valid,
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            None if pairs is None else pairs.data_ptr(), B, N, H, d, n_valid,
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
             float_bits(scale * _LOG2E), float_bits(float(q_scale)),
             int(q.dtype == torch.bfloat16), ctypes.byref(ran),

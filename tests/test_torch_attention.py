@@ -120,3 +120,19 @@ def test_flash_with_a_bias_raises_and_cpu_runs_count_no_launch():
     t_attn.multi_head_attention(q, q, q)
     t_attn.multi_head_attention(q, q, q, use_flash=True)
     assert (t_vit_attn.vit_attention.launches, t_attn._flash_attention.launches) == before
+
+
+@pytest.mark.parametrize("dtype,d", [("float32", 48), ("bfloat16", 48), ("float32", 96)])
+def test_head_dims_no_kernel_takes_match_the_jax_dispatch(dtype, d):
+    """A head dim outside the kernel's table goes to ``_einsum_attention``
+    in the port (on any device); the JAX package's dispatch takes its einsum
+    path for the same call off the TPU. Tolerances as above."""
+    arrays = _qkv(2, 3, 77, d, seed=d)
+    scale = d**-0.5
+    assert not t_vit_attn.kernel_takes(d, getattr(torch, dtype))
+    with F32:
+        ref = j_attn.multi_head_attention(*_to_jax(arrays, dtype), None, scale)
+    got = t_attn.multi_head_attention(*_to_torch(arrays, dtype), scale=scale)
+    assert got.dtype == getattr(torch, dtype)
+    np.testing.assert_allclose(got.float().numpy(), np.asarray(ref.astype(jnp.float32)),
+                               atol=TOL[dtype], rtol=0)

@@ -1,7 +1,8 @@
 """The Python side of the port's Hopper kernels that runs without a card:
-the choice of attention route by head dim and dtype, the check of the
-strided launch's ``q_scale``, and the wrappers' CPU path (the plain version,
-no launch counted). The kernels themselves run in
+the choice of attention route by head dim and dtype, the dispatch of head
+dims that no route takes to einsum, the fused MLP's width check, the check
+of the strided launch's ``q_scale``, and the wrappers' CPU path (the plain
+version, no launch counted). The kernels themselves run in
 ``tests/test_torch_kernels.py`` on the card."""
 
 import numpy as np
@@ -9,6 +10,7 @@ import pytest
 import torch
 
 from midvision_probe_torch import bench_attn as ba
+from midvision_probe_torch.ops import attention as mha
 from midvision_probe_torch.ops import fused_mlp as fm
 from midvision_probe_torch.ops import vit_attention as attn
 
@@ -17,9 +19,10 @@ from midvision_probe_torch.ops import vit_attention as attn
 @pytest.mark.parametrize("d", [16, 32, 64, 80, 128])
 def test_attention_route_by_head_dim_and_dtype(d, dtype):
     """bf16 at d 64 and 80 on wgmma, the other bf16 head dims on mma_sync,
-    float32 on simt."""
+    float32 at every head dim on tf32x3."""
+    assert attn.kernel_takes(d, dtype)
     if dtype == torch.float32:
-        expected = "simt"
+        expected = "tf32x3"
     else:
         expected = "wgmma" if d in (64, 80) else "mma_sync"
     assert attn.attention_route(d, dtype) == expected
@@ -27,10 +30,78 @@ def test_attention_route_by_head_dim_and_dtype(d, dtype):
 
 
 def test_attention_route_rejects_what_no_kernel_takes():
+    assert not attn.kernel_takes(48, torch.bfloat16)
+    assert not attn.kernel_takes(64, torch.float16)
     with pytest.raises(ValueError, match="head dim"):
         attn.attention_route(48, torch.bfloat16)
     with pytest.raises(ValueError, match="dtype"):
         attn.attention_route(64, torch.float16)
+
+
+def _not_called(*args, **kwargs):
+    raise AssertionError("a kernel route was taken")
+
+
+@pytest.mark.parametrize("d,dtype", [(48, torch.bfloat16), (48, torch.float32),
+                                     (96, torch.float32), (64, torch.float16)])
+@pytest.mark.parametrize("N", [40, 5600])
+def test_multi_head_attention_sends_what_no_kernel_takes_to_einsum(monkeypatch, d, dtype, N):
+    """The route table decides before any launch: a head dim or dtype that
+    no route takes goes to ``_einsum_attention`` on the operands' device, at
+    a short and a long (K+V above 2 MB at f32) sequence; neither kernel
+    wrapper is called. ``use_flash=True`` at such a call raises."""
+    monkeypatch.setattr(mha, "vit_attention", _not_called)
+    monkeypatch.setattr(mha, "_flash_attention", _not_called)
+    rng = np.random.RandomState(d + N)
+    q, k, v = (torch.from_numpy(rng.randn(1, 1, N, d).astype(np.float32)).to(dtype)
+               for _ in range(3))
+    got = mha.multi_head_attention(q, k, v, scale=d**-0.5)
+    assert got.dtype == dtype and got.device == q.device and got.shape == q.shape
+    torch.testing.assert_close(got, mha._einsum_attention(q, k, v, None, d**-0.5),
+                               atol=0, rtol=0)
+    with pytest.raises(ValueError, match="no attention kernel takes head dim"):
+        mha.multi_head_attention(q, k, v, scale=d**-0.5, use_flash=True)
+
+
+@pytest.mark.parametrize("C", [384, 768, 1536, 8])
+def test_fused_mlp_bf16_takes_any_width_that_is_a_multiple_of_8(C):
+    """bf16 runs the wgmma GEMM, which takes any C that is a multiple of 8:
+    ViT-S's 384 and ViT-g's 1536 too. float32's SIMT kernel keeps its
+    compiled widths."""
+    fm.check_kernel_widths(C, 4 * C if C % 32 == 0 else 32, torch.bfloat16)
+    if C in fm.KERNEL_WIDTHS:
+        fm.check_kernel_widths(C, 4 * C, torch.float32)
+    else:
+        with pytest.raises(ValueError, match="float32 width"):
+            fm.check_kernel_widths(C, 4 * C, torch.float32)
+
+
+@pytest.mark.parametrize("C,H,dtype,match", [
+    (388, 1536, torch.bfloat16, "multiple of 8"), (768, 48, torch.bfloat16, "multiple of 32"),
+    (768, 48, torch.float32, "multiple of 32"), (768, 3072, torch.float16, "dtype")])
+def test_fused_mlp_width_check_rejects_what_no_kernel_takes(C, H, dtype, match):
+    with pytest.raises(ValueError, match=match):
+        fm.check_kernel_widths(C, H, dtype)
+
+
+@pytest.mark.parametrize("d,route", [(32, "mma_sync"), (64, "wgmma"), (80, "wgmma"),
+                                     (128, "mma_sync")])
+def test_wide_attention_route_by_head_dim(d, route):
+    """K7 at d 64 and 80 on the attention kernel's wgmma route (its clamped
+    mode), at 32 and 128 on bench_attn.cu's mma_sync kernel; the CPU runs
+    the plain version and counts no launch on any route."""
+    assert ba.wide_route(d) == route and route in attn.ROUTES
+    qkv = torch.from_numpy(np.random.RandomState(d).randn(1, 20, 3, 2, d).astype(np.float32)
+                           ).bfloat16()
+    before = (dict(attn.route_launches), ba.wide_attention.launches)
+    got = ba.wide_attention(qkv, d**-0.5, 17, width=d, stagger=True)
+    assert (dict(attn.route_launches), ba.wide_attention.launches) == before
+    torch.testing.assert_close(got, ba._wide_attention_plain(qkv, d**-0.5, 17), atol=0, rtol=0)
+
+
+def test_wide_attention_route_rejects_what_neither_kernel_takes():
+    with pytest.raises(ValueError, match="head dim"):
+        ba.wide_route(16)
 
 
 @pytest.mark.parametrize("bad", [float("nan"), float("inf"), "0.125", None])

@@ -264,6 +264,73 @@ def test_wgmma_route_takes_contiguous_and_transposed_operands(cuda, d):
             torch.testing.assert_close(got.float(), ref.float(), atol=1.6e-2, rtol=0)
 
 
+# ---------------------------------------- the tf32x3 route (float32, every d)
+# (B, H, N, n_valid, d): every head dim, n_valid < N, one token, N = 4097
+TF32X3_CASES = [(2, 3, 77, 77, 16), (2, 2, 130, 100, 32), (1, 3, 300, 257, 64),
+                (2, 2, 200, 129, 80), (1, 2, 150, 150, 128), (1, 1, 1, 1, 80),
+                (1, 2, 4097, 4097, 80)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q_scale", [1.0, 0.37])
+@pytest.mark.parametrize("B,H,N,n_valid,d", TF32X3_CASES)
+def test_tf32x3_route_matches_plain_version(cuda, B, H, N, n_valid, d, q_scale):
+    """float32 on the tf32x3 route: strided views of a projection whose k
+    and v rows >= n_valid are NaN, a non-unit q_scale; every output row
+    finite and within 1e-5 of the plain version over the valid keys (f32,
+    TF32 off), and the route reported as tf32x3."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    x = np.random.RandomState(N + d).randn(B, N, 3, H, d).astype(np.float32)
+    x[:, n_valid:, 1:] = np.nan
+    q, k, v = torch.from_numpy(x).to(cuda).permute(2, 0, 3, 1, 4).unbind(0)
+    assert attn.attention_route(d, torch.float32) == "tf32x3"
+    before = attn.route_launches["tf32x3"]
+    with torch.no_grad():
+        got = attn.launch_attention(q, k, v, d**-0.5, n_valid, q_scale=q_scale)
+        ref = attn._vit_attention_plain(q * q_scale, k[:, :, :n_valid], v[:, :, :n_valid],
+                                        d**-0.5)
+    torch.cuda.synchronize()
+    assert attn.route_launches["tf32x3"] == before + 1
+    assert tuple(got.shape) == (B, H, N, d) and torch.isfinite(got).all()
+    torch.testing.assert_close(got, ref, atol=1e-5, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [16, 80, 128])
+def test_tf32x3_route_takes_contiguous_and_transposed_operands(cuda, d):
+    """Contiguous (B, H, N, d) operands and (B, N, H, d) transposes give the
+    strided views' result within 1e-5."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    q, k, v = _strided_qkv(2, 131, 3, d, torch.float32, seed=d)
+    with torch.no_grad():
+        ref = attn._vit_attention_plain(q, k, v, d**-0.5)
+        for layout in (lambda t: t.contiguous(),
+                       lambda t: t.transpose(1, 2).contiguous().transpose(1, 2)):
+            got = attn.vit_attention(*(layout(t) for t in (q, k, v)), d**-0.5)
+            torch.cuda.synchronize()
+            torch.testing.assert_close(got, ref, atol=1e-5, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 1.6e-2), (torch.float32, 1e-5)])
+def test_head_dims_no_kernel_takes_run_einsum_on_the_card(cuda, dtype, tol):
+    """d = 48: ``multi_head_attention`` computes the call with
+    ``_einsum_attention`` on the card (no kernel launch, on any route), as
+    the JAX package does off the TPU."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    q, k, v = _strided_qkv(2, 200, 3, 48, dtype, seed=48)
+    before = (dict(attn.route_launches), attn.vit_attention.launches,
+              mha._flash_attention.launches)
+    with torch.no_grad():
+        got = mha.multi_head_attention(q, k, v, scale=48**-0.5)
+        ref = mha._einsum_attention(q.cpu(), k.cpu(), v.cpu(), None, 48**-0.5)
+    torch.cuda.synchronize()
+    assert (dict(attn.route_launches), attn.vit_attention.launches,
+            mha._flash_attention.launches) == before
+    assert got.device.type == "cuda" and got.dtype == dtype
+    torch.testing.assert_close(got.cpu().float(), ref.float(), atol=tol, rtol=0)
+
+
 # ----------------------------------------------------------------- K5 rope2d
 def _rope_inputs(B, H, gh, gw, dim, dtype, prefix, seed):
     """q as a strided (B, H, N, dim) view of a (B, N, 3, H, dim) projection
@@ -383,22 +450,69 @@ def test_bench_attention_kernels_match_plain_versions(cuda, B, N, n_valid, H, d,
                                    msg=lambda m, n=fn.__name__, k=kw: f"{n} {k}: {m}")
 
 
+# (B, N, n_valid, H, d, clamp): K7 on the wgmma route (d 64 and 80): the
+# bench's padding, n_valid = N, ragged tiles, the clamp active
+K7_WGMMA_CASES = [(2, 384, 301, 12, 64, False), (2, 256, 256, 4, 64, False),
+                  (2, 300, 177, 4, 80, False), (1, 1280, 1201, 12, 64, True),
+                  (2, 256, 200, 4, 80, True)]
+
+
 @pytest.mark.cuda
-def test_int8_attention_rows_whose_exponentials_underflow_get_zero(cuda):
-    """q rows of -64 against positive keys: every exp2 underflows, l takes
-    the 1e-30 floor, and those rows come out 0 on both sides."""
+@pytest.mark.parametrize("B,N,n_valid,H,d,clamp", K7_WGMMA_CASES)
+def test_wide_attention_wgmma_route_matches_plain_version(cuda, B, N, n_valid, H, d, clamp):
+    """K7 at d 64 and 80 on the wgmma route, with the projection's rows
+    >= n_valid NaN: one head, four heads and all heads per block, with and
+    without stagger, equal to each other and to the plain version within
+    the bench kernels' bar (on the valid rows; rows past n_valid attend over
+    the valid keys, so their NaN q makes them NaN on both sides)."""
     from midvision_probe_torch import bench_attn as ba
 
-    qkv = _bench_qkv(1, 128, 2, 64, seed=5)
-    qkv[:, :, 1] = qkv[:, :, 1].abs()
-    qkv[:, :16, 0] = -64.0
-    for fn, plain in ((ba.wide_attention, ba._wide_attention_plain),
-                      (ba.int8_attention, ba._int8_attention_plain)):
-        with torch.no_grad():
-            got, ref = fn(qkv, 0.125, 100, width=128), plain(qkv, 0.125, 100)
-        torch.cuda.synchronize()
-        assert ref[:, :16].abs().max().item() == 0, fn.__name__
+    torch.backends.cuda.matmul.allow_tf32 = False
+    qkv = _bench_qkv(B, N, H, d, seed=N + n_valid + d, clamp=clamp)
+    qkv[:, n_valid:] = float("nan")
+    scale = d**-0.5
+    if clamp:
+        assert (ba.wide_scores(qkv, scale, n_valid) > 110).any()
+    assert ba.wide_route(d) == "wgmma"
+    with torch.no_grad():
+        ref = ba._wide_attention_plain(qkv, scale, n_valid)[:, :n_valid]
+        outs = []
+        for heads in (1, 4, H):
+            for stagger in (False, True):
+                before = (ba.wide_attention.launches, attn.route_launches["wgmma"])
+                outs.append(ba.wide_attention(qkv, scale, n_valid, width=heads * d,
+                                              stagger=stagger)[:, :n_valid])
+                assert (ba.wide_attention.launches, attn.route_launches["wgmma"]) == (
+                    before[0] + 1, before[1] + 1)
+    torch.cuda.synchronize()
+    for got in outs:
+        assert torch.isfinite(got).all()
         torch.testing.assert_close(got.float(), ref.float(), atol=_bench_tol(ref), rtol=0)
+        torch.testing.assert_close(got, outs[0], atol=0, rtol=0)
+
+
+@pytest.mark.cuda
+def test_int8_attention_rows_whose_exponentials_underflow_get_zero(cuda):
+    """q rows of -64 against positive keys at a scale of 8/d (scores near
+    -350): every exp2 underflows, l takes the 1e-30 floor, and those rows
+    come out 0 on both sides; K7 on both routes (d 32 on mma_sync, 64 and
+    80 on wgmma) and K8."""
+    from midvision_probe_torch import bench_attn as ba
+
+    for d in (32, 64, 80):
+        qkv = _bench_qkv(1, 128, 2, d, seed=5)
+        qkv[:, :, 1] = qkv[:, :, 1].abs()
+        qkv[:, :16, 0] = -64.0
+        calls = [(ba.wide_attention, ba._wide_attention_plain)]
+        if d != 80:
+            calls.append((ba.int8_attention, ba._int8_attention_plain))
+        for fn, plain in calls:
+            with torch.no_grad():
+                got, ref = fn(qkv, 8 / d, 100, width=2 * d), plain(qkv, 8 / d, 100)
+            torch.cuda.synchronize()
+            assert ref[:, :16].abs().max().item() == 0, fn.__name__
+            assert got[:, :16].abs().max().item() == 0, (fn.__name__, d)
+            torch.testing.assert_close(got.float(), ref.float(), atol=_bench_tol(ref), rtol=0)
 
 
 @pytest.mark.cuda
@@ -504,6 +618,26 @@ def test_fused_mlp_wgmma_gemm_at_every_width(cuda, act, C, M, H):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("act", ["gelu", "gelu_tanh", "quickgelu"])
+@pytest.mark.parametrize("C", [384, 1536])
+@pytest.mark.parametrize("M", [77, 300])
+def test_fused_mlp_bf16_at_widths_outside_the_f32_instances(cuda, act, C, M):
+    """bf16 at ViT-S's width (384) and ViT-g's (1536), which the JAX op takes
+    and the float32 kernel has no instance of: ragged M, H = 4C."""
+    from midvision_probe_torch.ops import fused_mlp as fm
+
+    args = _mlp_inputs(M, C, 4 * C, torch.bfloat16, seed=M + C + len(act))
+    before = fm.fused_mlp.launches
+    with torch.no_grad():
+        got = fm.fused_mlp(*args, act=act)
+        ref = fm._fused_mlp_plain(*args, act=act)
+    torch.cuda.synchronize()
+    assert fm.fused_mlp.launches == before + 1
+    assert got.shape == (M, C) and torch.isfinite(got).all()
+    _mlp_close(got, ref)
+
+
+@pytest.mark.cuda
 def test_fused_mlp_backward_on_the_card_matches_the_cpu(cuda):
     """The gradient (autograd through ``_plain``) on the card against the
     same on the CPU, f32 with TF32 off: 1e-5 abs. The loss is linear in the
@@ -532,8 +666,10 @@ def test_fused_mlp_kernel_rejects_what_it_cannot_take(cuda):
     args = _mlp_inputs(4, 768, 64, torch.bfloat16, seed=0)
     with pytest.raises(ValueError, match="dtype"):
         fm.fused_mlp(*[a.half() for a in args])
-    with pytest.raises(ValueError, match="width"):
-        fm.fused_mlp(*_mlp_inputs(4, 128, 64, torch.bfloat16, seed=0))
+    with pytest.raises(ValueError, match="width"):  # float32 keeps its compiled widths
+        fm.fused_mlp(*_mlp_inputs(4, 128, 64, torch.float32, seed=0))
+    with pytest.raises(ValueError, match="multiple of 8"):
+        fm.fused_mlp(*_mlp_inputs(4, 388, 64, torch.bfloat16, seed=0))
     with pytest.raises(ValueError, match="multiple of 32"):
         fm.fused_mlp(*_mlp_inputs(4, 768, 48, torch.bfloat16, seed=0))
     with pytest.raises(ValueError, match="act"):
