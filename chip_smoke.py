@@ -47,11 +47,15 @@ JSON line per phase and fails on the first failing phase:
    rows whose exponentials all underflow; each with the largest plain
    output beside its error; timed cases with SDPA on the valid keys as the
    yardstick (K8: none; SDPA's bf16 time beside it).
-5b. ``mlp_checks``: the fused MLP (K6) against its plain version at DINO
-   ViT-B/16's MLP (M = 64*1201, C=768, H=3072) and RADIO-v2's (C=1280,
-   H=5120) in bf16 with gelu_tanh (timed, with ``F.linear`` -> GELU ->
-   ``F.linear`` as the yardstick), DINO's in f32 (timed likewise), and every
-   activation in bf16 and f32 at M=300.
+5b. ``mlp_checks``: the fused MLP (K6) at DINO ViT-B/16's MLP (M = 64*1201,
+   C=768, H=3072) and RADIO-v2's (C=1280, H=5120) in bf16 and in f32 (the
+   ``bf16x6`` route) with gelu_tanh (timed, with ``F.linear`` -> GELU ->
+   ``F.linear`` as the yardstick; f32 with the bound of three TF32 products
+   per product and of f32 FMA), every activation in bf16 and f32 at M=300,
+   f32 at ViT-S's and ViT-g's widths (C = 384, 1536) and at one row of
+   DINO's. bf16 is held to its plain version, f32 to an exact oracle
+   (float64 products and sums) and to the plain version's own distance
+   from it.
 6. ``path``: the depth trainer (``midvision_probe_torch.train_depth``)
    through its ``entry`` on full-width dino_b16 (random weights),
    synthetic 480x640 data, the DPT depth probe, a bf16 backbone: per-step
@@ -640,19 +644,39 @@ def mlp_bound_ms(M, C, H, itemsize, peak) -> tuple[float, str]:
 MLP_ROWS = 64 * 1201  # a 64-image batch of ViT-B/16 or ViT-H/16 tokens at 480x640
 
 
+def f32_mlp_bounds(M, C, H) -> dict:
+    """The least time of an f32 K6 call: three TF32 products per product at
+    the TF32 peak as ``bound_ms`` (six bf16 products at the bf16 peak, the
+    kernel's, take the same to 0.1%), and f32 FMA outside the tensor cores
+    as ``bound_simt_ms``."""
+    tf32, by = mlp_bound_ms(M, C, H, 4, PEAK_TF32_FLOPS / 3)
+    simt, _ = mlp_bound_ms(M, C, H, 4, PEAK_FP32_FLOPS)
+    return {"bound_ms": tf32, "bound_by": by, "bound_simt_ms": simt}
+
+
 def phase_mlp_checks(torch):
-    """K6 (``fused_mlp``) against ``_fused_mlp_plain``: DINO ViT-B/16's MLP
-    (M = 76,864, C = 768, H = 3072) and RADIO-v2 ViT-H/16's (C = 1280, H =
-    5120) in bf16 with gelu_tanh (the ViT's bf16 GELU), timed; DINO's in
-    f32 (the SIMT kernel, timed against its f32 FMA bound); every
-    activation in bf16 and f32 at M = 300. Pass: bf16 every element within
-    one bf16 ulp of its plain value plus one bf16 ulp of the largest plain
-    output (the hidden activations round to bf16 on both sides; a different
-    f32 summation order can flip one of those roundings, which moves a whole
-    output row by a hidden ulp times a W2 entry); f32 (TF32 off) 1e-5 abs."""
+    """K6 (``fused_mlp``) at DINO ViT-B/16's MLP (M = 76,864, C = 768, H =
+    3072) and RADIO-v2 ViT-H/16's (C = 1280, H = 5120) in bf16 and f32 with
+    gelu_tanh (the ViT's bf16 GELU), timed; every activation in bf16 and f32
+    at M = 300; f32 at ViT-S's (C = 384) and ViT-g's (C = 1536) widths, H =
+    4C, M = 300, and at one row of DINO's. Pass: bf16 every element within
+    one bf16 ulp of its ``_fused_mlp_plain`` value plus one bf16 ulp of the
+    largest plain output (the hidden activations round to bf16 on both
+    sides; a different f32 summation order can flip one of those roundings,
+    which moves a whole output row by a hidden ulp times a W2 entry). f32
+    (TF32 off): the kernel within 1e-5 abs of ``_fused_mlp_exact`` (float64
+    products and sums, rounded where the kernel rounds) and no farther from
+    it than ``_fused_mlp_plain`` is (cuBLAS's f32 chain is itself ~1e-5 off
+    at the timed shapes); each f32 case prints ``err_vs_exact``,
+    ``plain_err_vs_exact`` and ``err_vs_plain``."""
     import torch.nn.functional as F
 
-    from midvision_probe_torch.ops.fused_mlp import ACTIVATIONS, _fused_mlp_plain, fused_mlp
+    from midvision_probe_torch.ops.fused_mlp import (
+        ACTIVATIONS,
+        _fused_mlp_exact,
+        _fused_mlp_plain,
+        fused_mlp,
+    )
 
     torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(5)
@@ -660,8 +684,12 @@ def phase_mlp_checks(torch):
     cases = [("dino_bf16", MLP_ROWS, 768, 3072, bf16, "gelu_tanh", True),
              ("dino_fp32", MLP_ROWS, 768, 3072, f32, "gelu_tanh", True),
              ("radio_bf16", MLP_ROWS, 1280, 5120, bf16, "gelu_tanh", True),
+             ("radio_fp32", MLP_ROWS, 1280, 5120, f32, "gelu_tanh", True),
              *[(f"{act}_{str(dt)[6:]}", 300, 768, 3072, dt, act, False)
-               for act in ACTIVATIONS for dt in (bf16, f32)]]
+               for act in ACTIVATIONS for dt in (bf16, f32)],
+             ("vit_s_fp32", 300, 384, 1536, f32, "gelu", False),
+             ("vit_g_fp32", 300, 1536, 6144, f32, "gelu_tanh", False),
+             ("one_row_fp32", 1, 768, 3072, f32, "quickgelu", False)]
     results = []
     for name, M, C, H, dtype, act, timed in cases:
         args = mlp_inputs(torch, gen, M, C, H, dtype)
@@ -669,17 +697,24 @@ def phase_mlp_checks(torch):
             out = fused_mlp(*args, act=act)
             ref = _fused_mlp_plain(*args, act=act)
         torch.cuda.synchronize()
-        diff = (out.float() - ref.float()).abs()
-        err = diff.max().item()
-        if dtype == f32:
-            ok = err <= 1e-5
-        else:
-            mag = ref.float().abs()
-            ok = bool((diff <= 2.0**-7 * (mag + mag.max())).all())
-            del mag
         finite = bool(torch.isfinite(out).all())
         res = {"case": name, "shape": [M, C, H], "dtype": str(dtype), "act": act,
-               "max_abs_err": err, "finite": finite, "ok": finite and ok}
+               "finite": finite}
+        if dtype == f32:
+            exact = _fused_mlp_exact(*args, act=act)
+            res.update(err_vs_exact=(out - exact).abs().max().item(),
+                       plain_err_vs_exact=(ref - exact).abs().max().item(),
+                       err_vs_plain=(out - ref).abs().max().item())
+            res["max_abs_err"] = res["err_vs_exact"]
+            ok = res["err_vs_exact"] <= 1e-5 and res["err_vs_exact"] <= res["plain_err_vs_exact"]
+            del exact
+        else:
+            diff = (out.float() - ref.float()).abs()
+            mag = ref.float().abs()
+            res["max_abs_err"] = diff.max().item()
+            ok = bool((diff <= 2.0**-7 * (mag + mag.max())).all())
+            del diff, mag
+        res["ok"] = finite and ok
         if timed:
             x, w1, b1, w2, b2 = args
             approximate = "tanh" if act == "gelu_tanh" else "none"
@@ -690,11 +725,12 @@ def phase_mlp_checks(torch):
                 res["library_ms"] = cuda_ms(torch, lambda: F.linear(
                     F.gelu(F.linear(x, w1.t(), b1), approximate=approximate), w2.t(), b2),
                     iters=10)
-            # f32: the SIMT kernel's bound (f32 FMA outside the tensor cores)
-            res["bound_ms"], res["bound_by"] = mlp_bound_ms(
-                M, C, H, x.element_size(), PEAK_BF16_FLOPS if dtype == bf16 else PEAK_FP32_FLOPS)
+            if dtype == bf16:
+                res["bound_ms"], res["bound_by"] = mlp_bound_ms(M, C, H, 2, PEAK_BF16_FLOPS)
+            else:
+                res.update(f32_mlp_bounds(M, C, H))
         results.append(res)
-        del args, out, ref, diff
+        del args, out, ref
         torch.cuda.empty_cache()
 
     emit({"phase": "mlp_checks", "cases": results, "gpu_state": gpu_state()})
@@ -1016,19 +1052,24 @@ def phase_forward(torch, smi: str, model, batch, hw, dtype, per_forward, grid, w
     return counts
 
 
+def case_numbers(case) -> dict:
+    """A timed check's error and times, under the ``kernels`` line's keys."""
+    return {"max_abs_err": case["max_abs_err"], "ms": case["kernel_ms"],
+            "plain_ms": case["plain_ms"], "bound_ms": case["bound_ms"],
+            "bound_by": case["bound_by"], "library_ms": case["library_ms"]}
+
+
 def kernel_entry(name, source, replaces, kernel, by_path, case, design,
-                 route="cuda") -> dict:
+                 route="cuda", **extra) -> dict:
     """One entry of the closing ``kernels`` line: its launches on every
     path and its numbers at the main path's shape (``case``). ``replaces``:
     the TPU kernel's file:line in the repository; ``design``: the kernel
-    that ran ``case`` (for the attention kernels, the route)."""
+    that ran ``case`` (for the attention kernels, the route); ``extra``:
+    more keys (K6: its design by dtype and its f32 numbers)."""
     launches = {path: counts[kernel] for path, counts in by_path.items()}
     return {"name": name, "route": route, "source": f"midvision_probe_torch/csrc/{source}",
             "replaces": replaces, "design": design, "launches": sum(launches.values()),
-            "launches_by_path": launches, "max_abs_err": case["max_abs_err"],
-            "ms": case["kernel_ms"], "plain_ms": case["plain_ms"],
-            "bound_ms": case["bound_ms"], "bound_by": case["bound_by"],
-            "library_ms": case["library_ms"]}
+            "launches_by_path": launches, **case_numbers(case), **extra}
 
 
 def main() -> int:
@@ -1110,7 +1151,7 @@ def main() -> int:
         kernel_entry("fused_qkv_attention", "vit_attention.cu", f"{ops}/vit_attention.py:85",
                      "k1", by_path, checks["main_bf16"], checks["main_bf16"]["route_ran"]),
         kernel_entry("knn2", "knn2.cu", f"{ops}/matching.py:64", "k4", by_path,
-                     knn2_checks["scannet_main"], "mma_sync"),
+                     knn2_checks["scannet_main"], "wgmma"),
         kernel_entry("vit_attention", "vit_attention.cu", f"{ops}/vit_attention.py:129",
                      "k2", by_path, attn_checks["radio_main_bf16"],
                      attn_checks["radio_main_bf16"]["route_ran"]),
@@ -1120,7 +1161,11 @@ def main() -> int:
         kernel_entry("rope_2d", "rope2d.cu", f"{ops}/rope2d.py:59", "k5", by_path,
                      rope_checks["crocov2_q_bf16"], "simt"),
         kernel_entry("fused_mlp", "fused_mlp.cu", f"{ops}/fused_mlp.py:63", "k6", by_path,
-                     mlp_checks["dino_bf16"], "wgmma"),
+                     mlp_checks["dino_bf16"], "wgmma",
+                     designs={"bfloat16": "wgmma", "float32": "bf16x6"},
+                     float32={**case_numbers(mlp_checks["dino_fp32"]),
+                              "bound_simt_ms": mlp_checks["dino_fp32"]["bound_simt_ms"],
+                              "plain_err_vs_exact": mlp_checks["dino_fp32"]["plain_err_vs_exact"]}),
         kernel_entry("wide_attention", "bench_attn.cu", "launch_script/bench_attn.py:52",
                      "k7", by_path, variant_checks["wide4"],
                      variant_checks["wide4"]["route_ran"]),

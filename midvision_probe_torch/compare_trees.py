@@ -12,22 +12,33 @@ tree's kernels, then measures with that tree's ``midvision_probe_torch``:
   bf16), mean of 20 calls by CUDA events;
 * ``k6_ms``: K6 (``fused_mlp``) at DINO's MLP (76,864 x 768 -> 3072, bf16)
   for each activation, mean of 10 calls by CUDA events;
+* ``k6_f32``: K6 in float32 (gelu_tanh) at DINO's MLP and RADIO-v2's
+  (76,864 x 1280 -> 5120): mean of 5 calls by CUDA events, the ``F.linear``
+  chain's time (TF32 off; the same call in both trees), and the largest
+  distances of the kernel's output, of ``_fused_mlp_plain``'s and of the
+  kernel's from each other, the first two from an exact oracle: this
+  file's tree's ``_fused_mlp_exact`` (float64 products and sums), loaded by
+  path so that both trees are held to one oracle;
 * ``kernel_ms``: the other kernels at ``chip_smoke.py``'s main shapes, mean
   of 10 calls by CUDA events: K3 in f32 (``_flash_attention`` on strided
   views, B=2, H=16, N=4097, d=80), K2 at RADIO-v2's launch (bf16, B=64,
-  H=16, N=1201, d=80), K4 at ScanNet's (4 x 19200^2 x 768), K5 at
-  CroCo-v2's q (bf16, 64 x 12 heads, 14 x 14, dim 64), and the bench's K7
-  (``wide4``), K8 (with its prologue) and K9 (``splash``) at B=64, N=1280,
-  n_valid=1201, H=12, d=64; with SDPA's time on K3's and K7's inputs as the
-  yardstick (``sdpa_f32_ms``, ``sdpa_bench_ms``; the same call in both
-  trees);
+  H=16, N=1201, d=80), K5 at CroCo-v2's q (bf16, 64 x 12 heads, 14 x 14,
+  dim 64), the bench's K7 (``wide4``), K8 (with its prologue) and K9
+  (``splash``) at B=64, N=1280, n_valid=1201, H=12, d=64, and last K4 at
+  ScanNet's (4 x 19200^2 x 768); with SDPA's time on K3's and K7's inputs
+  as the yardstick (``sdpa_f32_ms``, ``sdpa_bench_ms``; the same call in
+  both trees);
 * ``forward_imgs_per_s``: the frozen bf16 forwards of dino_vitb16 (480x640),
   crocov2_vitb16 (224x224) and radio_v2 (480x640) at batch 64, 4 taps,
   images per second from the mean of 5 forwards by CUDA events;
 * ``depth``: the depth trainer on full-width ``dino_b16`` with
   ``chip_smoke.py``'s ``path`` arguments, three times (wall seconds),
   then once under ``torch.profiler``: wall, device time summed over the
-  kernels, and the host operations with the most self time.
+  kernels, and the host operations with the most self time;
+* ``scannet``: the ScanNet correspondence driver on full-width ``dino_b16``
+  with ``chip_smoke.py``'s ``path_scannet`` arguments (8 synthetic pairs
+  at 480x640 in batches of 4, K4 at 4 x 19200^2 x 768), six times (wall
+  seconds), then once under ``torch.profiler`` as the depth trainer.
 
 Seeded inputs; one JSON line per tree and run, then a summary line. Run from
 the root of a checkout on a machine with a card::
@@ -50,6 +61,11 @@ DEPTH_ARGV = ["backbone=dino_b16", "dataset=synthetic", "dataset.image_size=[480
               "dataset.num_instances=16", "probe=depth_dpt", "batch_size=8",
               "optimizer=one_epoch", "+system.backbone_dtype=bfloat16", "+render_images=False"]
 DEPTH_REPS = 3  # unprofiled depth runs per process: the first carries the set-up
+SCANNET_REPS = 6  # unprofiled ScanNet runs per process: its wall varies more than the depth runs
+SCANNET_ARGV = ["backbone=dino_b16", "num_corr=1000", "scale_factor=0.25", "batch_pairs=4",
+                "+system.backbone_dtype=bfloat16", "dataset=synthetic_scannet_hard",
+                "dataset.image_hw=[480,640]", "+render_every=0"]
+MLP_F32 = {"dino": (768, 3072), "radio": (1280, 5120)}  # (C, H) of K6's f32 cases
 
 
 def _events_ms(torch, fn, iters: int, warmup: int = 3) -> float:
@@ -86,10 +102,6 @@ def _kernel_ms(torch, gen) -> dict:
     q, k, v = qkv.permute(2, 0, 3, 1, 4).unbind(0)
     out["k2_radio"] = _events_ms(torch, lambda: vit_attention(q, k, v, 80**-0.5), 10)
     del qkv, q, k, v
-    qt = [torch.nn.functional.normalize(torch.randn(4, 19200, 768, device="cuda",
-                                                    generator=gen), dim=-1) for _ in range(2)]
-    out["k4_scannet"] = _events_ms(torch, lambda: _knn2_sq(*qt), 10)
-    del qt
     qkv = torch.randn(64, 196, 3, 12, 64, device="cuda", generator=gen).bfloat16()
     yy, xx = torch.meshgrid(torch.arange(14, device="cuda", dtype=torch.int32),
                             torch.arange(14, device="cuda", dtype=torch.int32), indexing="ij")
@@ -104,6 +116,54 @@ def _kernel_ms(torch, gen) -> dict:
     out["k9_splash"] = _events_ms(torch, lambda: ba.splash_attention(qkv, 0.125, 1201), 10)
     out["sdpa_bench_ms"] = _events_ms(torch, lambda: F.scaled_dot_product_attention(
         q, k[:, :, :1201], v[:, :, :1201], scale=0.125), 10)
+    del qkv, q, k, v
+    # last: the card's clock drops under K4's load, and the drop outlasts it
+    qt = [torch.nn.functional.normalize(torch.randn(4, 19200, 768, device="cuda",
+                                                    generator=gen), dim=-1) for _ in range(2)]
+    out["k4_scannet"] = _events_ms(torch, lambda: _knn2_sq(*qt), 10)
+    return out
+
+
+def _exact_oracle():
+    """``_fused_mlp_exact`` of the tree that holds this file (a parent tree
+    may predate it), loaded by path."""
+    import importlib.util
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "ops", "fused_mlp.py")
+    spec = importlib.util.spec_from_file_location("_compare_trees_k6_oracle", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module._fused_mlp_exact
+
+
+def _k6_f32(torch, gen) -> dict:
+    """``k6_f32`` above (this tree's wrapper, this file's oracle)."""
+    import torch.nn.functional as F
+
+    from midvision_probe_torch.ops.fused_mlp import _fused_mlp_plain, fused_mlp
+
+    exact = _exact_oracle()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = {}
+    for name, (C, H) in MLP_F32.items():
+        x, w1, b1, w2, b2 = args = [
+            torch.randn(64 * 1201, C, device="cuda", generator=gen),
+            torch.randn(C, H, device="cuda", generator=gen) * C**-0.5,
+            torch.randn(H, device="cuda", generator=gen) * 0.1,
+            torch.randn(H, C, device="cuda", generator=gen) * H**-0.5,
+            torch.randn(C, device="cuda", generator=gen) * 0.1]
+        got = fused_mlp(*args, act="gelu_tanh")
+        plain = _fused_mlp_plain(*args, act="gelu_tanh")
+        ref = exact(*args, act="gelu_tanh")
+        out[name] = {
+            "ms": _events_ms(torch, lambda: fused_mlp(*args, act="gelu_tanh"), 5, warmup=1),
+            "library_ms": _events_ms(torch, lambda: F.linear(F.gelu(
+                F.linear(x, w1.t(), b1), approximate="tanh"), w2.t(), b2), 5, warmup=1),
+            "err_vs_exact": (got - ref).abs().max().item(),
+            "plain_err_vs_exact": (plain - ref).abs().max().item(),
+            "err_vs_plain": (got - plain).abs().max().item()}
+        del x, w1, b1, w2, b2, args, got, plain, ref
+        torch.cuda.empty_cache()
     return out
 
 
@@ -123,15 +183,32 @@ def _forwards(torch) -> dict:
     return out
 
 
-def _depth_run(torch, train_depth) -> float:
+def _timed_entry(torch, module, argv) -> float:
+    """Wall seconds of one run of a driver's ``entry``."""
     out_dir = tempfile.mkdtemp(prefix="mvp_compare_")
     try:
         t0 = time.perf_counter()
-        train_depth.entry(DEPTH_ARGV + [f"output_dir={out_dir}"])
+        module.entry(argv + [f"output_dir={out_dir}"])
         torch.cuda.synchronize()
         return time.perf_counter() - t0
     finally:
         shutil.rmtree(out_dir, ignore_errors=True)
+
+
+def _profiled_entry(torch, module, argv) -> dict:
+    """One more run of a driver under ``torch.profiler``: wall seconds,
+    device ms summed over the kernels and the host operations with the most
+    self time."""
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        wall = _timed_entry(torch, module, argv)
+    events = prof.key_averages()
+    device_ms = sum(e.device_time_total for e in events
+                    if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+    host = sorted(((e.key, e.self_cpu_time_total / 1e3) for e in events
+                   if e.device_type == torch.autograd.DeviceType.CPU), key=lambda kv: -kv[1])
+    return {"wall_s": wall, "device_ms": device_ms,
+            "host_self_ms_top": [[k[:60], t] for k, t in host[:12]]}
 
 
 def measure(tree: str) -> dict:
@@ -140,7 +217,7 @@ def measure(tree: str) -> dict:
     import torch
 
     import midvision_probe_torch
-    from midvision_probe_torch import train_depth
+    from midvision_probe_torch import render_scannet_correspondence, train_depth
     from midvision_probe_torch.ops import cuda_build
     from midvision_probe_torch.ops.fused_mlp import ACTIVATIONS, fused_mlp
     from midvision_probe_torch.ops.vit_attention import fused_qkv_attention
@@ -175,19 +252,17 @@ def measure(tree: str) -> dict:
         torch.cuda.empty_cache()
         res["kernel_ms"] = _kernel_ms(torch, gen)
         torch.cuda.empty_cache()
+        res["k6_f32"] = _k6_f32(torch, gen)
         res["forward_imgs_per_s"] = _forwards(torch)
     torch.cuda.empty_cache()
-    res["depth_wall_s"] = [_depth_run(torch, train_depth) for _ in range(DEPTH_REPS)]
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        wall = _depth_run(torch, train_depth)
-    events = prof.key_averages()
-    device_ms = sum(e.device_time_total for e in events
-                    if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
-    host = sorted(((e.key, e.self_cpu_time_total / 1e3) for e in events
-                   if e.device_type == torch.autograd.DeviceType.CPU), key=lambda kv: -kv[1])
-    res["depth_profiled"] = {"wall_s": wall, "device_ms": device_ms,
-                             "host_self_ms_top": [[k[:60], t] for k, t in host[:12]]}
+    res["depth_wall_s"] = [_timed_entry(torch, train_depth, DEPTH_ARGV)
+                           for _ in range(DEPTH_REPS)]
+    res["depth_profiled"] = _profiled_entry(torch, train_depth, DEPTH_ARGV)
+    torch.cuda.empty_cache()
+    res["scannet_wall_s"] = [_timed_entry(torch, render_scannet_correspondence, SCANNET_ARGV)
+                             for _ in range(SCANNET_REPS)]
+    res["scannet_profiled"] = _profiled_entry(torch, render_scannet_correspondence,
+                                              SCANNET_ARGV)
     return res
 
 
@@ -220,11 +295,15 @@ def main(argv=None) -> int:
             "host_us_per_launch": [r["host_us_per_launch"] for r in mine],
             "k1_ms": [r["k1_ms"] for r in mine],
             "k6_ms": [r["k6_ms"] for r in mine],
+            "k6_f32": [r["k6_f32"] for r in mine],
             "kernel_ms": [r["kernel_ms"] for r in mine],
             "forward_imgs_per_s": [r["forward_imgs_per_s"] for r in mine],
             "depth_wall_s": [r["depth_wall_s"] for r in mine],
             "depth_profiled": [[r["depth_profiled"]["wall_s"], r["depth_profiled"]["device_ms"]]
-                               for r in mine]}
+                               for r in mine],
+            "scannet_wall_s": [r["scannet_wall_s"] for r in mine],
+            "scannet_profiled": [[r["scannet_profiled"]["wall_s"],
+                                  r["scannet_profiled"]["device_ms"]] for r in mine]}
     print(json.dumps({"summary": summary}), flush=True)
     return 0
 

@@ -1,15 +1,16 @@
 // Hopper (sm_90a) building blocks shared by the port's wgmma kernels
-// (fused_mlp.cu, vit_attention.cu): mbarriers, TMA tile loads, 128-byte
-// swizzled shared-memory descriptors, warpgroup MMA (wgmma) and register
-// rebalancing (setmaxnreg), all as inline PTX; and, on the host, the
+// (fused_mlp.cu, knn2.cu, vit_attention.cu): mbarriers, TMA tile loads,
+// 128-byte swizzled shared-memory descriptors, warpgroup MMA (wgmma) and
+// register rebalancing (setmaxnreg), all as inline PTX; and, on the host, the
 // encoding of TMA tensor maps through cudaGetDriverEntryPoint, so that no
 // library links against libcuda.
 //
-// Layout conventions (every operand is bf16 and loaded by TMA with
-// CU_TENSOR_MAP_SWIZZLE_128B, a box whose inner extent is 64 elements = 128
-// bytes, into a 1024-byte aligned tile; the 16 columns past 64 of a head
-// dim of 80 with CU_TENSOR_MAP_SWIZZLE_32B, rows of 32 bytes, 8-row groups
-// of 256 bytes):
+// Layout conventions (every wgmma operand in shared memory is bf16 and
+// loaded by TMA with CU_TENSOR_MAP_SWIZZLE_128B, a box whose inner extent is
+// 64 elements = 128 bytes, into a 1024-byte aligned tile; the 16 columns
+// past 64 of a head dim of 80 with CU_TENSOR_MAP_SWIZZLE_32B, rows of 32
+// bytes, 8-row groups of 256 bytes; fused_mlp.cu's float32 A tiles, which
+// threads read into registers, have rows of 32 floats, swizzled alike):
 //   * K-major operand (the reduction dimension contiguous: x, Q, K): rows
 //     of 128 bytes; the descriptor's stride byte offset (SBO) is 1024, the
 //     distance between 8-row groups; a k16 step advances the start address
@@ -32,13 +33,14 @@ namespace {
 
 // ------------------------------------------------------------------- host
 
-// A rank-`rank` bf16 tensor map with zero fill outside the tensor. dims
-// innermost first; strides in bytes for dims 1..rank-1 (multiples of 16);
-// swizzle CU_TENSOR_MAP_SWIZZLE_128B (the default) or _32B. Returns 0 or a
-// cudaError_t code.
+// A rank-`rank` tensor map (bf16 unless `type` says otherwise) with zero
+// fill outside the tensor. dims innermost first; strides in bytes for dims
+// 1..rank-1 (multiples of 16); swizzle CU_TENSOR_MAP_SWIZZLE_128B (the
+// default) or _32B. Returns 0 or a cudaError_t code.
 inline int encode_tensor_map(CUtensorMap* map, const void* base, int rank, const uint64_t* dims,
                              const uint64_t* strides, const uint32_t* box,
-                             CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_128B) {
+                             CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_128B,
+                             CUtensorMapDataType type = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16) {
   static PFN_cuTensorMapEncodeTiled_v12000 encode = nullptr;
   if (encode == nullptr) {
     void* fn = nullptr;
@@ -51,7 +53,7 @@ inline int encode_tensor_map(CUtensorMap* map, const void* base, int rank, const
     encode = reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(fn);
   }
   const uint32_t elem[5] = {1, 1, 1, 1, 1};
-  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(base),
+  const CUresult r = encode(map, type, rank, const_cast<void*>(base),
                             dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
                             swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
@@ -121,6 +123,15 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, u
       : "memory");
 }
 
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
 __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, uint64_t* bar,
                                             int c0, int c1, int c2, int c3) {
   asm volatile(
@@ -139,6 +150,11 @@ __device__ __forceinline__ void fence_proxy_async() {
 // a barrier over `count` threads (id 0 is __syncthreads')
 __device__ __forceinline__ void named_barrier(int id, int count) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+
+// arrive at barrier `id` of `count` threads without waiting for it
+__device__ __forceinline__ void named_barrier_arrive(int id, int count) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(count) : "memory");
 }
 
 template <int kRegs>
@@ -226,6 +242,26 @@ __device__ __forceinline__ void wgmma_m64n128k16_ss(float (&d)[64], uint64_t des
       : MVP_ACC8(d, 0), MVP_ACC8(d, 8), MVP_ACC8(d, 16), MVP_ACC8(d, 24), MVP_ACC8(d, 32),
         MVP_ACC8(d, 40), MVP_ACC8(d, 48), MVP_ACC8(d, 56)
       : "l"(desc_a), "l"(desc_b), "r"(accumulate), "n"(kTransB));
+}
+
+// d (64 x 128, f32) (+)= A (64 x 16, registers: the m16n8k16 A fragment of
+// each warp's 16 rows) * B (16 x 128, shared)
+template <int kTransB>
+__device__ __forceinline__ void wgmma_m64n128k16_rs(float (&d)[64], const uint32_t (&a)[4],
+                                                    uint64_t desc_b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, %70;\n}\n"
+      : MVP_ACC8(d, 0), MVP_ACC8(d, 8), MVP_ACC8(d, 16), MVP_ACC8(d, 24), MVP_ACC8(d, 32),
+        MVP_ACC8(d, 40), MVP_ACC8(d, 48), MVP_ACC8(d, 56)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(accumulate),
+        "n"(kTransB));
 }
 
 // d (64 x 64, f32) (+)= A (64 x 16, registers: the m16n8k16 A fragment of

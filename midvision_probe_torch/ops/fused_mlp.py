@@ -4,13 +4,20 @@ kernel K6, its plain PyTorch versions and the wrapper.
 Counterpart of the JAX package's Pallas TPU kernel ``fused_mlp``
 (``ops/fused_mlp.py``, ``_forward`` -> ``_mlp_kernel``). It is a library op:
 no model dispatches it (the ViT's MLP runs two linears). The kernel is
-``csrc/fused_mlp.cu``; its header says what bounds it on an H100 and what
-its design does about it. In bf16 it is one ``wgmma`` GEMM with a fused
-epilogue launched twice: fc1 with bias and activation into an ``(M, H)``
-bf16 scratch that the wrapper allocates, then fc2 with bias from it. The
-hidden activations therefore make one round trip through device memory,
-rounded to bf16 where the TPU kernel rounds them (a one-SM design that keeps
-them on chip cannot hold the (rows x C) f32 accumulator at wgmma's 64 rows).
+``csrc/fused_mlp.cu``; its header says what bounds it on an H100 (tensor-core
+operations, in both dtypes) and what its design does about it. It is one
+``wgmma`` GEMM with a fused epilogue launched twice: fc1 with bias and
+activation into an ``(M, H)`` scratch of x's dtype that the wrapper
+allocates, then fc2 with bias from it. The hidden activations therefore make
+one round trip through device memory, rounded to bf16 where the TPU kernel
+rounds them and to f32 in float32 (a one-SM design that keeps them on chip
+cannot hold the (rows x C) f32 accumulator at wgmma's 64 rows). In bf16 the
+GEMM takes bf16 products; in float32 (the ``bf16x6`` route) each operand is
+split exactly into three bf16 pieces and each product taken as the six
+piece products that matter at f32 precision, the slices summed with
+Kahan's compensation and the bias and activation applied in f64; the
+weights are split once per call into a workspace of ``6*C*H`` bf16 that
+the wrapper allocates.
 
 * ``fused_mlp(x, w1, b1, w2, b2, act="gelu")``: x ``(..., C)``, w1
   ``(C, H)``, b1 ``(H,)``, w2 ``(H, C)``, b2 ``(C,)`` (the JAX argument
@@ -21,17 +28,19 @@ them on chip cannot hold the (rows x C) f32 accumulator at wgmma's 64 rows).
 * ``_fused_mlp_plain``: the kernel's function: ``h = act(f32(x @ W1) +
   f32(b1))`` with f32 accumulation and the rational erf for ``gelu``,
   rounded to x's dtype; ``o = f32(h @ W2) + f32(b2)`` rounded to x's dtype.
+* ``_fused_mlp_exact``: the same function with float64 products and sums,
+  rounded only where the kernel rounds: the oracle that the card's checks
+  hold the float32 kernel to.
 * ``_plain``: the JAX ``_plain``: ``act`` with the exact erf on
   ``f32(x @ W1 + b1)`` (bias added in the input dtype).
 
 Activations: ``gelu`` (erf form), ``gelu_tanh`` (tanh form, the ViT's bf16
 GELU) and ``quickgelu`` (``x * sigmoid(1.702 x)``).
 
-Constraints of the CUDA kernel (``check_kernel_widths``): dtype bfloat16
-(``wgmma`` path: any C that is a multiple of 8, so every width the JAX op
-takes, 384 and 1536 included) or float32 (SIMT path, no TF32, the hidden
-kept in shared memory: C in ``KERNEL_WIDTHS``, one compiled instance each);
-H a multiple of 32; contiguous, 16-byte aligned operands.
+Constraints of the CUDA kernel (``check_kernel_widths``), one rule for
+both dtypes (bfloat16 and float32): any C that is a multiple of 8, so every
+width the JAX op takes (384 and 1536 included), and any H that is a multiple
+of 32; contiguous, 16-byte aligned operands.
 """
 
 from __future__ import annotations
@@ -44,7 +53,6 @@ import torch
 from midvision_probe_torch.ops.cuda_build import load_library
 
 ACTIVATIONS = ("gelu", "gelu_tanh", "quickgelu")  # kernel codes 0, 1, 2
-KERNEL_WIDTHS = (768, 1024, 1280)  # float32 C: the SIMT kernel's instances (the zoo's widths)
 _DTYPES = (torch.bfloat16, torch.float32)
 _SQRT_HALF = float(np.float32(np.sqrt(0.5)))
 _TANH_C = float(np.float32(np.sqrt(2.0 / np.pi)))
@@ -78,6 +86,17 @@ def _fused_mlp_plain(x, w1, b1, w2, b2, act: str = "gelu") -> torch.Tensor:
     return o.to(x.dtype)
 
 
+def _fused_mlp_exact(x, w1, b1, w2, b2, act: str = "gelu") -> torch.Tensor:
+    """The kernel's function with float64 products and sums (the rational
+    erf evaluated in float64), rounded where the kernel rounds: the hidden
+    to x's dtype, the output to x's dtype. The oracle of the checks only."""
+    f64 = torch.float64
+    h = torch.matmul(x.to(f64), w1.to(f64)) + b1.to(f64)
+    h = _act(h, act, exact=False).to(x.dtype)
+    o = torch.matmul(h.to(f64), w2.to(f64)) + b2.to(f64)
+    return o.to(x.dtype)
+
+
 def _plain(x, w1, b1, w2, b2, act: str = "gelu") -> torch.Tensor:
     """The JAX package's ``_plain``: exact erf, biases in the input dtype."""
     h = _act((x @ w1 + b1).float(), act).to(x.dtype)
@@ -102,13 +121,11 @@ def _check(x, w1, b1, w2, b2, act) -> tuple[int, int]:
 
 
 def check_kernel_widths(C: int, H: int, dtype: torch.dtype) -> None:
-    """Raise unless the kernel takes widths C and H in ``dtype``: bf16 any C
-    that is a multiple of 8 (the ``wgmma`` GEMM's 16-byte rows), float32 C
-    in ``KERNEL_WIDTHS``; H a multiple of 32 in both."""
+    """Raise unless the kernel takes widths C and H in ``dtype`` (bfloat16
+    or float32), one rule for both: C a multiple of 8 (TMA's 16-byte row
+    strides) and H a multiple of 32."""
     if dtype not in _DTYPES:
         raise ValueError(f"dtype {dtype} not in {_DTYPES}")
-    if dtype == torch.float32 and C not in KERNEL_WIDTHS:
-        raise ValueError(f"float32 width C={C} not in {KERNEL_WIDTHS}")
     if C % 8:
         raise ValueError(f"width C={C} must be a multiple of 8")
     if H % 32:
@@ -118,7 +135,7 @@ def check_kernel_widths(C: int, H: int, dtype: torch.dtype) -> None:
 def _kernel():
     fn = load_library("fused_mlp").mvp_fused_mlp
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
 
@@ -136,13 +153,14 @@ def _forward(x, w1, b1, w2, b2, act: str) -> torch.Tensor:
     out = torch.empty_like(x)
     if M == 0:
         return out
-    hidden = None  # the f32 path keeps the hidden on chip
-    if x.dtype == torch.bfloat16:  # fc1's output and fc2's input
-        hidden = torch.empty((M, H), dtype=x.dtype, device=x.device)
+    hidden = torch.empty((M, H), dtype=x.dtype, device=x.device)  # fc1's output, fc2's input
+    planes = None  # float32: the three bf16 planes of W1 and of W2
+    if x.dtype == torch.float32:
+        planes = torch.empty(6 * C * H, dtype=torch.bfloat16, device=x.device)
     with torch.cuda.device(x.device):
         err = _kernel()(x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
-                        b2.data_ptr(), out.data_ptr(),
-                        None if hidden is None else hidden.data_ptr(), M, C, H,
+                        b2.data_ptr(), out.data_ptr(), hidden.data_ptr(),
+                        None if planes is None else planes.data_ptr(), M, C, H,
                         ACTIVATIONS.index(act), int(x.dtype == torch.bfloat16),
                         torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
@@ -173,7 +191,8 @@ class _FusedMLP(torch.autograd.Function):
 def fused_mlp(x, w1, b1, w2, b2, act: str = "gelu") -> torch.Tensor:
     """``act(x @ w1 + b1) @ w2 + b2``: x ``(..., C)``, w1 ``(C, H)``, b1
     ``(H,)``, w2 ``(H, C)``, b2 ``(C,)``. One call (two launches of the
-    GEMM in bf16) counts as one launch."""
+    GEMM, and in float32 the weights' split before them) counts as one
+    launch."""
     return _FusedMLP.apply(x, w1, b1, w2, b2, act)
 
 

@@ -78,10 +78,10 @@ def _library():
 
     lib = load_library("knn2")
     if lib.mvp_knn2.argtypes is None:
-        lib.mvp_knn2.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+        lib.mvp_knn2.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
         lib.mvp_knn2.restype = ctypes.c_int
-        lib.mvp_knn2_padded_dim.argtypes = [ctypes.c_int]
-        lib.mvp_knn2_padded_dim.restype = ctypes.c_int
+        lib.mvp_knn2_plane_width.argtypes = [ctypes.c_int]
+        lib.mvp_knn2_plane_width.restype = ctypes.c_int
     return lib
 
 
@@ -92,24 +92,23 @@ def _aligned(x: torch.Tensor) -> torch.Tensor:
 
 def _knn2_cuda(query: torch.Tensor, target: torch.Tensor):
     """One launch of the kernel on ``(B, N, d)`` x ``(B, M, d)``. The
-    wrapper allocates the outputs and the kernel's workspace: the bf16 hi
-    and lo planes of q and t, feature dim padded to the kernel's chunk."""
+    wrapper allocates the outputs and the kernel's workspace: the bf16
+    planes of q and t, which hold the hi and lo parts of each 32-feature
+    chunk side by side (``mvp_knn2_plane_width(d)`` elements a row)."""
     q, t = _aligned(query), _aligned(target)
     B, N, d = q.shape
     M = t.shape[1]
     qn, tn = _sq_norms(q).contiguous(), _sq_norms(t).contiguous()
     lib = _library()
-    dp = lib.mvp_knn2_padded_dim(d)
-    q_hi, q_lo = (torch.empty((B, N, dp), dtype=torch.bfloat16, device=q.device)
-                  for _ in range(2))
-    t_hi, t_lo = (torch.empty((B, M, dp), dtype=torch.bfloat16, device=q.device)
-                  for _ in range(2))
+    width = lib.mvp_knn2_plane_width(d)
+    q_planes = torch.empty((B, N, width), dtype=torch.bfloat16, device=q.device)
+    t_planes = torch.empty((B, M, width), dtype=torch.bfloat16, device=q.device)
     dist = torch.empty((B, N, 2), dtype=torch.float32, device=q.device)
     idx = torch.empty((B, N, 2), dtype=torch.int32, device=q.device)
     with torch.cuda.device(q.device):
         err = lib.mvp_knn2(q.data_ptr(), t.data_ptr(), qn.data_ptr(), tn.data_ptr(),
-                           q_hi.data_ptr(), q_lo.data_ptr(), t_hi.data_ptr(),
-                           t_lo.data_ptr(), dist.data_ptr(), idx.data_ptr(), B, N, M, d,
+                           q_planes.data_ptr(), t_planes.data_ptr(), dist.data_ptr(),
+                           idx.data_ptr(), B, N, M, d,
                            torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"knn2 kernel launch failed: cudaError {err}")

@@ -65,20 +65,24 @@ def test_multi_head_attention_sends_what_no_kernel_takes_to_einsum(monkeypatch, 
 
 @pytest.mark.parametrize("C", [384, 768, 1536, 8])
 def test_fused_mlp_bf16_takes_any_width_that_is_a_multiple_of_8(C):
-    """bf16 runs the wgmma GEMM, which takes any C that is a multiple of 8:
-    ViT-S's 384 and ViT-g's 1536 too. float32's SIMT kernel keeps its
-    compiled widths."""
-    fm.check_kernel_widths(C, 4 * C if C % 32 == 0 else 32, torch.bfloat16)
-    if C in fm.KERNEL_WIDTHS:
-        fm.check_kernel_widths(C, 4 * C, torch.float32)
-    else:
-        with pytest.raises(ValueError, match="float32 width"):
-            fm.check_kernel_widths(C, 4 * C, torch.float32)
+    """One rule for both dtypes: the wgmma GEMM (bf16) and its bf16x6 form
+    (float32) take any C that is a multiple of 8, so ViT-S's 384 and ViT-g's
+    1536 too, and any H that is a multiple of 32."""
+    for dtype in (torch.bfloat16, torch.float32):
+        fm.check_kernel_widths(C, 4 * C if C % 32 == 0 else 32, dtype)
+
+
+@pytest.mark.parametrize("C", [384, 1536])
+def test_fused_mlp_float32_takes_vit_s_and_vit_g_widths(C):
+    """float32 at ViT-S's (384) and ViT-g's (1536) widths, which the JAX op
+    takes in either dtype and the SIMT kernel refused, at H = 4C."""
+    fm.check_kernel_widths(C, 4 * C, torch.float32)
 
 
 @pytest.mark.parametrize("C,H,dtype,match", [
-    (388, 1536, torch.bfloat16, "multiple of 8"), (768, 48, torch.bfloat16, "multiple of 32"),
-    (768, 48, torch.float32, "multiple of 32"), (768, 3072, torch.float16, "dtype")])
+    (388, 1536, torch.bfloat16, "multiple of 8"), (388, 1536, torch.float32, "multiple of 8"),
+    (768, 48, torch.bfloat16, "multiple of 32"), (768, 48, torch.float32, "multiple of 32"),
+    (768, 3072, torch.float16, "dtype")])
 def test_fused_mlp_width_check_rejects_what_no_kernel_takes(C, H, dtype, match):
     with pytest.raises(ValueError, match=match):
         fm.check_kernel_widths(C, H, dtype)

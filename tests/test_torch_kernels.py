@@ -126,17 +126,15 @@ K4_CASES = [(2, 1000, 777, 768, 0.0), (1, 2048, 2048, 768, 0.3),
             (2, 300, 301, 19, 0.0), (3, 5, 2, 8, 0.0)]
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("B,N,M,d,far_frac", K4_CASES)
-def test_knn2_kernel_matches_plain_twin(cuda, B, N, M, d, far_frac):
-    """Indices equal on >= 99.9% of rows (random unit features have no
-    exact ties; a 1e-6 near-tie may swap); on every row the chosen
-    neighbours' true (f64) squared distances within 1e-5 of the twin's,
-    and the kernel's distances within 1e-5 (+1e-5 rel) of the twin's."""
+def _knn2_matches_plain_twin(q, t):
+    """One launch against the plain twin under K4's bars: no index >= M;
+    indices equal on >= 99.9% of rows (random unit features have no exact
+    ties; a 1e-6 near-tie may swap); on every row the chosen neighbours'
+    true (f64) squared distances within 1e-5 of the twin's, and the
+    kernel's distances within 1e-5 (+1e-5 rel) of the twin's."""
     from midvision_probe_torch.ops import matching
 
-    q_np, t_np = _knn2_inputs(B, N, M, d, seed=N + M + d, far_frac=far_frac)
-    q, t = torch.from_numpy(q_np).to(cuda), torch.from_numpy(t_np).to(cuda)
+    B, N, M = q.shape[0], q.shape[1], t.shape[1]
     before = matching.knn2.launches
     dist, idx = matching._knn2_sq(q, t)
     ref_d, ref_i = matching._knn2_plain(q, t)
@@ -152,6 +150,28 @@ def test_knn2_kernel_matches_plain_twin(cuda, B, N, M, d, far_frac):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("B,N,M,d,far_frac", K4_CASES)
+def test_knn2_kernel_matches_plain_twin(cuda, B, N, M, d, far_frac):
+    """K4's bars (``_knn2_matches_plain_twin``) at ragged tiles, masked far
+    targets, a wide and a tiny feature dim, an odd d and M == 2."""
+    q_np, t_np = _knn2_inputs(B, N, M, d, seed=N + M + d, far_frac=far_frac)
+    _knn2_matches_plain_twin(torch.from_numpy(q_np).to(cuda), torch.from_numpy(t_np).to(cuda))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N", [127, 128, 129, 255, 256, 257])
+@pytest.mark.parametrize("d", [19, 64, 100, 800])
+def test_knn2_kernel_at_tile_edges(cuda, N, d):
+    """N = M on both sides of the kernel's 128-row query block and 256-row
+    target tile, d below, at and past its 32-feature chunks (19, 100 and
+    800 zero-padded in the planes); B * N >= 1000 query rows, so that K4's
+    99.9% bar allows one row in a thousand, as in the cases above."""
+    B = -(-1000 // N)
+    q_np, t_np = _knn2_inputs(B, N, N, d, seed=N * d)
+    _knn2_matches_plain_twin(torch.from_numpy(q_np).to(cuda), torch.from_numpy(t_np).to(cuda))
+
+
+@pytest.mark.cuda
 def test_knn2_kernel_ties_break_to_the_lowest_index(cuda):
     from midvision_probe_torch.ops import matching
 
@@ -160,6 +180,30 @@ def test_knn2_kernel_ties_break_to_the_lowest_index(cuda):
     dist, idx = matching._knn2_sq(q, t)
     ref_d, ref_i = matching._knn2_plain(q, t)
     torch.cuda.synchronize()
+    torch.testing.assert_close(idx, ref_i, atol=0, rtol=0)
+    torch.testing.assert_close(dist, ref_d, atol=0, rtol=0)
+
+
+@pytest.mark.cuda
+def test_knn2_kernel_ties_across_a_target_tile_boundary(cuda):
+    """Exact ties between targets that lie in two 256-row target tiles
+    (255 and 256, 511 and 512) on quarter-integer features: 1024 queries,
+    the first two equal to targets 255 and 511, get (255, 256) and (511,
+    512) at distance 0, and every row agrees with the plain twin bit for
+    bit (the bar of the ``ties`` case above)."""
+    from midvision_probe_torch.ops import matching
+
+    rng = np.random.RandomState(7)
+    t_np = rng.randint(-3, 4, (1, 600, 64)).astype(np.float32) / 4
+    t_np[0, 256], t_np[0, 512] = t_np[0, 255], t_np[0, 511]
+    q_np = rng.randint(-3, 4, (1, 1024, 64)).astype(np.float32) / 4
+    q_np[0, 0], q_np[0, 1] = t_np[0, 255], t_np[0, 511]
+    q, t = torch.from_numpy(q_np).to(cuda), torch.from_numpy(t_np).to(cuda)
+    dist, idx = matching._knn2_sq(q, t)
+    ref_d, ref_i = matching._knn2_plain(q, t)
+    torch.cuda.synchronize()
+    assert idx[0, 0].tolist() == [255, 256] and idx[0, 1].tolist() == [511, 512]
+    assert dist[0, :2].abs().max().item() == 0.0
     torch.testing.assert_close(idx, ref_i, atol=0, rtol=0)
     torch.testing.assert_close(dist, ref_d, atol=0, rtol=0)
 
@@ -561,6 +605,21 @@ def _mlp_inputs(M, C, H, dtype, seed):
     return [torch.from_numpy(a.astype(np.float32)).to("cuda", dtype) for a in arrays]
 
 
+def _mlp_f32_close(fm, got, args, act, plain=None) -> None:
+    """K6's float32 bar: the kernel within 1e-5 abs of the exact oracle
+    (``_fused_mlp_exact``: float64 products and sums, rounded where the
+    kernel rounds), and no farther from it than ``_fused_mlp_plain`` (the
+    f32 chain with TF32 off, itself ~1e-5 off at DINO's MLP) at the same
+    inputs."""
+    exact = fm._fused_mlp_exact(*args, act=act)
+    if plain is None:
+        plain = fm._fused_mlp_plain(*args, act=act)
+    err = (got - exact).abs().max().item()
+    plain_err = (plain - exact).abs().max().item()
+    vs_plain = (got - plain).abs().max().item()
+    assert err <= 1e-5 and err <= plain_err, (err, plain_err, vs_plain)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("act", ["gelu", "gelu_tanh", "quickgelu"])
 @pytest.mark.parametrize("M,C,H", [(300, 768, 256), (77, 768, 3072), (33, 1280, 160),
@@ -570,7 +629,7 @@ def test_fused_mlp_kernel_matches_plain_version(cuda, act, M, C, H):
     bf16 ulp of the largest plain output (the hidden activations round to
     bf16 on both sides; a different f32 summation order can flip one of
     those roundings, which moves a whole output row by a hidden ulp times a
-    W2 entry); f32 with TF32 off: 1e-5 abs."""
+    W2 entry); f32 with TF32 off: ``_mlp_f32_close``."""
     from midvision_probe_torch.ops import fused_mlp as fm
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -583,12 +642,37 @@ def test_fused_mlp_kernel_matches_plain_version(cuda, act, M, C, H):
         torch.cuda.synchronize()
         assert fm.fused_mlp.launches == before + 1
         assert got.dtype == dtype and got.shape == (M, C) and torch.isfinite(got).all()
-        g, r = got.float(), ref.float()
         if dtype == torch.float32:
-            torch.testing.assert_close(g, r, atol=1e-5, rtol=0)
+            _mlp_f32_close(fm, got, args, act, plain=ref)
         else:
+            g, r = got.float(), ref.float()
             tol = 2.0**-7 * (r.abs() + r.abs().max())
             assert bool(((g - r).abs() <= tol).all()), (g - r).abs().max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("act", ["gelu", "gelu_tanh", "quickgelu"])
+@pytest.mark.parametrize("C", [200, 384, 768, 1024, 1280, 1536])
+@pytest.mark.parametrize("M", [77, 300])
+@pytest.mark.parametrize("hidden", ["160", "4C"])
+def test_fused_mlp_f32_at_every_width(cuda, act, C, M, hidden):
+    """float32 on the bf16x6 GEMM at every width of the zoo, the JAX op's
+    ViT-S (384) and ViT-g (1536) widths and C = 200 (a ragged 32-deep K
+    slice in fc1, a ragged 128-column tile in fc2): ragged M (one and three
+    128-row tiles), H = 160 (a ragged 128-column tile in fc1) and H = 4C;
+    ``_mlp_f32_close``."""
+    from midvision_probe_torch.ops import fused_mlp as fm
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    H = 160 if hidden == "160" else 4 * C
+    args = _mlp_inputs(M, C, H, torch.float32, seed=M + C + H)
+    before = fm.fused_mlp.launches
+    with torch.no_grad():
+        got = fm.fused_mlp(*args, act=act)
+    torch.cuda.synchronize()
+    assert fm.fused_mlp.launches == before + 1
+    assert got.dtype == torch.float32 and got.shape == (M, C) and torch.isfinite(got).all()
+    _mlp_f32_close(fm, got, args, act)
 
 
 def _mlp_close(got: torch.Tensor, ref: torch.Tensor) -> None:
@@ -622,8 +706,8 @@ def test_fused_mlp_wgmma_gemm_at_every_width(cuda, act, C, M, H):
 @pytest.mark.parametrize("C", [384, 1536])
 @pytest.mark.parametrize("M", [77, 300])
 def test_fused_mlp_bf16_at_widths_outside_the_f32_instances(cuda, act, C, M):
-    """bf16 at ViT-S's width (384) and ViT-g's (1536), which the JAX op takes
-    and the float32 kernel has no instance of: ragged M, H = 4C."""
+    """bf16 at ViT-S's width (384) and ViT-g's (1536), which the JAX op
+    takes: ragged M, H = 4C."""
     from midvision_probe_torch.ops import fused_mlp as fm
 
     args = _mlp_inputs(M, C, 4 * C, torch.bfloat16, seed=M + C + len(act))
@@ -666,8 +750,9 @@ def test_fused_mlp_kernel_rejects_what_it_cannot_take(cuda):
     args = _mlp_inputs(4, 768, 64, torch.bfloat16, seed=0)
     with pytest.raises(ValueError, match="dtype"):
         fm.fused_mlp(*[a.half() for a in args])
-    with pytest.raises(ValueError, match="width"):  # float32 keeps its compiled widths
-        fm.fused_mlp(*_mlp_inputs(4, 128, 64, torch.float32, seed=0))
+    fm.fused_mlp(*_mlp_inputs(4, 128, 64, torch.float32, seed=0))  # one rule for both dtypes
+    with pytest.raises(ValueError, match="multiple of 8"):
+        fm.fused_mlp(*_mlp_inputs(4, 388, 64, torch.float32, seed=0))
     with pytest.raises(ValueError, match="multiple of 8"):
         fm.fused_mlp(*_mlp_inputs(4, 388, 64, torch.bfloat16, seed=0))
     with pytest.raises(ValueError, match="multiple of 32"):
