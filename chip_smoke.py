@@ -42,11 +42,17 @@ JSON line per phase and fails on the first failing phase:
 5a. ``variant_checks``: the attention bench's kernels against their plain
    versions at the bench shape (B=64, N=1280, n_valid=1201, H=12, d=64,
    bf16): the clamped exp2 attention K7 (``wide4``, ``stagger4``,
-   ``wide12``), its int8 form K8, and K9 (exact softmax over the valid
-   keys on K2's kernel); a case where min(s, 110) clamps, n_valid = N, and
-   rows whose exponentials all underflow; each with the largest plain
-   output beside its error; timed cases with SDPA on the valid keys as the
-   yardstick (K8: none; SDPA's bf16 time beside it).
+   ``wide12``), its int8 form K8 (both on the wgmma route at d = 64), and
+   K9 (exact softmax over the valid keys on K2's kernel); a case where
+   min(s, 110) clamps, n_valid = N, rows whose exponentials all underflow,
+   and K7 and K8 at head dim 16 (16 heads, the mma_sync routes); each with
+   the largest plain output beside its error; timed cases with SDPA on the
+   valid keys as the yardstick (K8: none; SDPA's bf16 time beside it), K8
+   split into its prologue, its attention kernel and both. Then K8's
+   prologue (``quantize_qk_heads``) bit for bit against ``quantize_qk`` at
+   the bench shape, also with rows past n_valid at +-3e4. The attention
+   bounds count tensor-core operations, one exp2 per score on the MUFU (16
+   a clock per SM, at the card's SM count and maximum clock) and bytes.
 5b. ``mlp_checks``: the fused MLP (K6) at DINO ViT-B/16's MLP (M = 64*1201,
    C=768, H=3072) and RADIO-v2's (C=1280, H=5120) in bf16 and in f32 (the
    ``bf16x6`` route) with gelu_tanh (timed, with ``F.linear`` -> GELU ->
@@ -94,7 +100,8 @@ and, last, ``{"ok": true, "device": {...}}``. Every launch count is set to
 0 just before a path is driven and read just after it, with the attention
 launches by the route the kernel reports (``wgmma`` for bf16 at d 64 and
 80, ``mma_sync`` for the other bf16 head dims, ``tf32x3`` for f32; K7's
-``wgmma`` at d 64 and 80, ``mma_sync`` at 32 and 128); every
+``wgmma`` at d 64 and 80, ``mma_sync`` at its other head dims; K8's
+``wgmma`` at d 64, ``mma_sync`` at 8, 16, 32 and 128); every
 attention check records the route that ran and fails if it is not the one
 ``ops/vit_attention.py::attention_route`` names.
 """
@@ -119,6 +126,10 @@ PEAK_INT8_OPS = 1979e12
 PEAK_FP32_FLOPS = 67e12  # SIMT, outside the tensor cores
 PEAK_TF32_FLOPS = 495e12
 PEAK_BYTES = 3.35e12
+# exp2 per clock per SM on the multi-function unit (MUFU), the attention
+# kernels' third bound beside tensor-core operations and bytes
+MUFU_EXP2_PER_CLOCK = 16
+CARD = {}  # "sms" and "sm_clock_hz", read from the card by read_card()
 
 
 def emit(obj) -> None:
@@ -157,23 +168,55 @@ def cuda_ms(torch, fn, iters: int = 15, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
-def attention_bound_ms(B, N, n_valid, H, d, itemsize, peak_flops) -> tuple[float, str]:
+def read_card(torch) -> dict:
+    """The card's SM count and maximum SM clock (``nvidia-smi``), which the
+    exp2 bound needs; kept in ``CARD``."""
+    mhz = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True, timeout=60).stdout.split()[0]
+    CARD.update(sms=torch.cuda.get_device_properties(0).multi_processor_count,
+                sm_clock_hz=float(mhz) * 1e6)
+    return dict(CARD)
+
+
+def exp2_ms(B, H, N, n_valid) -> float:
+    """The MUFU's time for one exp2 per score (B*H*N*n_valid) at 16 per
+    clock per SM on this card."""
+    rate = MUFU_EXP2_PER_CLOCK * CARD["sms"] * CARD["sm_clock_hz"]
+    return B * H * N * n_valid / rate * 1e3
+
+
+def bounds(tensor_ms: float, bytes_ms: float, mufu_ms: float = 0.0) -> dict:
+    """The least time as the largest of its terms: tensor-core (or FMA)
+    operations, exp2 on the MUFU and bytes at the memory rate.
+    ``bound_by`` is ``operations`` for either of the first two, ``bytes``
+    for the last; ``bound_term`` names the term; ``bound_without_exp2_ms``
+    is the bound without the MUFU term."""
+    terms = {"tensor": tensor_ms, "mufu": mufu_ms, "bytes": bytes_ms}
+    term = max(terms, key=terms.get)
+    return {"bound_ms": terms[term], "bound_by": "bytes" if term == "bytes" else "operations",
+            "bound_term": term, "bound_without_exp2_ms": max(tensor_ms, bytes_ms)}
+
+
+def attention_bounds(B, N, n_valid, H, d, itemsize, peak_flops) -> dict:
     """Least time for one call: QK^T and PV over the valid keys at the
-    dtype's peak, or the qkv read plus output write at the memory rate."""
+    dtype's peak, one exp2 per score on the MUFU, or the qkv read plus
+    output write at the memory rate."""
     flops = 4.0 * B * H * N * n_valid * d
     nbytes = (B * N * 3 * H * d + B * N * H * d) * itemsize
-    t_ops, t_bytes = flops / peak_flops, nbytes / PEAK_BYTES
-    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+    return bounds(flops / peak_flops * 1e3, nbytes / PEAK_BYTES * 1e3,
+                  exp2_ms(B, H, N, n_valid))
 
 
 def f32_attention_bounds(B, N, n_valid, H, d) -> dict:
     """The least time of an f32 attention call for both designs: ``tf32x3``
     (the kernel's: three TF32 products per product, 3*4*B*H*N*n_valid*d FLOP
     at the TF32 peak) as ``bound_ms``, and f32 FMA outside the tensor cores
-    (the SIMT kernel's that it replaced) as ``bound_simt_ms``."""
-    simt, _ = attention_bound_ms(B, N, n_valid, H, d, 4, PEAK_FP32_FLOPS)
-    tf32, by = attention_bound_ms(B, N, n_valid, H, d, 4, PEAK_TF32_FLOPS / 3)
-    return {"bound_ms": tf32, "bound_by": by, "bound_simt_ms": simt}
+    (the SIMT kernel's that it replaced) as ``bound_simt_ms``; each with the
+    exp2 and bytes terms."""
+    simt = attention_bounds(B, N, n_valid, H, d, 4, PEAK_FP32_FLOPS)["bound_ms"]
+    return {**attention_bounds(B, N, n_valid, H, d, 4, PEAK_TF32_FLOPS / 3),
+            "bound_simt_ms": simt}
 
 
 def route_ran(fn):
@@ -241,8 +284,7 @@ def phase_kernel_checks(torch):
                 res["library_ms"] = cuda_ms(
                     torch, lambda: F.scaled_dot_product_attention(q, k, v, scale=scale))
             if dtype == torch.bfloat16:
-                res["bound_ms"], res["bound_by"] = attention_bound_ms(
-                    B, N, N, H, d, 2, PEAK_BF16_FLOPS)
+                res.update(attention_bounds(B, N, N, H, d, 2, PEAK_BF16_FLOPS))
             else:
                 res.update(f32_attention_bounds(B, N, N, H, d))
         results.append(res)
@@ -413,8 +455,7 @@ def phase_attention_checks(torch):
                 res["library_ms"] = cuda_ms(
                     torch, lambda: F.scaled_dot_product_attention(q, k, v, scale=scale))
             if dtype == bf16:
-                res["bound_ms"], res["bound_by"] = attention_bound_ms(
-                    B, N, N, H, d, 2, PEAK_BF16_FLOPS)
+                res.update(attention_bounds(B, N, N, H, d, 2, PEAK_BF16_FLOPS))
             else:
                 res.update(f32_attention_bounds(B, N, N, H, d))
         results.append(res)
@@ -488,35 +529,52 @@ def phase_rope_checks(torch):
 
 
 # the attention bench's shape: ViT-B/16 at 480x640, 1201 tokens padded to
-# 1280, 12 heads of 64, batch 64
+# 1280, 12 heads of 64, batch 64; and the same tokens in 16 heads of 16 (the
+# JAX bench's --hd 16 at that width), which K7 and K8 run on mma_sync
 BENCH_SHAPE = (64, 1280, 12, 64)
+BENCH_SHAPE_D16 = (64, 1280, 16, 16)
 BENCH_N_VALID = 1201
 
 
-def bench_inputs(torch, gen, kind):
-    """bf16 qkv (B, N, 3, H, d) at the bench shape on the card. ``bench``:
-    randn * 0.6 (the bench's); ``clamp``: q and k at std 5 (base-2 scores
-    far above 110), v at std 0.25 (|o| near 1); ``underflow``: the bench's,
-    with positive keys and the first 64 query rows at -64, so that every
-    exp2 of those rows underflows (scores below -2^8) and l takes the 1e-30
-    floor."""
-    B, N, H, d = BENCH_SHAPE
+def bench_inputs(torch, gen, kind, shape=BENCH_SHAPE):
+    """bf16 qkv (B, N, 3, H, d) on the card. ``bench``: randn * 0.6 (the
+    bench's); ``clamp``: q and k at std 5 (base-2 scores far above 110), v
+    at std 0.25 (|o| near 1); ``underflow``: the bench's, with positive keys
+    and the first 64 query rows at -64, so that every exp2 of those rows
+    underflows (scores below -2^8) and l takes the 1e-30 floor;
+    ``poisoned``: the bench's, with q and k at +-3e4 in the rows >=
+    BENCH_N_VALID (K8's per-head scales must not see them)."""
+    B, N, H, d = shape
     std = torch.tensor([5.0, 5.0, 0.25] if kind == "clamp" else [0.6] * 3, device="cuda")
     qkv = (torch.randn(B, N, 3, H, d, device="cuda", generator=gen)
            * std[:, None, None]).to(torch.bfloat16)
     if kind == "underflow":
         qkv[:, :, 1] = qkv[:, :, 1].abs()
         qkv[:, :64, 0] = -64.0
+    if kind == "poisoned":
+        qkv[:, BENCH_N_VALID:, :2] = 3e4
+        qkv[:, BENCH_N_VALID:, :2, :, ::2] = -3e4
     return qkv
 
 
-def int8_attention_bound_ms(B, N, n_valid, H, d) -> tuple[float, str]:
-    """Least time for K8's kernel: QK^T at the int8 peak plus PV at the bf16
-    peak, or q8, k8 (1 byte), v and the output (2 bytes) moved once."""
+def int8_bounds(B, N, n_valid, H, d) -> dict:
+    """Least time for K8's attention kernel: QK^T at the int8 peak plus PV at
+    the bf16 peak, one exp2 per score on the MUFU, or q8 and k8 (rows of
+    d_pad bytes), v and the output (2 bytes an element) moved once."""
     half = 2.0 * B * H * N * n_valid * d
-    t_ops = half / PEAK_INT8_OPS + half / PEAK_BF16_FLOPS
-    t_bytes = (2.0 * B * N * H * d + 4.0 * B * N * H * d) / PEAK_BYTES
-    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+    dp = -(-d // 32) * 32
+    nbytes = 2.0 * B * N * H * dp + 4.0 * B * N * H * d
+    return bounds((half / PEAK_INT8_OPS + half / PEAK_BF16_FLOPS) * 1e3,
+                  nbytes / PEAK_BYTES * 1e3, exp2_ms(B, H, N, n_valid))
+
+
+def int8_prologue_bounds(B, N, n_valid, H, d) -> dict:
+    """Least time for K8's prologue, two passes over q and k in bf16: the
+    amax pass reads the valid rows, the quantize pass reads every row and
+    writes q8 and k8 (rows of d_pad bytes)."""
+    dp = -(-d // 32) * 32
+    nbytes = 4.0 * B * n_valid * H * d + 4.0 * B * N * H * d + 2.0 * B * N * H * dp
+    return bounds(0.0, nbytes / PEAK_BYTES * 1e3)
 
 
 def phase_variant_checks(torch):
@@ -524,45 +582,51 @@ def phase_variant_checks(torch):
     (``splash``) against their plain versions at the bench shape (B=64,
     N=1280, n_valid=1201, H=12, d=64, bf16): the bench's inputs (timed), a
     case where min(s, 110) clamps (its count of clamped scores, on the plain
-    side, must be > 0), n_valid = N, and rows whose exponentials all
-    underflow (the plain side's unfloored l must be < 1e-30 there). Pass:
-    finite, max abs error <= min(1.6e-2, 2^-6 * max|ref|): both sides round
-    p and the output to bf16 and sum in other orders, a few bf16 ulps of the
-    largest output (2^-6 of it is two to four such ulps; the cap binds only
-    where |o| nears 1, in the clamp case)."""
+    side, must be > 0), n_valid = N, rows whose exponentials all underflow
+    (the plain side's unfloored l must be < 1e-30 there), and K7 and K8 at
+    head dim 16 (16 heads). Pass: finite, the route that ``wide_route`` /
+    ``int8_route`` names (K9 wgmma), max abs error <= min(1.6e-2, 2^-6 *
+    max|ref|): both sides round p and the output to bf16 and sum in other
+    orders, a few bf16 ulps of the largest output (2^-6 of it is two to four
+    such ulps; the cap binds only where |o| nears 1, in the clamp case).
+    K8's timed case splits its time into the prologue, the attention kernel
+    alone and both, each with its bound. Then K8's prologue
+    (``quantize_qk_heads``) against ``quantize_qk`` at the bench shape, on
+    the bench's inputs (timed) and with rows past n_valid at +-3e4: q8 and
+    k8 equal bit for bit, the pad zero, c within two f32 ulps."""
     import torch.nn.functional as F
 
     from midvision_probe_torch import bench_attn as ba
 
     torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(4)
-    B, N, H, d = BENCH_SHAPE
-    scale = d**-0.5
-    variants = {  # name: (kernel, wrapper, plain version)
-        "wide4": ("K7", lambda x, n: ba.wide_attention(x, scale, n, width=4 * d),
+    variants = {  # name: (kernel, wrapper (qkv, scale, n_valid), plain version)
+        "wide4": ("K7", lambda x, sc, n: ba.wide_attention(x, sc, n, width=4 * x.shape[-1]),
                   ba._wide_attention_plain),
-        "stagger4": ("K7", lambda x, n: ba.wide_attention(x, scale, n, width=4 * d,
-                                                          stagger=True),
-                     ba._wide_attention_plain),
-        "wide12": ("K7", lambda x, n: ba.wide_attention(x, scale, n, width=12 * d),
+        "stagger4": ("K7", lambda x, sc, n: ba.wide_attention(
+            x, sc, n, width=4 * x.shape[-1], stagger=True), ba._wide_attention_plain),
+        "wide12": ("K7", lambda x, sc, n: ba.wide_attention(x, sc, n, width=12 * x.shape[-1]),
                    ba._wide_attention_plain),
-        "int8": ("K8", lambda x, n: ba.int8_attention(x, scale, n), ba._int8_attention_plain),
-        "splash": ("K9", lambda x, n: ba.splash_attention(x, scale, n),
-                   ba._splash_attention_plain),
+        "int8": ("K8", ba.int8_attention, ba._int8_attention_plain),
+        "splash": ("K9", ba.splash_attention, ba._splash_attention_plain),
     }
     nv = BENCH_N_VALID
-    cases = ([(v, "bench", nv, True) for v in variants]
-             + [(v, kind, n, False) for kind, n in (("clamp", nv), ("bench", N))
+    N = BENCH_SHAPE[1]
+    cases = ([(v, "bench", nv, BENCH_SHAPE, True) for v in variants]
+             + [(v, kind, n, BENCH_SHAPE, False) for kind, n in (("clamp", nv), ("bench", N))
                 for v in ("wide4", "int8", "splash")]
-             + [(v, "underflow", nv, False) for v in ("wide4", "int8")])
+             + [(v, "underflow", nv, BENCH_SHAPE, False) for v in ("wide4", "int8")]
+             + [(v, "bench", nv, BENCH_SHAPE_D16, False) for v in ("wide4", "int8")])
     results = []
-    for variant, kind, n_valid, timed in cases:
+    for variant, kind, n_valid, shape, timed in cases:
         kernel, fn, plain = variants[variant]
-        qkv = bench_inputs(torch, gen, kind)
+        B, N, H, d = shape
+        scale = d**-0.5
+        qkv = bench_inputs(torch, gen, kind, shape)
         with torch.no_grad():
-            out, ran = route_ran(lambda: fn(qkv, n_valid))  # K8: no route (None)
+            out, ran = route_ran(lambda: fn(qkv, scale, n_valid))
             ref = plain(qkv, scale, n_valid)
-        route = {"K7": ba.wide_route(d), "K8": None, "K9": "wgmma"}[kernel]
+        route = {"K7": ba.wide_route, "K8": ba.int8_route, "K9": lambda _: "wgmma"}[kernel](d)
         torch.cuda.synchronize()
         err = (out.float() - ref.float()).abs().max().item()
         max_ref = ref.float().abs().max().item()
@@ -570,6 +634,8 @@ def phase_variant_checks(torch):
         finite = bool(torch.isfinite(out).all())
         name = variant if kind == "bench" and n_valid == nv else (
             f"{variant}_{kind}" if n_valid == nv else f"{variant}_n_valid_{n_valid}")
+        if shape != BENCH_SHAPE:
+            name = f"{variant}_d{d}"
         res = {"case": name, "kernel": kernel, "shape": [B, N, H, d], "n_valid": n_valid,
                "inputs": kind, "route": route, "route_ran": ran, "max_abs_err": err,
                "max_abs_ref": max_ref, "tol": tol, "finite": finite}
@@ -590,30 +656,66 @@ def phase_variant_checks(torch):
         if timed:
             q, k, v = qkv.permute(2, 0, 3, 1, 4).unbind(0)  # (B, H, N, d) views
             with torch.no_grad():
+                sdpa_ms = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
+                    q, k[:, :, :n_valid], v[:, :, :n_valid], scale=scale))
                 if kernel == "K8":
-                    q8, k8, c = ba.quantize_qk(qkv, scale, n_valid)
+                    q8, k8, c = ba.quantize_qk_heads(qkv, scale, n_valid)
                     res["kernel_ms"] = cuda_ms(
-                        torch, lambda: ba._launch_int8(q8, k8, c, qkv, n_valid, 2 * d))
-                    res["with_prologue_ms"] = cuda_ms(torch, lambda: fn(qkv, n_valid))
-                    res["bound_ms"], res["bound_by"] = int8_attention_bound_ms(
-                        B, N, n_valid, H, d)
+                        torch, lambda: ba._launch_int8(q8, k8, c, qkv, n_valid, 128))
+                    res["prologue_ms"] = cuda_ms(
+                        torch, lambda: ba.quantize_qk_heads(qkv, scale, n_valid))
+                    res["with_prologue_ms"] = cuda_ms(torch, lambda: fn(qkv, scale, n_valid))
+                    res.update(int8_bounds(B, N, n_valid, H, d))
+                    pro = int8_prologue_bounds(B, N, n_valid, H, d)
+                    res["prologue_bound_ms"], res["prologue_bound_by"] = (
+                        pro["bound_ms"], pro["bound_by"])
+                    # the two run one after the other: the scales need every
+                    # valid row before the first score
+                    res["with_prologue_bound_ms"] = res["bound_ms"] + pro["bound_ms"]
+                    res["with_prologue_bound_by"] = f"{pro['bound_by']} + {res['bound_by']}"
                     # no single PyTorch call computes int8 attention; SDPA in
                     # bf16 on the same keys is a comparison only
                     res["library_ms"] = None
-                    res["sdpa_bf16_ms"] = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
-                        q, k[:, :, :n_valid], v[:, :, :n_valid], scale=scale))
+                    res["sdpa_bf16_ms"] = sdpa_ms
                     del q8, k8, c
                 else:
-                    res["kernel_ms"] = cuda_ms(torch, lambda: fn(qkv, n_valid))
-                    res["bound_ms"], res["bound_by"] = attention_bound_ms(
-                        B, N, n_valid, H, d, 2, PEAK_BF16_FLOPS)
-                    res["library_ms"] = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
-                        q, k[:, :, :n_valid], v[:, :, :n_valid], scale=scale))
+                    res["kernel_ms"] = cuda_ms(torch, lambda: fn(qkv, scale, n_valid))
+                    res.update(attention_bounds(B, N, n_valid, H, d, 2, PEAK_BF16_FLOPS))
+                    res["library_ms"] = sdpa_ms
                 res["plain_ms"] = cuda_ms(torch, lambda: plain(qkv, scale, n_valid), iters=3,
                                           warmup=1)
             del q, k, v
         results.append(res)
         del qkv, out, ref
+        torch.cuda.empty_cache()
+
+    B, N, H, d = BENCH_SHAPE
+    scale = d**-0.5
+    for kind in ("bench", "poisoned"):
+        qkv = bench_inputs(torch, gen, kind)
+        with torch.no_grad():
+            q8, k8, c = ba.quantize_qk_heads(qkv, scale, nv)
+            rq, rk, rc = ba.quantize_qk(qkv, scale, nv)
+        torch.cuda.synchronize()
+        diff = max((q8[..., :d] - rq.transpose(1, 2)).abs().max().item(),
+                   (k8[..., :d] - rk.transpose(1, 2)).abs().max().item())
+        res = {"case": f"int8_prologue_{kind}", "kernel": "K8 prologue", "shape": [B, N, H, d],
+               "n_valid": nv, "inputs": kind,
+               "q8_equal": torch.equal(q8[..., :d], rq.transpose(1, 2)),
+               "k8_equal": torch.equal(k8[..., :d], rk.transpose(1, 2)),
+               "pad_zero": bool((q8[..., d:] == 0).all() and (k8[..., d:] == 0).all()),
+               "c_max_ulps": (c.view(torch.int32) - rc.view(torch.int32)).abs().max().item(),
+               "max_abs_err": float(diff)}
+        res["ok"] = (res["q8_equal"] and res["k8_equal"] and res["pad_zero"]
+                     and res["c_max_ulps"] <= 2)
+        if kind == "bench":
+            with torch.no_grad():
+                res["kernel_ms"] = cuda_ms(torch, lambda: ba.quantize_qk_heads(qkv, scale, nv))
+                res["plain_ms"] = cuda_ms(torch, lambda: ba.quantize_qk(qkv, scale, nv))
+            res.update(int8_prologue_bounds(B, N, nv, H, d))
+            res["library_ms"] = None  # no single PyTorch call computes it
+        results.append(res)
+        del qkv, q8, k8, c, rq, rk, rc
         torch.cuda.empty_cache()
     emit({"phase": "variant_checks", "cases": results})
     bad = [r["case"] for r in results if not r["ok"]]
@@ -742,8 +844,9 @@ def phase_mlp_checks(torch):
 
 # the launch counts read after every path: K1 fused_qkv_attention, K2
 # vit_attention, K3 the long-sequence route, K4 knn2, K5 rope_2d, K6
-# fused_mlp, K7 wide_attention, K8 int8_attention, K9 splash_attention
-KERNELS = ("k1", "k2", "k3", "k4", "k5", "k6", "k7", "k8", "k9")
+# fused_mlp, K7 wide_attention, K8 int8_attention and its prologue
+# quantize_qk_heads (k8p), K9 splash_attention
+KERNELS = ("k1", "k2", "k3", "k4", "k5", "k6", "k7", "k8", "k8p", "k9")
 
 
 def _counters():
@@ -756,11 +859,12 @@ def _counters():
 
     return dict(zip(KERNELS, (fused_qkv_attention, vit_attention, _flash_attention, knn2,
                               rope_2d, fused_mlp, bench_attn.wide_attention,
-                              bench_attn.int8_attention, bench_attn.splash_attention)))
+                              bench_attn.int8_attention, bench_attn.quantize_qk_heads,
+                              bench_attn.splash_attention)))
 
 
-# the attention kernel's launches by route (``route_launches``): K1, K2, K3
-# and K9 together
+# the attention kernel's launches by route (``route_launches``): K1, K2, K3,
+# K7, K8 and K9 together
 ROUTE_KEYS = ("route_wgmma", "route_mma_sync", "route_tf32x3")
 
 
@@ -799,7 +903,7 @@ def per_forward_ok(counts: dict, per_forward: dict) -> bool:
 # launches per backbone forward of the three backbones (no backbone
 # reaches K6-K9), and the attention route each takes: bf16 at d = 64 (DINO,
 # CroCo-v2) and d = 80 (RADIO-v2) on wgmma, f32 on tf32x3
-NO_BENCH_KERNELS = {"k6": 0, "k7": 0, "k8": 0, "k9": 0}
+NO_BENCH_KERNELS = {"k6": 0, "k7": 0, "k8": 0, "k8p": 0, "k9": 0}
 
 
 def on_route(route: str, n: int) -> dict:
@@ -825,7 +929,8 @@ def phase_bench_attn(torch, iters: int = 20):
     (``midvision_probe_torch.bench_attn.main``) at its defaults with every
     variant: its lines and numbers, the launch counts (each variant: one
     warm-up, ``iters`` timed and one checked call; K1 for ``base``, K7 for
-    the three wide variants, K8, K9; every other count 0), and each
+    the three wide variants, K8 and its prologue, K9; every other count 0;
+    all six on the wgmma route), and each
     variant's max abs error against the f32 oracle within
     ``BENCH_ORACLE_BOUND``. Returns the launch counts."""
     from midvision_probe_torch import bench_attn
@@ -838,9 +943,10 @@ def phase_bench_attn(torch, iters: int = 20):
     counts = read_counts()
     calls = iters + 2
     expected = dict.fromkeys(KERNELS + ROUTE_KEYS, 0)
-    # base (K1), the three wide variants (K7 at d = 64) and splash (K9) on wgmma
-    expected.update(k1=calls, k7=3 * calls, k8=calls, k9=calls, route_wgmma=5 * calls,
-                    forwards=0)
+    # base (K1), the three wide variants (K7 at d = 64), int8 (K8 at d = 64)
+    # and splash (K9) on wgmma
+    expected.update(k1=calls, k7=3 * calls, k8=calls, k8p=calls, k9=calls,
+                    route_wgmma=6 * calls, forwards=0)
     emit({"phase": "bench_attn", "results": results, "launches": counts,
           "oracle_bound": BENCH_ORACLE_BOUND, "wall_s": wall})
     checks = {
@@ -1053,10 +1159,13 @@ def phase_forward(torch, smi: str, model, batch, hw, dtype, per_forward, grid, w
 
 
 def case_numbers(case) -> dict:
-    """A timed check's error and times, under the ``kernels`` line's keys."""
+    """A timed check's error and times, under the ``kernels`` line's keys
+    (and the bound's term and its value without the exp2 term, where the
+    check has them)."""
+    extra = {k: case[k] for k in ("bound_term", "bound_without_exp2_ms") if k in case}
     return {"max_abs_err": case["max_abs_err"], "ms": case["kernel_ms"],
             "plain_ms": case["plain_ms"], "bound_ms": case["bound_ms"],
-            "bound_by": case["bound_by"], "library_ms": case["library_ms"]}
+            "bound_by": case["bound_by"], "library_ms": case["library_ms"], **extra}
 
 
 def kernel_entry(name, source, replaces, kernel, by_path, case, design,
@@ -1087,11 +1196,12 @@ def main() -> int:
 
     t_start = time.perf_counter()
     smi = nvidia_smi()
+    card = read_card(torch)
     t0 = time.perf_counter()
     cuda_build.build_all()
     ptxas = [ln.strip() for info in cuda_build.BUILD_INFO.values()
              for ln in info["log"].splitlines() if "registers" in ln]
-    emit({"phase": "device", "nvidia_smi": smi, "torch": torch.__version__,
+    emit({"phase": "device", "nvidia_smi": smi, "card": card, "torch": torch.__version__,
           "cuda": torch.version.cuda, "device_name": torch.cuda.get_device_name(0),
           "sources": list(cuda_build.KERNEL_SOURCES),
           "build_s": time.perf_counter() - t0, "ptxas": ptxas, "gpu_state": gpu_state()})
@@ -1169,8 +1279,17 @@ def main() -> int:
         kernel_entry("wide_attention", "bench_attn.cu", "launch_script/bench_attn.py:52",
                      "k7", by_path, variant_checks["wide4"],
                      variant_checks["wide4"]["route_ran"]),
-        kernel_entry("int8_attention", "bench_attn.cu", "launch_script/bench_attn.py:133",
-                     "k8", by_path, variant_checks["int8"], "mma_sync"),
+        kernel_entry("int8_attention", "vit_attention.cu", "launch_script/bench_attn.py:133",
+                     "k8", by_path, variant_checks["int8"], variant_checks["int8"]["route_ran"],
+                     prologue_kernels=["amax_qk", "quantize_qk"],
+                     prologue_source="midvision_probe_torch/csrc/bench_attn.cu",
+                     mma_sync_source="midvision_probe_torch/csrc/bench_attn.cu",
+                     **{k: variant_checks["int8"][k] for k in (
+                         "prologue_ms", "prologue_bound_ms", "with_prologue_ms",
+                         "with_prologue_bound_ms")}),
+        kernel_entry("quantize_qk_heads", "bench_attn.cu", "launch_script/bench_attn.py:177",
+                     "k8p", by_path, variant_checks["int8_prologue_bench"], "simt",
+                     kernels=["amax_qk", "quantize_qk"]),
         kernel_entry("splash_attention", "vit_attention.cu", "launch_script/bench_attn.py:225",
                      "k9", by_path, variant_checks["splash"],
                      variant_checks["splash"]["route_ran"]),

@@ -19,12 +19,19 @@ from ``np.random.RandomState(0)``, ``randn * 0.6``):
 
 K7 and K8 compute the bench's clamped exp2 attention: ``exp2(min(s, 110))``
 with no max subtraction, keys >= n_valid masked, ``l = max(sum p, 1e-30)``,
-``o = (bf16(p) v) / l``. K8's kernel is ``csrc/bench_attn.cu``. K7 takes
-one of two routes by head dim (``wide_route``), counted in
-``ops.vit_attention.route_launches`` as the kernel reports it: ``wgmma`` at
-d = 64 and 80 (the attention kernel of ``csrc/vit_attention.cu`` in its
-clamped mode, entry ``mvp_clamp_attention``) and ``mma_sync`` at d = 32 and
-128 (``csrc/bench_attn.cu``). K9 runs the strided attention kernel of
+``o = (bf16(p) v) / l``. Each takes one of two routes by head dim
+(``wide_route``, ``int8_route``), counted in
+``ops.vit_attention.route_launches`` as the kernel reports it: ``wgmma``,
+the attention kernel of ``csrc/vit_attention.cu`` in its clamped mode (K7
+at d = 64 and 80, entry ``mvp_clamp_attention``; K8 at d = 64 with QK^T in
+int8, entry ``mvp_int8_attention_wgmma``), and ``mma_sync``,
+``csrc/bench_attn.cu`` (K7 at every other multiple of 8 up to 128, K8 at d
+= 8, 16, 32 and 128). K8 on ``wgmma`` takes its exp2 from the MUFU with
+subnormal results flushed to 0, which moves no output by more than
+``n_valid * 2^-126 * max|v| / 1e-30``. K8's prologue
+(``quantize_qk_heads``: per-head scales and int8 q and k, head-major and
+zero-padded to 32-byte rows) is two kernels of ``csrc/bench_attn.cu``. K9
+runs the strided attention kernel of
 ``csrc/vit_attention.cu`` (K2's) on ``bf16(q * scale)`` with scale 1 and
 ``n_valid``.
 
@@ -66,17 +73,33 @@ from midvision_probe_torch.utils.device import resolve_device
 _LOG2E = math.log2(math.e)
 _CLAMP = 110.0  # exp2(110) * n_valid stays inside f32's range
 _L_FLOOR = 1e-30
-_HEAD_DIMS = (32, 64, 128)  # K8's kernel
-WIDE_HEAD_DIMS = (32, 64, 80, 128)  # K7's two routes
+INT8_HEAD_DIMS = (8, 16, 32, 64, 128)  # K8: every head dim the JAX kernel takes up to 128
+WIDE_HEAD_DIMS = tuple(range(8, 129, 8))  # K7: every multiple of 8 up to 128
 
 
 def wide_route(d: int) -> str:
     """The route of K7 at head dim ``d`` on a card: ``"wgmma"`` at d in
     ``WGMMA_HEAD_DIMS`` (the attention kernel's clamped mode), else
-    ``"mma_sync"`` (``csrc/bench_attn.cu``). Raises on what neither takes."""
+    ``"mma_sync"`` (``csrc/bench_attn.cu``, instantiated at d rounded up to
+    16). Raises on what neither takes."""
     if d not in WIDE_HEAD_DIMS:
-        raise ValueError(f"wide_attention: head dim {d} not in {WIDE_HEAD_DIMS}")
+        raise ValueError(f"wide_attention: head dim {d} is not a multiple of 8 in [8, 128]")
     return "wgmma" if d in WGMMA_HEAD_DIMS else "mma_sync"
+
+
+def int8_route(d: int) -> str:
+    """The route of K8 at head dim ``d`` on a card: ``"wgmma"`` at d = 64
+    (the attention kernel's clamped mode with an s8 QK^T), else
+    ``"mma_sync"`` (``csrc/bench_attn.cu``). Raises on what neither takes."""
+    if d not in INT8_HEAD_DIMS:
+        raise ValueError(f"int8_attention: head dim {d} not in {INT8_HEAD_DIMS}")
+    return "wgmma" if d == 64 else "mma_sync"
+
+
+def int8_row_bytes(d: int) -> int:
+    """The bytes of one head's row of the prologue's q8 and k8: d rounded up
+    to a multiple of 32 (the s8 products take k in steps of 32 bytes)."""
+    return -(-d // 32) * 32
 
 
 # ------------------------------------------------------------ plain versions
@@ -136,6 +159,14 @@ def quantize_qk(qkv: torch.Tensor, scale: float, n_valid: int):
     return quant(q, qs), quant(k, ks), c
 
 
+def _heads_padded(x8: torch.Tensor, dp: int) -> torch.Tensor:
+    """(B, N, H, d) -> (B, H, N, dp) with zeros in the columns >= d."""
+    B, N, H, d = x8.shape
+    out = x8.new_zeros((B, H, N, dp))
+    out[..., :d] = x8.transpose(1, 2)
+    return out
+
+
 def int8_scores(qkv: torch.Tensor, scale: float, n_valid: int) -> torch.Tensor:
     """K8's base-2 scores (B, H, N, n_valid) f32: ``f32(q8 k8^T) * c[h]``
     over the valid keys (the int8 products summed in f32 are exact:
@@ -189,19 +220,20 @@ def _check_qkv(qkv: torch.Tensor, n_valid: int, width: int | None = None):
     return B, N, H, d
 
 
-def _check_card(qkv: torch.Tensor, name: str, head_dims=_HEAD_DIMS) -> None:
+def _check_card(qkv: torch.Tensor, name: str, route) -> str:
     """What the bench kernels take: a contiguous, 16-byte aligned bf16
-    tensor on a card, a head dim in ``head_dims``, no gradient."""
+    tensor on a card, a head dim that ``route`` (``wide_route`` or
+    ``int8_route``) takes, no gradient. Returns the route."""
     if qkv.device.type != "cuda":
         raise ValueError(f"unsupported device {qkv.device}")
     if qkv.dtype != torch.bfloat16:
         raise ValueError(f"{name}: dtype {qkv.dtype}, the kernel takes bfloat16")
-    if qkv.shape[-1] not in head_dims:
-        raise ValueError(f"{name}: head dim {qkv.shape[-1]} not in {head_dims}")
+    chosen = route(qkv.shape[-1])
     if not qkv.is_contiguous() or qkv.data_ptr() % 16:
         raise ValueError(f"{name}: qkv must be contiguous and 16-byte aligned")
     if qkv.requires_grad and torch.is_grad_enabled():
         raise RuntimeError(f"{name} is forward-only; run it under torch.no_grad()")
+    return chosen
 
 
 def _entry(name: str, argtypes, library: str = "bench_attn"):
@@ -230,11 +262,11 @@ def wide_attention(qkv: torch.Tensor, scale: float, n_valid: int, width: int = 2
     B, N, H, d = _check_qkv(qkv, n_valid, width)
     if qkv.device.type == "cpu":
         return _wide_attention_plain(qkv, scale, n_valid)
-    _check_card(qkv, "wide_attention", WIDE_HEAD_DIMS)
+    route = _check_card(qkv, "wide_attention", wide_route)
     out = torch.empty((B, N, H * d), dtype=qkv.dtype, device=qkv.device)
     ran = ctypes.c_int(-1)
     head = [qkv.data_ptr(), out.data_ptr(), B, N, H, d, n_valid, width // d]
-    if wide_route(d) == "wgmma":
+    if route == "wgmma":
         fn = _entry("mvp_clamp_attention", [ctypes.c_void_p] * 2 + [ctypes.c_int] * 7
                     + [ctypes.POINTER(ctypes.c_int), ctypes.c_void_p], "vit_attention")
     else:
@@ -253,31 +285,72 @@ def wide_attention(qkv: torch.Tensor, scale: float, n_valid: int, width: int = 2
 wide_attention.launches = 0  # kernel launches (never the plain version)
 
 
+def quantize_qk_heads(qkv: torch.Tensor, scale: float, n_valid: int):
+    """K8's prologue in the layout its attention kernels read: ``quantize_qk``'s
+    q8 and k8 head-major, (B, H, N, dp) int8 with each row zero-padded to
+    ``dp = int8_row_bytes(d)``, and c (H,) f32. On a card the two kernels of
+    ``csrc/bench_attn.cu`` (``amax_qk``: the per-head max |x| over the valid
+    rows; ``quantize_qk``: the scales, the IEEE division, round half to even,
+    the clamp, and c), equal to ``quantize_qk`` bit for bit (c within two f32
+    ulps); for a CPU tensor its plain version (``quantize_qk`` laid out)."""
+    B, N, H, d = _check_qkv(qkv, n_valid)
+    dp = int8_row_bytes(d)
+    if qkv.device.type == "cpu":
+        q8, k8, c = quantize_qk(qkv, scale, n_valid)
+        return _heads_padded(q8, dp), _heads_padded(k8, dp), c
+    _check_card(qkv, "int8_attention", int8_route)
+    dev = qkv.device
+    q8 = torch.empty((B, H, N, dp), dtype=torch.int8, device=dev)
+    k8 = torch.empty_like(q8)
+    c = torch.empty((H,), dtype=torch.float32, device=dev)
+    amax = torch.empty((2 * H,), dtype=torch.int32, device=dev)  # zeroed by the entry point
+    fn = _entry("mvp_quantize_qk", [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
+                + [ctypes.c_void_p])
+    with torch.cuda.device(dev):
+        err = fn(qkv.data_ptr(), amax.data_ptr(), q8.data_ptr(), k8.data_ptr(), c.data_ptr(),
+                 B, N, H, d, dp, n_valid, float_bits(scale * _LOG2E),
+                 torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(err, "quantize_qk_heads")
+    quantize_qk_heads.launches += 1
+    return q8, k8, c
+
+
+quantize_qk_heads.launches = 0  # prologue launches (never the plain version)
+
+
 def _launch_int8(q8: torch.Tensor, k8: torch.Tensor, c: torch.Tensor, qkv: torch.Tensor,
                  n_valid: int, width: int) -> torch.Tensor:
-    """K8's kernel alone on ``quantize_qk``'s output (v read from qkv)."""
+    """K8's attention kernel alone on ``quantize_qk_heads``' output (v read
+    from qkv), on its route (``int8_route``)."""
     B, N, _, H, d = qkv.shape
     out = torch.empty((B, N, H * d), dtype=qkv.dtype, device=qkv.device)
-    fn = _entry("mvp_int8_attention", [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
-                + [ctypes.c_void_p])
+    ran = ctypes.c_int(-1)
+    args = [q8.data_ptr(), k8.data_ptr(), qkv.data_ptr(), c.data_ptr(), out.data_ptr(),
+            B, N, H, d]
+    if int8_route(d) == "wgmma":
+        fn = _entry("mvp_int8_attention_wgmma", [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
+                    + [ctypes.POINTER(ctypes.c_int), ctypes.c_void_p], "vit_attention")
+    else:
+        fn = _entry("mvp_int8_attention", [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
+                    + [ctypes.POINTER(ctypes.c_int), ctypes.c_void_p])
+        args.append(q8.shape[-1])
     with torch.cuda.device(qkv.device):
-        err = fn(q8.data_ptr(), k8.data_ptr(), qkv.data_ptr(), c.data_ptr(), out.data_ptr(),
-                 B, N, H, d, n_valid, width // d,
+        err = fn(*args, n_valid, width // d, ctypes.byref(ran),
                  torch.cuda.current_stream(qkv.device).cuda_stream)
     _raise_on(err, "int8_attention")
     int8_attention.launches += 1
+    route_launches[ROUTES[ran.value]] += 1
     return out
 
 
 def int8_attention(qkv: torch.Tensor, scale: float, n_valid: int,
                    width: int = 128) -> torch.Tensor:
-    """K8: the clamped exp2 attention with QK^T in int8 (``quantize_qk``,
-    PyTorch ops on the card, then the kernel) -> (B, N, H*d)."""
-    B, N, H, d = _check_qkv(qkv, n_valid, width)
+    """K8: the clamped exp2 attention with QK^T in int8 (the prologue
+    ``quantize_qk_heads``, then the attention kernel) -> (B, N, H*d)."""
+    _check_qkv(qkv, n_valid, width)
     if qkv.device.type == "cpu":
         return _int8_attention_plain(qkv, scale, n_valid)
-    _check_card(qkv, "int8_attention")
-    return _launch_int8(*quantize_qk(qkv, scale, n_valid), qkv, n_valid, width)
+    return _launch_int8(*quantize_qk_heads(qkv, scale, n_valid), qkv, n_valid, width)
 
 
 int8_attention.launches = 0  # kernel launches, counted in _launch_int8 (never the plain version)

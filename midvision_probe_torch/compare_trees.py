@@ -23,11 +23,15 @@ tree's kernels, then measures with that tree's ``midvision_probe_torch``:
   of 10 calls by CUDA events: K3 in f32 (``_flash_attention`` on strided
   views, B=2, H=16, N=4097, d=80), K2 at RADIO-v2's launch (bf16, B=64,
   H=16, N=1201, d=80), K5 at CroCo-v2's q (bf16, 64 x 12 heads, 14 x 14,
-  dim 64), the bench's K7 (``wide4``), K8 (with its prologue) and K9
-  (``splash``) at B=64, N=1280, n_valid=1201, H=12, d=64, and last K4 at
-  ScanNet's (4 x 19200^2 x 768); with SDPA's time on K3's and K7's inputs
-  as the yardstick (``sdpa_f32_ms``, ``sdpa_bench_ms``; the same call in
-  both trees);
+  dim 64; also the mean of 200 back-to-back launches, ``k5_crocov2_200``,
+  and the kernel's device time per launch from ``torch.profiler`` over 50,
+  ``k5_device_ms``), the bench's K7 (``wide4``), K8 (with its prologue,
+  ``k8_int8``; its prologue alone, ``k8_prologue``; its attention kernel
+  alone on the prologue's output, ``k8_kernel``) and K9 (``splash``) at
+  B=64, N=1280, n_valid=1201, H=12, d=64, and last K4 at ScanNet's (4 x
+  19200^2 x 768); with SDPA's time on K3's and K7's inputs as the
+  yardstick (``sdpa_f32_ms``, ``sdpa_bench_ms``; the same call in both
+  trees);
 * ``forward_imgs_per_s``: the frozen bf16 forwards of dino_vitb16 (480x640),
   crocov2_vitb16 (224x224) and radio_v2 (480x640) at batch 64, 4 taps,
   images per second from the mean of 5 forwards by CUDA events;
@@ -43,7 +47,12 @@ tree's kernels, then measures with that tree's ``midvision_probe_torch``:
 Seeded inputs; one JSON line per tree and run, then a summary line. Run from
 the root of a checkout on a machine with a card::
 
-    python -m midvision_probe_torch.compare_trees --trees <tree A> <tree B>
+    python -m midvision_probe_torch.compare_trees --trees <tree A> <tree B> \
+        [--parts kernels forwards]
+
+``--parts`` measures only some of the groups (``k1`` with
+``host_us_per_launch``, ``k6``, ``kernels``, ``k6_f32``, ``forwards``,
+``paths``: the depth and ScanNet runs); the default is all of them.
 """
 
 from __future__ import annotations
@@ -66,6 +75,7 @@ SCANNET_ARGV = ["backbone=dino_b16", "num_corr=1000", "scale_factor=0.25", "batc
                 "+system.backbone_dtype=bfloat16", "dataset=synthetic_scannet_hard",
                 "dataset.image_hw=[480,640]", "+render_every=0"]
 MLP_F32 = {"dino": (768, 3072), "radio": (1280, 5120)}  # (C, H) of K6's f32 cases
+PARTS = ("k1", "k6", "kernels", "k6_f32", "forwards", "paths")
 
 
 def _events_ms(torch, fn, iters: int, warmup: int = 3) -> float:
@@ -79,6 +89,32 @@ def _events_ms(torch, fn, iters: int, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def _device_ms_per_launch(torch, fn, iters: int, name_part: str) -> float:
+    """The device time per call of the kernels whose name holds
+    ``name_part``, summed by ``torch.profiler`` over ``iters`` calls."""
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.device_time_total for e in prof.key_averages()
+             if e.device_type == torch.autograd.DeviceType.CUDA and name_part in e.key)
+    return us / 1e3 / iters
+
+
+def _k8_split(torch, ba, qkv) -> dict:
+    """K8's prologue alone and its attention kernel alone on the prologue's
+    output: ``quantize_qk_heads`` where the tree has it, else (an older
+    tree) the PyTorch ``quantize_qk`` that its wrapper ran on the card."""
+    prologue = getattr(ba, "quantize_qk_heads", ba.quantize_qk)
+    q8, k8, c = prologue(qkv, 0.125, 1201)
+    return {"k8_prologue": _events_ms(torch, lambda: prologue(qkv, 0.125, 1201), 10),
+            "k8_kernel": _events_ms(
+                torch, lambda: ba._launch_int8(q8, k8, c, qkv, 1201, 128), 10)}
 
 
 def _kernel_ms(torch, gen) -> dict:
@@ -106,13 +142,16 @@ def _kernel_ms(torch, gen) -> dict:
     yy, xx = torch.meshgrid(torch.arange(14, device="cuda", dtype=torch.int32),
                             torch.arange(14, device="cuda", dtype=torch.int32), indexing="ij")
     pos = torch.stack([yy.reshape(-1), xx.reshape(-1)], -1)[None].expand(64, 196, 2)
-    out["k5_crocov2"] = _events_ms(torch, lambda: rope_2d(qkv.permute(2, 0, 3, 1, 4)[0], pos),
-                                   10)
+    rope = lambda: rope_2d(qkv.permute(2, 0, 3, 1, 4)[0], pos)  # noqa: E731
+    out["k5_crocov2"] = _events_ms(torch, rope, 10)
+    out["k5_crocov2_200"] = _events_ms(torch, rope, 200)
+    out["k5_device_ms"] = _device_ms_per_launch(torch, rope, 50, "rope")
     qkv = (torch.randn(64, 1280, 3, 12, 64, device="cuda", generator=gen) * 0.6).bfloat16()
     q, k, v = qkv.permute(2, 0, 3, 1, 4).unbind(0)
     out["k7_wide4"] = _events_ms(torch, lambda: ba.wide_attention(qkv, 0.125, 1201, width=256),
                                  10)
     out["k8_int8"] = _events_ms(torch, lambda: ba.int8_attention(qkv, 0.125, 1201), 10)
+    out.update(_k8_split(torch, ba, qkv))
     out["k9_splash"] = _events_ms(torch, lambda: ba.splash_attention(qkv, 0.125, 1201), 10)
     out["sdpa_bench_ms"] = _events_ms(torch, lambda: F.scaled_dot_product_attention(
         q, k[:, :, :1201], v[:, :, :1201], scale=0.125), 10)
@@ -211,15 +250,28 @@ def _profiled_entry(torch, module, argv) -> dict:
             "host_self_ms_top": [[k[:60], t] for k, t in host[:12]]}
 
 
-def measure(tree: str) -> dict:
-    """Every number above for the tree at ``tree`` (this process imports
-    that tree's package)."""
+def _k6_bf16(torch, gen) -> dict:
+    """``k6_ms`` above (this tree's wrapper)."""
+    from midvision_probe_torch.ops.fused_mlp import ACTIVATIONS, fused_mlp
+
+    bf16 = torch.bfloat16
+    x = torch.randn(64 * 1201, 768, device="cuda", generator=gen).to(bf16)
+    w1 = (torch.randn(768, 3072, device="cuda", generator=gen) * 768**-0.5).to(bf16)
+    b1 = (torch.randn(3072, device="cuda", generator=gen) * 0.1).to(bf16)
+    w2 = (torch.randn(3072, 768, device="cuda", generator=gen) * 3072**-0.5).to(bf16)
+    b2 = (torch.randn(768, device="cuda", generator=gen) * 0.1).to(bf16)
+    return {act: _events_ms(torch, lambda: fused_mlp(x, w1, b1, w2, b2, act=act), 10)
+            for act in ACTIVATIONS}
+
+
+def measure(tree: str, parts=PARTS) -> dict:
+    """The numbers above of ``parts`` for the tree at ``tree`` (this process
+    imports that tree's package)."""
     import torch
 
     import midvision_probe_torch
     from midvision_probe_torch import render_scannet_correspondence, train_depth
     from midvision_probe_torch.ops import cuda_build
-    from midvision_probe_torch.ops.fused_mlp import ACTIVATIONS, fused_mlp
     from midvision_probe_torch.ops.vit_attention import fused_qkv_attention
 
     t0 = time.perf_counter()
@@ -229,40 +281,39 @@ def measure(tree: str) -> dict:
     gen = torch.Generator(device="cuda").manual_seed(0)
     bf16 = torch.bfloat16
     with torch.no_grad():
-        small = torch.randn(1, 197, 3, 12, 64, device="cuda", generator=gen).to(bf16)
-        for _ in range(20):
-            fused_qkv_attention(small, 0.125)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(500):
-            fused_qkv_attention(small, 0.125)
-        res["host_us_per_launch"] = (time.perf_counter() - t0) / 500 * 1e6
-        torch.cuda.synchronize()
-        qkv = torch.randn(64, 1201, 3, 12, 64, device="cuda", generator=gen).to(bf16)
-        res["k1_ms"] = _events_ms(torch, lambda: fused_qkv_attention(qkv, 0.125), 20)
-        del qkv
-        x = torch.randn(64 * 1201, 768, device="cuda", generator=gen).to(bf16)
-        w1 = (torch.randn(768, 3072, device="cuda", generator=gen) * 768**-0.5).to(bf16)
-        b1 = (torch.randn(3072, device="cuda", generator=gen) * 0.1).to(bf16)
-        w2 = (torch.randn(3072, 768, device="cuda", generator=gen) * 3072**-0.5).to(bf16)
-        b2 = (torch.randn(768, device="cuda", generator=gen) * 0.1).to(bf16)
-        res["k6_ms"] = {act: _events_ms(torch, lambda: fused_mlp(x, w1, b1, w2, b2, act=act), 10)
-                        for act in ACTIVATIONS}
-        del x, w1, b1, w2, b2
+        if "k1" in parts:
+            small = torch.randn(1, 197, 3, 12, 64, device="cuda", generator=gen).to(bf16)
+            for _ in range(20):
+                fused_qkv_attention(small, 0.125)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(500):
+                fused_qkv_attention(small, 0.125)
+            res["host_us_per_launch"] = (time.perf_counter() - t0) / 500 * 1e6
+            torch.cuda.synchronize()
+            qkv = torch.randn(64, 1201, 3, 12, 64, device="cuda", generator=gen).to(bf16)
+            res["k1_ms"] = _events_ms(torch, lambda: fused_qkv_attention(qkv, 0.125), 20)
+            del qkv
+        if "k6" in parts:
+            res["k6_ms"] = _k6_bf16(torch, gen)
         torch.cuda.empty_cache()
-        res["kernel_ms"] = _kernel_ms(torch, gen)
+        if "kernels" in parts:
+            res["kernel_ms"] = _kernel_ms(torch, gen)
         torch.cuda.empty_cache()
-        res["k6_f32"] = _k6_f32(torch, gen)
-        res["forward_imgs_per_s"] = _forwards(torch)
+        if "k6_f32" in parts:
+            res["k6_f32"] = _k6_f32(torch, gen)
+        if "forwards" in parts:
+            res["forward_imgs_per_s"] = _forwards(torch)
     torch.cuda.empty_cache()
-    res["depth_wall_s"] = [_timed_entry(torch, train_depth, DEPTH_ARGV)
-                           for _ in range(DEPTH_REPS)]
-    res["depth_profiled"] = _profiled_entry(torch, train_depth, DEPTH_ARGV)
-    torch.cuda.empty_cache()
-    res["scannet_wall_s"] = [_timed_entry(torch, render_scannet_correspondence, SCANNET_ARGV)
-                             for _ in range(SCANNET_REPS)]
-    res["scannet_profiled"] = _profiled_entry(torch, render_scannet_correspondence,
-                                              SCANNET_ARGV)
+    if "paths" in parts:
+        res["depth_wall_s"] = [_timed_entry(torch, train_depth, DEPTH_ARGV)
+                               for _ in range(DEPTH_REPS)]
+        res["depth_profiled"] = _profiled_entry(torch, train_depth, DEPTH_ARGV)
+        torch.cuda.empty_cache()
+        res["scannet_wall_s"] = [_timed_entry(torch, render_scannet_correspondence,
+                                              SCANNET_ARGV) for _ in range(SCANNET_REPS)]
+        res["scannet_profiled"] = _profiled_entry(torch, render_scannet_correspondence,
+                                                  SCANNET_ARGV)
     return res
 
 
@@ -270,10 +321,12 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--trees", nargs=2, required=True, metavar=("A", "B"),
                     help="roots of the two checkouts")
+    ap.add_argument("--parts", nargs="+", choices=PARTS, default=list(PARTS),
+                    help="the groups of numbers to measure (default: all)")
     ap.add_argument("--child", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if args.child:
-        print(json.dumps(measure(args.child)), flush=True)
+        print(json.dumps(measure(args.child, args.parts)), flush=True)
         return 0
     trees = [os.path.abspath(t) for t in args.trees]
     runs = []
@@ -281,29 +334,22 @@ def main(argv=None) -> int:
         # this file, run as a script from the tree's root, imports that
         # tree's package (a tree may predate this file)
         proc = subprocess.run(
-            [sys.executable, os.path.abspath(__file__), "--trees", *trees, "--child", tree],
-            cwd=tree, capture_output=True, text=True)
+            [sys.executable, os.path.abspath(__file__), "--trees", *trees, "--parts",
+             *args.parts, "--child", tree], cwd=tree, capture_output=True, text=True)
         if proc.returncode != 0:
             print(proc.stdout[-4000:], proc.stderr[-4000:], file=sys.stderr)
             return proc.returncode
         runs.append(json.loads(proc.stdout.strip().splitlines()[-1]))
         print(json.dumps(runs[-1]), flush=True)
+    keys = ("host_us_per_launch", "k1_ms", "k6_ms", "k6_f32", "kernel_ms", "forward_imgs_per_s",
+            "depth_wall_s", "scannet_wall_s")
     summary = {}
     for tree in trees:
         mine = [r for r in runs if r["tree"] == tree]
-        summary[tree] = {
-            "host_us_per_launch": [r["host_us_per_launch"] for r in mine],
-            "k1_ms": [r["k1_ms"] for r in mine],
-            "k6_ms": [r["k6_ms"] for r in mine],
-            "k6_f32": [r["k6_f32"] for r in mine],
-            "kernel_ms": [r["kernel_ms"] for r in mine],
-            "forward_imgs_per_s": [r["forward_imgs_per_s"] for r in mine],
-            "depth_wall_s": [r["depth_wall_s"] for r in mine],
-            "depth_profiled": [[r["depth_profiled"]["wall_s"], r["depth_profiled"]["device_ms"]]
-                               for r in mine],
-            "scannet_wall_s": [r["scannet_wall_s"] for r in mine],
-            "scannet_profiled": [[r["scannet_profiled"]["wall_s"],
-                                  r["scannet_profiled"]["device_ms"]] for r in mine]}
+        summary[tree] = {k: [r[k] for r in mine] for k in keys if k in mine[0]}
+        for k in ("depth_profiled", "scannet_profiled"):
+            if k in mine[0]:
+                summary[tree][k] = [[r[k]["wall_s"], r[k]["device_ms"]] for r in mine]
     print(json.dumps({"summary": summary}), flush=True)
     return 0
 

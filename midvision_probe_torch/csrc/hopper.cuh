@@ -1,12 +1,12 @@
 // Hopper (sm_90a) building blocks shared by the port's wgmma kernels
 // (fused_mlp.cu, knn2.cu, vit_attention.cu): mbarriers, TMA tile loads,
-// 128-byte swizzled shared-memory descriptors, warpgroup MMA (wgmma) and
+// swizzled shared-memory descriptors, warpgroup MMA (wgmma) and
 // register rebalancing (setmaxnreg), all as inline PTX; and, on the host, the
 // encoding of TMA tensor maps through cudaGetDriverEntryPoint, so that no
 // library links against libcuda.
 //
-// Layout conventions (every wgmma operand in shared memory is bf16 and
-// loaded by TMA with CU_TENSOR_MAP_SWIZZLE_128B, a box whose inner extent is
+// Layout conventions (every wgmma operand in shared memory is bf16, but the
+// int8 one below, and loaded by TMA with CU_TENSOR_MAP_SWIZZLE_128B, a box whose inner extent is
 // 64 elements = 128 bytes, into a 1024-byte aligned tile; the 16 columns
 // past 64 of a head dim of 80 with CU_TENSOR_MAP_SWIZZLE_32B, rows of 32
 // bytes, 8-row groups of 256 bytes; fused_mlp.cu's float32 A tiles, which
@@ -15,6 +15,10 @@
 //     of 128 bytes; the descriptor's stride byte offset (SBO) is 1024, the
 //     distance between 8-row groups; a k16 step advances the start address
 //     by 32 bytes inside the swizzled row.
+//   * int8 K-major operand (vit_attention.cu's int8 mode: q8 and k8 rows of
+//     64 bytes, CU_TENSOR_MAP_SWIZZLE_64B, a 512-byte aligned tile): SBO
+//     512 (8 rows of 64 bytes), descriptor layout 2; a k32 step of the s8
+//     wgmma advances the start address by 32 bytes inside the row.
 //   * MN-major operand (the output dimension contiguous: W1, W2, V, read
 //     with the transpose bit): each k is a row of 128 bytes holding 64
 //     output columns; SBO (1024) steps 8 k-rows, the leading byte offset
@@ -168,7 +172,7 @@ __device__ __forceinline__ void setmaxnreg_dec() {
 }
 
 // shared-memory matrix descriptor; lbo/sbo in bytes; layout 1: 128-byte
-// swizzle, 3: 32-byte swizzle
+// swizzle, 2: 64-byte swizzle, 3: 32-byte swizzle
 template <int kLayout = 1>
 __device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
   return static_cast<uint64_t>((addr & 0x3FFFFu) >> 4) |
@@ -196,6 +200,12 @@ template <int kN>
 __device__ __forceinline__ void fence_operands(float (&d)[kN]) {
 #pragma unroll
   for (int i = 0; i < kN; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+template <int kN>
+__device__ __forceinline__ void fence_operands(uint32_t (&d)[kN]) {
+#pragma unroll
+  for (int i = 0; i < kN; ++i) asm volatile("" : "+r"(d[i])::"memory");
 }
 
 #define MVP_ACC8(d, i)                                                                 \
@@ -295,6 +305,29 @@ __device__ __forceinline__ void wgmma_m64n16k16_rs(float (&d)[8], const uint32_t
         "n"(kTransB));
 }
 
+#define MVP_ACC8_S32(d, i)                                                             \
+  "+r"(d[i]), "+r"(d[i + 1]), "+r"(d[i + 2]), "+r"(d[i + 3]), "+r"(d[i + 4]), "+r"(d[i + 5]), \
+      "+r"(d[i + 6]), "+r"(d[i + 7])
+
+// d (64 x 128, s32) (+)= A (64 x 32, s8, shared) * B (32 x 128, s8, shared),
+// both K-major (8-bit wgmma cannot transpose); exact integer sums
+__device__ __forceinline__ void wgmma_m64n128k32_s8_ss(uint32_t (&d)[64], uint64_t desc_a,
+                                                       uint64_t desc_b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p;\n}\n"
+      : MVP_ACC8_S32(d, 0), MVP_ACC8_S32(d, 8), MVP_ACC8_S32(d, 16), MVP_ACC8_S32(d, 24),
+        MVP_ACC8_S32(d, 32), MVP_ACC8_S32(d, 40), MVP_ACC8_S32(d, 48), MVP_ACC8_S32(d, 56)
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+}
+
+#undef MVP_ACC8_S32
 #undef MVP_ACC8
 
 }  // namespace

@@ -1,8 +1,9 @@
 // ViT softmax attention for Hopper (sm_90a), forward only: three kernels
-// (routes) behind two entry points, and a third entry point,
-// mvp_clamp_attention, that runs the attention bench's K7 (`wide_attention`,
-// launch_script/bench_attn.py: clamped exp2 attention with no running max)
-// on the wgmma route's kernel in its clamped mode (see that route below).
+// (routes) behind two entry points, and two more entry points that run the
+// attention bench's clamped exp2 attention (launch_script/bench_attn.py: no
+// running max) on the wgmma route's kernel in its clamped mode (see that
+// route below): mvp_clamp_attention, K7 (`wide_attention`), and
+// mvp_int8_attention_wgmma, K8 (`int8_attention`, QK^T in int8).
 //
 // Replaces two of the JAX package's Pallas TPU kernels (ops/vit_attention.py):
 //   * K1 `fused_qkv_attention` (`_fused_forward` -> `_fused_kernel`), entry
@@ -680,8 +681,9 @@ __global__ void __launch_bounds__(kF32Threads, 1)
 // s = min(q'k^T, 110), p = exp2(s) with no running max and so no rescale of
 // the accumulators, l = max(sum of the f32 p, 1e-30), o = (bf16(p) v) / l;
 // q' = bf16(q * scale * log2(e)) is the q_scale pass below with scale_log2
-// unused). A persistent block walks work items of 128 query rows of one
-// (batch, head): units of G heads of one query tile (G = 1 but for K7's
+// unused), and that mode with QK^T in int8 (K8, kInt8, described above the
+// kernel). A persistent block walks work items of 128 query rows of one
+// (batch, head): units of G heads of one query tile (G = 1 but for K7's and K8's
 // width / d), the query tile fastest so that concurrent blocks share K and V
 // in L2, a unit's G heads in turn. Warpgroups 0 and 1 consume 64 query rows each;
 // warpgroup 2 is the producer, one thread of which issues every TMA load:
@@ -737,7 +739,25 @@ __device__ __forceinline__ void scale_16_bytes(uint4* p, float s) {
 // only. G: heads per unit of the walk (divides H; 1 but in the clamped mode,
 // where it is a compile-time 1 so that the exact mode's walk is a plain
 // grid-stride loop).
-template <int D, bool kClamp>
+//
+// kInt8 (with kClamp, at d = 64): K8, the clamped mode with QK^T in int8.
+// q and k arrive as the prologue's head-major int8 (B, H, N, 64) tensors:
+// tiles of 128 rows of 64 bytes (8 KB) through maps with 64-byte swizzle,
+// K-major for both operands (8-bit wgmma cannot transpose), V as in the
+// bf16 modes. S = Q K^T is wgmma m64n128k32 s8 x s8 -> s32, two k32 steps;
+// |s32| <= 64 * 127^2 < 2^22, so int_as_float(s32 + 0x4B400000) - 1.5*2^23
+// is f32(s32) exactly, on the integer and FMA pipes (I2F would share the
+// quarter-rate unit with exp2); then times c[h] (`c`, read in this mode
+// only), clamp and mask as the clamped mode, and exp2 as the MUFU computes
+// it, subnormal results flushed to 0 (ex2.approx.ftz; exp2f adds a rescale
+// around it for them: a p below 2^-126 moves an output by at most n_valid *
+// 2^-126 * max|v| / max(l, 1e-30), 1.4e-5 * max|v| at the bench's 1201).
+// The exp2s, not the tensor cores, bound K8 (one per score at 16 a clock
+// per SM against int8 QK^T at twice the bf16 rate), so the mode has its own
+// tile loop: one commit group per tile (the previous tile's PV and this
+// tile's QK^T) and the two consumer warpgroups taking turns to issue it, so
+// that one's exp2s run while the tensor cores serve the other.
+template <int D, bool kClamp, bool kInt8 = false>
 __global__ void __launch_bounds__(kWgThreads, 1)
     attention_wgmma(const __grid_constant__ CUtensorMap map_q,
                     const __grid_constant__ CUtensorMap map_k,
@@ -746,14 +766,16 @@ __global__ void __launch_bounds__(kWgThreads, 1)
                     const __grid_constant__ CUtensorMap tail_k,
                     const __grid_constant__ CUtensorMap tail_v, uint16_t* __restrict__ out,
                     Strides so, int B, int N, int H, int n_valid, int G, int tok_inner,
-                    float scale_log2, float q_scale) {
+                    float scale_log2, float q_scale, const float* __restrict__ c) {
+  static_assert(!kInt8 || (kClamp && D == 64), "the int8 mode is K8's: clamped, d = 64");
   constexpr int kTail = WgTile<D>::kTail;
-  constexpr int kTileBytes = WgTile<D>::kBytes;
+  constexpr int kTileBytes = WgTile<D>::kBytes;  // one V tile (and Q or K but in int8)
+  constexpr int kQKBytes = kInt8 ? kQRows * 64 : kTileBytes;  // one Q or K tile
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = align_1024(smem_raw);
   uint8_t* sQ = smem;                       // [2] tiles
-  uint8_t* sK = sQ + 2 * kTileBytes;        // [kKvStages] tiles
-  uint8_t* sV = sK + kKvStages * kTileBytes;  // [kKvStages] tiles
+  uint8_t* sK = sQ + 2 * kQKBytes;          // [kKvStages] tiles
+  uint8_t* sV = sK + kKvStages * kQKBytes;  // [kKvStages] tiles
   uint64_t* q_full = reinterpret_cast<uint64_t*>(sV + kKvStages * kTileBytes);
   uint64_t* q_empty = q_full + 2;
   uint64_t* k_full = q_empty + 2;
@@ -790,8 +812,8 @@ __global__ void __launch_bounds__(kWgThreads, 1)
         const int b = u / (q_tiles * (H / heads));
         for (int h = h0; h < h0 + heads; ++h) {
           mbar_wait(&q_empty[qs], qph ^ 1);
-          mbar_expect_tx(&q_full[qs], kTileBytes);
-          load_tile<D>(sQ + qs * kTileBytes, &map_q, &tail_q, &q_full[qs], qt * kQRows, h, b,
+          mbar_expect_tx(&q_full[qs], kQKBytes);
+          load_tile<D>(sQ + qs * kQKBytes, &map_q, &tail_q, &q_full[qs], qt * kQRows, h, b,
                        tok_inner & 1);
           if (++qs == 2) {
             qs = 0;
@@ -799,8 +821,8 @@ __global__ void __launch_bounds__(kWgThreads, 1)
           }
           for (int j = 0; j < kv_tiles; ++j) {
             mbar_wait(&kv_empty[st], ph ^ 1);
-            mbar_expect_tx(&k_full[st], kTileBytes);
-            load_tile<D>(sK + st * kTileBytes, &map_k, &tail_k, &k_full[st], j * kKeys, h, b,
+            mbar_expect_tx(&k_full[st], kQKBytes);
+            load_tile<D>(sK + st * kQKBytes, &map_k, &tail_k, &k_full[st], j * kKeys, h, b,
                          tok_inner & 2);
             mbar_expect_tx(&v_full[st], kTileBytes);
             load_tile<D>(sV + st * kTileBytes, &map_v, &tail_v, &v_full[st], j * kKeys, h, b,
@@ -822,16 +844,19 @@ __global__ void __launch_bounds__(kWgThreads, 1)
     const int tq = lane & 3;
     int qs = 0, st = 0;
     uint32_t qph = 0, ph = 0;
+    if (kInt8 && wg == 1) named_barrier_arrive(3, 256);  // warpgroup 0 issues first
     for (int u = blockIdx.x; u < units; u += gridDim.x) {
       const int qt = u % q_tiles;
       const int h0 = (u / q_tiles) % (H / heads) * heads;
       const int b = u / (q_tiles * (H / heads));
       for (int h = h0; h < h0 + heads; ++h) {
         // this warpgroup's 64 rows: 8 KB of the main part, 2 KB of the tail
-        uint8_t* q_rows = sQ + qs * kTileBytes + wg * (64 * 128);
-        uint8_t* q_tail = sQ + qs * kTileBytes + kMainBytes + wg * (64 * 2 * kTail);
+        // (int8: 4 KB)
+        uint8_t* q_rows = sQ + qs * kQKBytes + wg * (kInt8 ? 64 * 64 : 64 * 128);
+        uint8_t* q_tail = sQ + qs * kQKBytes + kMainBytes + wg * (64 * 2 * kTail);
+        const float c_h = kInt8 ? c[h] : 0.f;
         mbar_wait(&q_full[qs], qph);
-        if (q_scale != 1.f) {  // q <- bf16(f32(q) * q_scale), once per item
+        if (!kInt8 && q_scale != 1.f) {  // q <- bf16(f32(q) * q_scale), once per item
           uint4* p = reinterpret_cast<uint4*>(q_rows) + (tid & 127) * 4;
 #pragma unroll
           for (int i = 0; i < 4; ++i) scale_16_bytes(p + i, q_scale);
@@ -839,7 +864,8 @@ __global__ void __launch_bounds__(kWgThreads, 1)
           fence_proxy_async();
           named_barrier(1 + wg, 128);
         }
-        const uint64_t dq = smem_desc(smem_u32(q_rows), 16, 1024);
+        const uint64_t dq = kInt8 ? smem_desc<2>(smem_u32(q_rows), 16, 512)
+                                  : smem_desc(smem_u32(q_rows), 16, 1024);
         const uint64_t dq_tail = smem_desc<3>(smem_u32(q_tail), 16, 256);
 
         float o[32];       // output columns 0-63
@@ -852,104 +878,193 @@ __global__ void __launch_bounds__(kWgThreads, 1)
         float m[2] = {kClamp ? 0.f : neg_inf(), kClamp ? 0.f : neg_inf()};
         float l[2] = {0.f, 0.f};  // this thread's share of the row sums
 
-        for (int j = 0; j < kv_tiles; ++j) {
-          // S = Q K^T: 64 rows x 128 keys, k16 steps over d
-          mbar_wait(&k_full[st], ph);
-          uint8_t* k_tile = sK + st * kTileBytes;
-          const uint64_t dk = smem_desc(smem_u32(k_tile), 16, 1024);
-          float s[64];
-          wgmma_fence();
+        if constexpr (kInt8) {
+          // One commit group per tile: O += P V of the previous tile and
+          // S = Q K^T of this one, then one wait (the first tile's group has
+          // no PV, a last group no QK^T). The two consumer warpgroups take
+          // turns to issue their groups (named barriers 3 and 4: a
+          // warpgroup waits for its turn and hands the next one to the other
+          // right after its issue), so that the tensor cores run one
+          // warpgroup's products while the other computes its exp2.
+          uint32_t acc[64];   // S of the current tile, s32
+          uint32_t pa[8][4];  // P of the previous tile, the A fragments of its PV
+          int st_prev = 0;
+          uint32_t ph_prev = 0;
+          auto turn = [&]() {
+            named_barrier(3 + wg, 256);
+            fence_operands(o);
+            wgmma_fence();
+          };
+          auto issue_pv = [&]() {
+            mbar_wait(&v_full[st_prev], ph_prev);
+            const uint64_t dv = smem_desc(smem_u32(sV + st_prev * kTileBytes), 16, 1024);
 #pragma unroll
-          for (int kk = 0; kk < 4; ++kk) {
-            wgmma_m64n128k16_ss<0>(s, dq + 2 * kk, dk + 2 * kk, kk);  // +32 bytes per step
-          }
-          if (kTail) {
-            wgmma_m64n128k16_ss<0>(s, dq_tail, smem_desc<3>(smem_u32(k_tile + kMainBytes), 16, 256),
-                                   1);
-          }
-          wgmma_commit();
-          wgmma_wait<0>();
-          fence_operands(s);
-          // Q read for the last time
-          if (j == kv_tiles - 1 && lane == 0) mbar_arrive(&q_empty[qs]);
-
-          const int k0 = j * kKeys;
-          const bool ragged = k0 + kKeys > n_valid;
-          float alpha[2];
-          if constexpr (kClamp) {
-            // clamp at 110 (q' is in base 2 already), mask keys past n_valid;
-            // no running max: m stays 0 and alpha 1
+            for (int kk = 0; kk < 8; ++kk) wgmma_m64n64k16_rs<1>(o, pa[kk], dv + 128 * kk, 1);
+          };
+          auto issue_qk = [&]() {
+            mbar_wait(&k_full[st], ph);
+            const uint64_t dk = smem_desc<2>(smem_u32(sK + st * kQKBytes), 16, 512);
+            wgmma_m64n128k32_s8_ss(acc, dq, dk, 0);
+            wgmma_m64n128k32_s8_ss(acc, dq + 2, dk + 2, 1);  // +32 bytes
+          };
+          auto hand_over_and_wait = [&]() {
+            wgmma_commit();
+            named_barrier_arrive(3 + (wg ^ 1), 256);
+            wgmma_wait<0>();
+            fence_operands(o);
+            fence_operands(acc);
+          };
+          // f32(s32) * c[h], clamp at 110, mask keys past n_valid, exp2 (the
+          // MUFU's, subnormal results flushed to 0), row sums, bf16(P)
+          auto softmax = [&](int j) {
+            if (j == kv_tiles - 1 && lane == 0) mbar_arrive(&q_empty[qs]);  // Q read
+            const int k0 = j * kKeys;
+            const bool ragged = k0 + kKeys > n_valid;
+            float rs[2] = {0.f, 0.f};
 #pragma unroll
-            for (int i = 0; i < 64; ++i) {
-              const int key = k0 + 8 * (i >> 2) + 2 * tq + (i & 1);
-              const float x = s[i] > 110.f ? 110.f : s[i];  // NaN passes, as min()
-              s[i] = ragged && key >= n_valid ? neg_inf() : x;
+            for (int kk = 0; kk < 8; ++kk) {
+#pragma unroll
+              for (int e = 0; e < 4; ++e) {
+                float p[2];
+#pragma unroll
+                for (int t = 0; t < 2; ++t) {
+                  const int i = 8 * kk + 2 * e + t;
+                  const int key = k0 + 8 * (i >> 2) + 2 * tq + (i & 1);
+                  float x = (__int_as_float(static_cast<int>(acc[i]) + 0x4B400000) -
+                             12582912.f) * c_h;
+                  x = x > 110.f ? 110.f : x;  // NaN passes, as min()
+                  x = ragged && key >= n_valid ? neg_inf() : x;
+                  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(p[t]) : "f"(x));
+                }
+                rs[e & 1] += p[0] + p[1];
+                pa[kk][e] = pack_bf16(p[0], p[1]);
+              }
             }
-            alpha[0] = alpha[1] = 1.f;
-          } else {
-            // scale to base 2, mask keys past n_valid, online softmax update
-            float mx[2] = {m[0], m[1]};
-#pragma unroll
-            for (int i = 0; i < 64; ++i) {
-              const int key = k0 + 8 * (i >> 2) + 2 * tq + (i & 1);
-              const float x = ragged && key >= n_valid ? neg_inf() : s[i] * scale_log2;
-              s[i] = x;
-              mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], x);
+            l[0] += rs[0];
+            l[1] += rs[1];
+            st_prev = st;
+            ph_prev = ph;
+            if (++st == kKvStages) {
+              st = 0;
+              ph ^= 1;
             }
-#pragma unroll
-            for (int r = 0; r < 2; ++r) {
-              mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-              mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-              alpha[r] = exp2f(m[r] - mx[r]);
-              m[r] = mx[r];
-            }
+          };
+          turn();
+          issue_qk();
+          hand_over_and_wait();
+          softmax(0);
+          for (int j = 1; j < kv_tiles; ++j) {
+            turn();
+            issue_pv();
+            issue_qk();
+            hand_over_and_wait();
+            if (lane == 0) mbar_arrive(&kv_empty[st_prev]);
+            softmax(j);
           }
-          float rs[2] = {0.f, 0.f};
-          uint32_t pa[8][4];  // P in bf16 as the A fragments of eight k16 steps
+          turn();
+          issue_pv();
+          hand_over_and_wait();
+          if (lane == 0) mbar_arrive(&kv_empty[st_prev]);
+        } else {
+          for (int j = 0; j < kv_tiles; ++j) {
+            // S = Q K^T: 64 rows x 128 keys, k16 steps over d
+            mbar_wait(&k_full[st], ph);
+            uint8_t* k_tile = sK + st * kTileBytes;
+            const uint64_t dk = smem_desc(smem_u32(k_tile), 16, 1024);
+            float s[64];
+            wgmma_fence();
 #pragma unroll
-          for (int kk = 0; kk < 8; ++kk) {
-#pragma unroll
-            for (int e = 0; e < 4; ++e) {
-              const int i = 8 * kk + 2 * e;
-              const int r = e & 1;
-              const float p0 = exp2f(s[i] - m[r]);
-              const float p1 = exp2f(s[i + 1] - m[r]);
-              rs[r] += p0 + p1;
-              pa[kk][e] = pack_bf16(p0, p1);
+            for (int kk = 0; kk < 4; ++kk) {
+              wgmma_m64n128k16_ss<0>(s, dq + 2 * kk, dk + 2 * kk, kk);  // +32 bytes per step
             }
-          }
-          l[0] = l[0] * alpha[0] + rs[0];
-          l[1] = l[1] * alpha[1] + rs[1];
-          if constexpr (!kClamp) {
-#pragma unroll
-            for (int i = 0; i < 32; ++i) o[i] *= alpha[(i >> 1) & 1];
             if (kTail) {
-#pragma unroll
-              for (int i = 0; i < 8; ++i) o_tail[i] *= alpha[(i >> 1) & 1];
+              wgmma_m64n128k16_ss<0>(
+                  s, dq_tail, smem_desc<3>(smem_u32(k_tile + kMainBytes), 16, 256), 1);
             }
-          }
+            wgmma_commit();
+            wgmma_wait<0>();
+            fence_operands(s);
+            // Q read for the last time
+            if (j == kv_tiles - 1 && lane == 0) mbar_arrive(&q_empty[qs]);
 
-          // O += P V: eight k16 steps over the keys, V MN-major (transposed)
-          mbar_wait(&v_full[st], ph);
-          uint8_t* v_tile = sV + st * kTileBytes;
-          const uint64_t dv = smem_desc(smem_u32(v_tile), 16, 1024);
-          const uint64_t dv_tail = smem_desc<3>(smem_u32(v_tile + kMainBytes), 16, 256);
-          fence_operands(o);
-          if (kTail) fence_operands(o_tail);
-          wgmma_fence();
+            const int k0 = j * kKeys;
+            const bool ragged = k0 + kKeys > n_valid;
+            float alpha[2];
+            if constexpr (kClamp) {
+              // clamp at 110 (q' is in base 2 already), mask keys past n_valid;
+              // no running max: m stays 0 and alpha 1
 #pragma unroll
-          for (int kk = 0; kk < 8; ++kk) {
-            wgmma_m64n64k16_rs<1>(o, pa[kk], dv + 128 * kk, 1);  // +2048 bytes per step
-            if (kTail) wgmma_m64n16k16_rs<1>(o_tail, pa[kk], dv_tail + 32 * kk, 1);  // +512
-          }
-          wgmma_commit();
-          wgmma_wait<0>();
-          fence_operands(o);
-          if (kTail) fence_operands(o_tail);
-          if (lane == 0) mbar_arrive(&kv_empty[st]);
-          if (++st == kKvStages) {
-            st = 0;
-            ph ^= 1;
+              for (int i = 0; i < 64; ++i) {
+                const int key = k0 + 8 * (i >> 2) + 2 * tq + (i & 1);
+                const float x = s[i] > 110.f ? 110.f : s[i];  // NaN passes, as min()
+                s[i] = ragged && key >= n_valid ? neg_inf() : x;
+              }
+              alpha[0] = alpha[1] = 1.f;
+            } else {
+              // scale to base 2, mask keys past n_valid, online softmax update
+              float mx[2] = {m[0], m[1]};
+#pragma unroll
+              for (int i = 0; i < 64; ++i) {
+                const int key = k0 + 8 * (i >> 2) + 2 * tq + (i & 1);
+                const float x = ragged && key >= n_valid ? neg_inf() : s[i] * scale_log2;
+                s[i] = x;
+                mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], x);
+              }
+#pragma unroll
+              for (int r = 0; r < 2; ++r) {
+                mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+                mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+                alpha[r] = exp2f(m[r] - mx[r]);
+                m[r] = mx[r];
+              }
+            }
+            float rs[2] = {0.f, 0.f};
+            uint32_t pa[8][4];  // P in bf16 as the A fragments of eight k16 steps
+#pragma unroll
+            for (int kk = 0; kk < 8; ++kk) {
+#pragma unroll
+              for (int e = 0; e < 4; ++e) {
+                const int i = 8 * kk + 2 * e;
+                const int r = e & 1;
+                const float p0 = exp2f(s[i] - m[r]);
+                const float p1 = exp2f(s[i + 1] - m[r]);
+                rs[r] += p0 + p1;
+                pa[kk][e] = pack_bf16(p0, p1);
+              }
+            }
+            l[0] = l[0] * alpha[0] + rs[0];
+            l[1] = l[1] * alpha[1] + rs[1];
+            if constexpr (!kClamp) {
+#pragma unroll
+              for (int i = 0; i < 32; ++i) o[i] *= alpha[(i >> 1) & 1];
+              if (kTail) {
+#pragma unroll
+                for (int i = 0; i < 8; ++i) o_tail[i] *= alpha[(i >> 1) & 1];
+              }
+            }
+
+            // O += P V: eight k16 steps over the keys, V MN-major (transposed)
+            mbar_wait(&v_full[st], ph);
+            uint8_t* v_tile = sV + st * kTileBytes;
+            const uint64_t dv = smem_desc(smem_u32(v_tile), 16, 1024);
+            const uint64_t dv_tail = smem_desc<3>(smem_u32(v_tile + kMainBytes), 16, 256);
+            fence_operands(o);
+            if (kTail) fence_operands(o_tail);
+            wgmma_fence();
+#pragma unroll
+            for (int kk = 0; kk < 8; ++kk) {
+              wgmma_m64n64k16_rs<1>(o, pa[kk], dv + 128 * kk, 1);  // +2048 bytes per step
+              if (kTail) wgmma_m64n16k16_rs<1>(o_tail, pa[kk], dv_tail + 32 * kk, 1);  // +512
+            }
+            wgmma_commit();
+            wgmma_wait<0>();
+            fence_operands(o);
+            if (kTail) fence_operands(o_tail);
+            if (lane == 0) mbar_arrive(&kv_empty[st]);
+            if (++st == kKvStages) {
+              st = 0;
+              ph ^= 1;
+            }
           }
         }
 
@@ -994,6 +1109,7 @@ __global__ void __launch_bounds__(kWgThreads, 1)
         }
       }
     }
+    if (kInt8 && wg == 0) named_barrier(3, 256);  // the last hand-over of warpgroup 1
   }
 }
 
@@ -1066,6 +1182,24 @@ int encode_operand(CUtensorMap* map, CUtensorMap* tail, const void* base, Stride
                            CU_TENSOR_MAP_SWIZZLE_32B);
 }
 
+// the persistent launch of attention_wgmma over the encoded maps
+template <int D, bool kClamp, bool kInt8 = false>
+int run_wgmma(const CUtensorMap& mq, const CUtensorMap& mk, const CUtensorMap& mv,
+              const CUtensorMap& tq, const CUtensorMap& tk, const CUtensorMap& tv, void* out,
+              Strides so, int B, int N, int H, int n_valid, int G, int tok_inner, float sl2,
+              float q_scale, const float* c, cudaStream_t stream) {
+  const long long units = static_cast<long long>((N + kQRows - 1) / kQRows) * (H / G) * B;
+  const int sms = sm_count();
+  constexpr int smem = WgTile<D>::kSmem;
+  cudaFuncSetAttribute(attention_wgmma<D, kClamp, kInt8>,
+                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  attention_wgmma<D, kClamp, kInt8>
+      <<<units < sms ? static_cast<int>(units) : sms, kWgThreads, smem, stream>>>(
+          mq, mk, mv, tq, tk, tv, static_cast<uint16_t*>(out), so, B, N, H, n_valid, G,
+          tok_inner, sl2, q_scale, c);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <int D, bool kClamp = false>
 int launch_wgmma(const void* q, const void* k, const void* v, void* out, Strides sq,
                  Strides sk, Strides sv, Strides so, int B, int N, int H, int n_valid,
@@ -1078,16 +1212,21 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* out, Strides
   if (err == 0) err = encode_operand(&mk, &tk, k, sk, B, H, N, D, n_valid, &inner_k);
   if (err == 0) err = encode_operand(&mv, &tv, v, sv, B, H, N, D, n_valid, &inner_v);
   if (err != 0) return err;
-  const long long units = static_cast<long long>((N + kQRows - 1) / kQRows) * (H / G) * B;
-  const int sms = sm_count();
-  constexpr int smem = WgTile<D>::kSmem;
-  cudaFuncSetAttribute(attention_wgmma<D, kClamp>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       smem);
-  attention_wgmma<D, kClamp>
-      <<<units < sms ? static_cast<int>(units) : sms, kWgThreads, smem, stream>>>(
-          mq, mk, mv, tq, tk, tv, static_cast<uint16_t*>(out), so, B, N, H, n_valid, G,
-          int(inner_q) | (int(inner_k) << 1) | (int(inner_v) << 2), sl2, q_scale);
-  return static_cast<int>(cudaGetLastError());
+  return run_wgmma<D, kClamp>(mq, mk, mv, tq, tk, tv, out, so, B, N, H, n_valid, G,
+                              int(inner_q) | (int(inner_k) << 1) | (int(inner_v) << 2), sl2,
+                              q_scale, nullptr, stream);
+}
+
+// The 4-D tensor map of a contiguous head-major (B, H, N, 64) int8 operand
+// with `rows` tokens: dims (bytes, token, head, batch), box 128 tokens of
+// one head, 64-byte swizzle.
+int encode_int8_operand(CUtensorMap* map, const void* base, int B, int H, int N, int rows) {
+  const uint64_t dims[4] = {64, static_cast<uint64_t>(rows), static_cast<uint64_t>(H),
+                            static_cast<uint64_t>(B)};
+  const uint64_t strides[3] = {64, 64ull * N, 64ull * N * H};
+  const uint32_t box[4] = {64, 128, 1, 1};
+  return encode_tensor_map(map, base, 4, dims, strides, box, CU_TENSOR_MAP_SWIZZLE_64B,
+                           CU_TENSOR_MAP_DATA_TYPE_UINT8);
 }
 
 // the routes' codes, as reported through route_ran
@@ -1190,6 +1329,41 @@ extern "C" int mvp_vit_attention(const void* q, const void* k, const void* v, vo
   return launch(q, k, v, out, pairs, Strides{q_sb, q_sh, q_sn}, Strides{k_sb, k_sh, k_sn},
                 Strides{v_sb, v_sh, v_sn}, Strides{o_sb, o_sh, o_sn}, B, N, H, D, n_valid,
                 scale_log2_bits, q_scale_bits, is_bf16, route_ran, stream);
+}
+
+// K8 on the wgmma route (the attention bench's `int8_attention` at d = 64;
+// csrc/bench_attn.cu keeps d = 8, 16, 32 and 128 on mma_sync): the clamped
+// exp2 attention with QK^T in int8. q8, k8: contiguous (B, H, N, 64) int8
+// from bench_attn.cu's mvp_quantize_qk; qkv: contiguous (B, N, 3, H, 64)
+// bf16 (v is read from it); c: (H,) f32 on the device, scale*log2(e)*qs*ks;
+// out: contiguous (B, N, H*64) bf16. heads_per_block: width / 64 (divides
+// H), as for K7. *route_ran: 0 (wgmma), set before the launch.
+extern "C" int mvp_int8_attention_wgmma(const void* q8, const void* k8, const void* qkv,
+                                        const void* c, void* out, int B, int N, int H, int D,
+                                        int n_valid, int heads_per_block, int* route_ran,
+                                        void* stream) {
+  *route_ran = kRouteWgmma;
+  if (B <= 0 || N <= 0 || H <= 0 || n_valid <= 0 || n_valid > N || heads_per_block <= 0 ||
+      H % heads_per_block || D != 64) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const long long hd = static_cast<long long>(H) * D;
+  const Strides in{N * 3 * hd, D, 3 * hd};
+  const Strides so{N * hd, D, hd};
+  CUtensorMap mq, mk, mv, tv;
+  bool inner_v;
+  int err = encode_int8_operand(&mq, q8, B, H, N, N);
+  if (err == 0) err = encode_int8_operand(&mk, k8, B, H, N, n_valid);
+  if (err == 0) {
+    err = encode_operand(&mv, &tv, static_cast<const uint16_t*>(qkv) + 2 * hd, in, B, H, N, D,
+                         n_valid, &inner_v);
+  }
+  if (err != 0) return err;
+  // the tail maps are unread at d = 64; q8 and k8 are token-inner
+  return run_wgmma<64, true, true>(mq, mk, mv, mq, mk, tv, out, so, B, N, H, n_valid,
+                                   heads_per_block, 3 | (int(inner_v) << 2), 1.f, 1.f,
+                                   static_cast<const float*>(c),
+                                   static_cast<cudaStream_t>(stream));
 }
 
 // K7 on the wgmma route (the attention bench's `wide_attention` at d = 64

@@ -118,6 +118,43 @@ def test_int8_attention_matches_jax_kernel(j_bench, n_valid):
     _close(t_bench.int8_attention(tq, D**-0.5, n_valid), ref)
 
 
+@pytest.mark.parametrize("d", [16, 8])
+def test_wide_attention_at_small_head_dims_matches_jax_kernel(j_bench, d):
+    """Head dims that the JAX bench takes (``--hd``) and the port's card
+    route instantiates at d rounded up to 16: d = 16 and 8, 8 heads, width
+    4 * d."""
+    jq, tq = _both(_qkv(1, 128, 8, d, seed=d))
+    with F32:
+        ref = j_bench.wide_attention(jq, d**-0.5, 120, width=4 * d, interpret=True)
+    _close(t_bench.wide_attention(tq, d**-0.5, 120, width=4 * d), ref)
+
+
+def test_int8_attention_at_head_dim_16_matches_jax_kernel(j_bench):
+    """d = 16 with 8 heads at the JAX default width 128 (at d = 8 the JAX
+    function itself fails: its reshape needs H * d to be a multiple of the
+    width)."""
+    jq, tq = _both(_qkv(1, 128, 8, 16, seed=16))
+    with F32:
+        ref = j_bench.int8_attention(jq, 0.25, 120, width=128, interpret=True)
+    _close(t_bench.int8_attention(tq, 0.25, 120, width=128), ref)
+
+
+@pytest.mark.parametrize("d", [8, 16, 64])
+def test_int8_prologue_layout_on_the_cpu(d):
+    """``quantize_qk_heads`` on the CPU: ``quantize_qk``'s q8 and k8
+    head-major (B, H, N, dp), each row zero-padded to a multiple of 32
+    bytes, and its c."""
+    x = torch.from_numpy(_qkv(2, 40, 3, d, seed=d)).to(torch.bfloat16)
+    q8, k8, c = t_bench.quantize_qk_heads(x, d**-0.5, 33)
+    rq, rk, rc = t_bench.quantize_qk(x, d**-0.5, 33)
+    dp = t_bench.int8_row_bytes(d)
+    assert dp == max(32, d) and q8.shape == k8.shape == (2, 3, 40, dp)
+    assert torch.equal(q8[..., :d], rq.transpose(1, 2))
+    assert torch.equal(k8[..., :d], rk.transpose(1, 2))
+    assert not q8[..., d:].any() and not k8[..., d:].any()
+    assert torch.equal(c, rc)
+
+
 @pytest.mark.parametrize("n_valid", [200, 256])
 def test_splash_attention_matches_jax_kernel(n_valid):
     jq, tq = _both(_qkv(B, N, H, D, seed=n_valid + 1))

@@ -104,8 +104,35 @@ def test_wide_attention_route_by_head_dim(d, route):
 
 
 def test_wide_attention_route_rejects_what_neither_kernel_takes():
-    with pytest.raises(ValueError, match="head dim"):
-        ba.wide_route(16)
+    """K7 and K8 take no head dim outside their sets (d = 12 and 136 here),
+    and say which head dim they refuse, before any launch."""
+    for d in (12, 136):
+        with pytest.raises(ValueError, match=f"head dim {d}"):
+            ba.wide_route(d)
+        with pytest.raises(ValueError, match=f"head dim {d}"):
+            ba.int8_route(d)
+
+
+# d: (K7's route, K8's route or None where K8 refuses d)
+BENCH_ROUTES = {8: ("mma_sync", "mma_sync"), 16: ("mma_sync", "mma_sync"),
+                48: ("mma_sync", None), 96: ("mma_sync", None), 64: ("wgmma", "wgmma")}
+
+
+@pytest.mark.parametrize("d", list(BENCH_ROUTES))
+def test_bench_kernel_routes_by_head_dim(d):
+    """The head-dim table of the bench kernels: K7 takes every multiple of 8
+    up to 128 (wgmma at 64 and 80, else mma_sync at d rounded up to 16), K8
+    the head dims that the JAX int8 kernel takes up to 128 (wgmma at 64, 8,
+    16, 32 and 128 on mma_sync, its q8 and k8 rows padded to 32 bytes)."""
+    wide, int8 = BENCH_ROUTES[d]
+    assert ba.wide_route(d) == wide and d in ba.WIDE_HEAD_DIMS
+    if int8 is None:
+        assert d not in ba.INT8_HEAD_DIMS
+        with pytest.raises(ValueError, match=f"head dim {d}"):
+            ba.int8_route(d)
+    else:
+        assert ba.int8_route(d) == int8 and int8 in attn.ROUTES
+        assert ba.int8_row_bytes(d) == max(32, d)
 
 
 @pytest.mark.parametrize("bad", [float("nan"), float("inf"), "0.125", None])

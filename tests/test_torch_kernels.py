@@ -588,13 +588,136 @@ def test_bench_attention_kernels_reject_what_they_cannot_take(cuda):
     qkv = torch.zeros(1, 128, 3, 2, 64, device=cuda, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="dtype"):
         ba.wide_attention(qkv.float(), 0.1, 100, width=128)
-    with pytest.raises(ValueError, match="head dim"):
-        ba.int8_attention(torch.zeros(1, 128, 3, 2, 16, device=cuda, dtype=torch.bfloat16),
-                          0.1, 100, width=16)
+    for d in (12, 136):  # outside both kernels' head dims
+        odd = torch.zeros(1, 128, 3, 2, d, device=cuda, dtype=torch.bfloat16)
+        launches = (ba.int8_attention.launches, ba.quantize_qk_heads.launches,
+                    ba.wide_attention.launches)
+        with pytest.raises(ValueError, match=f"head dim {d}"):
+            ba.int8_attention(odd, 0.1, 100, width=d)
+        with pytest.raises(ValueError, match=f"head dim {d}"):
+            ba.wide_attention(odd, 0.1, 100, width=d)
+        assert launches == (ba.int8_attention.launches, ba.quantize_qk_heads.launches,
+                            ba.wide_attention.launches)
     with pytest.raises(ValueError, match="width"):
         ba.wide_attention(qkv, 0.1, 100, width=96)
     with pytest.raises(ValueError, match="n_valid"):
         ba.splash_attention(qkv, 0.1, 129)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [8, 16, 64])
+def test_int8_prologue_kernels_equal_quantize_qk_bit_for_bit(cuda, d):
+    """K8's prologue (``amax_qk`` and ``quantize_qk`` of csrc/bench_attn.cu)
+    against ``quantize_qk`` on the card: the rows past n_valid hold +-3e4
+    (the per-head scales must not see them; they quantize to +-127), head 1
+    is zero in q and k (the 1e-8 floor of the scale). q8 and k8 equal bit for
+    bit, head-major, with zero pad bytes at d = 8 and 16 (rows of 32 bytes);
+    c within two f32 ulps."""
+    from midvision_probe_torch import bench_attn as ba
+
+    qkv = _bench_qkv(2, 300, 3, d, seed=d)
+    qkv[:, 177:, :2] = 3e4
+    qkv[:, 177:, :2, :, ::2] = -3e4
+    qkv[:, :, :2, 1] = 0.0
+    before = ba.quantize_qk_heads.launches
+    with torch.no_grad():
+        q8, k8, c = ba.quantize_qk_heads(qkv, d**-0.5, 177)
+        rq, rk, rc = ba.quantize_qk(qkv, d**-0.5, 177)
+    torch.cuda.synchronize()
+    assert ba.quantize_qk_heads.launches == before + 1
+    dp = ba.int8_row_bytes(d)
+    assert q8.shape == k8.shape == (2, 3, 300, dp) and q8.dtype == torch.int8
+    assert torch.equal(q8[..., :d], rq.transpose(1, 2))
+    assert torch.equal(k8[..., :d], rk.transpose(1, 2))
+    assert not q8[..., d:].any() and not k8[..., d:].any()
+    assert (q8[:, [0, 2], 177:, :d].abs() == 127).all() and not q8[:, 1].any()
+    assert (c.view(torch.int32) - rc.view(torch.int32)).abs().max().item() <= 2
+
+
+# (B, N, n_valid, H, d, inputs): K8 at d = 64 on the wgmma route: the clamp
+# active, rows whose exponentials all underflow, n_valid = N, ragged tiles
+K8_WGMMA_CASES = [(2, 256, 200, 4, 64, "clamp"), (1, 256, 200, 2, 64, "underflow"),
+                  (2, 256, 256, 4, 64, "bench"), (2, 300, 177, 4, 64, "bench")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,N,n_valid,H,d,inputs", K8_WGMMA_CASES)
+def test_int8_attention_wgmma_route_matches_plain_version(cuda, B, N, n_valid, H, d, inputs):
+    """K8 at d = 64 on the wgmma route (the attention kernel's clamped mode
+    with an s8 QK^T), one head and two heads per block, within the bench
+    kernels' bar of ``_int8_attention_plain``; the clamp case checks that
+    scores above 110 occur, the underflow case that those rows are 0."""
+    from midvision_probe_torch import bench_attn as ba
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    qkv = _bench_qkv(B, N, H, d, seed=N + n_valid, clamp=inputs == "clamp")
+    scale = d**-0.5
+    if inputs == "underflow":
+        qkv[:, :, 1] = qkv[:, :, 1].abs()
+        qkv[:, :16, 0] = -64.0
+        scale = 8 / d
+    if inputs == "clamp":
+        assert (ba.int8_scores(qkv, scale, n_valid) > 110).any()
+    assert ba.int8_route(d) == "wgmma"
+    with torch.no_grad():
+        ref = ba._int8_attention_plain(qkv, scale, n_valid)
+        for width in (d, 2 * d):
+            before = (ba.int8_attention.launches, attn.route_launches["wgmma"])
+            got = ba.int8_attention(qkv, scale, n_valid, width=width)
+            torch.cuda.synchronize()
+            assert (ba.int8_attention.launches, attn.route_launches["wgmma"]) == (
+                before[0] + 1, before[1] + 1)
+            assert got.shape == (B, N, H * d) and torch.isfinite(got).all()
+            torch.testing.assert_close(got.float(), ref.float(), atol=_bench_tol(ref), rtol=0)
+            if inputs == "underflow":
+                assert got[:, :16].abs().max().item() == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [8, 16, 32, 128])
+def test_int8_attention_mma_sync_route_at_other_head_dims(cuda, d):
+    """K8 at d = 8, 16, 32 and 128 on csrc/bench_attn.cu's mma_sync kernel,
+    reading the prologue's rows padded to 32 bytes; ragged tiles, against
+    ``_int8_attention_plain`` within the bench kernels' bar."""
+    from midvision_probe_torch import bench_attn as ba
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    qkv = _bench_qkv(2, 300, 4, d, seed=d)
+    assert ba.int8_route(d) == "mma_sync"
+    before = (ba.int8_attention.launches, attn.route_launches["mma_sync"])
+    with torch.no_grad():
+        got = ba.int8_attention(qkv, d**-0.5, 177, width=2 * d)
+        ref = ba._int8_attention_plain(qkv, d**-0.5, 177)
+    torch.cuda.synchronize()
+    assert (ba.int8_attention.launches, attn.route_launches["mma_sync"]) == (
+        before[0] + 1, before[1] + 1)
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got.float(), ref.float(), atol=_bench_tol(ref), rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [8, 16, 48, 96])
+def test_wide_attention_mma_sync_route_at_padded_head_dims(cuda, d):
+    """K7 at head dims that its mma_sync kernel runs at d rounded up to 16
+    (columns >= d zero-filled in shared memory, never written), with the
+    projection's rows >= n_valid NaN; with and without stagger, against
+    ``_wide_attention_plain`` on the valid rows within the bench kernels'
+    bar."""
+    from midvision_probe_torch import bench_attn as ba
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    qkv = _bench_qkv(2, 300, 4, d, seed=d + 1)
+    qkv[:, 177:] = float("nan")
+    assert ba.wide_route(d) == "mma_sync"
+    with torch.no_grad():
+        ref = ba._wide_attention_plain(qkv, d**-0.5, 177)[:, :177]
+        for stagger in (False, True):
+            got = ba.wide_attention(qkv, d**-0.5, 177, width=2 * d, stagger=stagger)
+            torch.cuda.synchronize()
+            assert got.shape == (2, 300, 4 * d)
+            got = got[:, :177]
+            assert torch.isfinite(got).all()
+            torch.testing.assert_close(got.float(), ref.float(), atol=_bench_tol(ref), rtol=0)
 
 
 # ------------------------------------------------------------- K6 fused_mlp
