@@ -16,10 +16,12 @@ JSON line per phase and fails on the first failing phase:
 2. ``kernel_checks``: the fused-qkv attention kernel (K1) against its plain
    PyTorch twin at the main path's shape (B=64, N=1201, H=12, d=64) in
    bfloat16 and in float32 (TF32 off for matmuls and cuDNN), with
-   NaN-poisoned padded rows (N=1280, n_valid=1201), and at test_tiny's
-   shape; each with its error, its tolerance and, at the main shape, the
-   kernel's, the twin's and ``F.scaled_dot_product_attention``'s times
-   (the last as a yardstick only; the port never calls it).
+   NaN-poisoned padded rows (N=1280, n_valid=1201), at the surface-normal
+   path's launch (B=8, N=901: NYU's 480x480 center crop) and at test_tiny's
+   shape; each with its error, its tolerance and, at the main shape and
+   the surface-normal one, the kernel's, the twin's and
+   ``F.scaled_dot_product_attention``'s times (the last as a yardstick
+   only; the port never calls it).
 3. ``knn2_checks``: the exact 2-NN kernel (K4) against its plain twin
    (f32, TF32 off) at the ScanNet path's launch (B=4, N=M=19200, d=768),
    the NAVI path's (B=4, N=M=16384, d=768) with 30% of the targets
@@ -81,6 +83,17 @@ JSON line per phase and fails on the first failing phase:
 9. ``path_depth_radio``: the depth trainer as ``path`` on full-width
    RADIO-v2 (ViT-H/16, 32 blocks, head dim 80): K2 32 per backbone forward,
    K1 none.
+9a. ``path_snorm_nyu``: the surface-normal trainer
+   (``midvision_probe_torch.train_snorm``) through its ``entry`` as the
+   paper runs it, ``backbone=dino_b16 dataset=nyu probe=snorm_dpt`` (center
+   crop, augmentation and the uncertainty-aware head as the configs have
+   them), on a fabricated NYU tree (16 GeoNet train frames, 8 test frames,
+   480x640) with DINO ViT-B/16's weights loaded in bf16 from a full-size
+   fabricated ``dino_vitb16.pth`` under a temporary
+   ``$MVP_CHECKPOINT_DIR``: the build time with the file (the load) and
+   without it (random init), the loaded tensors against the file's, no
+   random init with the file, the losses, the CSV row, K1 12 per backbone
+   forward on wgmma, wall time and peak memory.
 10. ``forward``: the frozen forward in images per second per card (CUDA
    events), peak memory and a profiler breakdown by kernel, with the launch
    counts per forward: dino_vitb16 (the bench protocol: 480x640, batch 64,
@@ -252,6 +265,8 @@ def phase_kernel_checks(torch):
         ("main_bf16", 64, 1201, 12, 64, None, torch.bfloat16, True),
         ("main_fp32", 64, 1201, 12, 64, None, torch.float32, True),
         ("main_bf16_nan_padded", 64, 1280, 12, 64, 1201, torch.bfloat16, False),
+        # path_snorm_nyu's launch: NYU's 480x480 center crop, N = 30*30 + 1
+        ("nyu_snorm_bf16", 8, 901, 12, 64, None, torch.bfloat16, True),
         ("test_tiny_bf16", 8, 65, 2, 16, None, torch.bfloat16, False),
         ("test_tiny_fp32", 8, 65, 2, 16, None, torch.float32, False),
     ]
@@ -1112,6 +1127,180 @@ def phase_path(torch, phase, backbone, per_forward):
     return counts
 
 
+# the NYU tree of path_snorm_nyu: GeoNet-layout train frames and test-layout
+# frames at NYU's 480x640
+SNORM_TRAIN_FRAMES, SNORM_TEST_FRAMES = 16, 8
+
+
+def make_nyu_tree(root: str, stems, seed: int) -> None:
+    """One frame per stem in the reference's NYU layout: a uint8 RGB PNG,
+    float32 depth in 0-12 m (some past the reader's 10 m), channel-first
+    float32 normals (5% all-zero, invalid) and an npz ``panoptic_map`` with
+    ids from STUFF, THINGS and neither."""
+    import numpy as np
+    from PIL import Image
+
+    from midvision_probe_torch.utils.metrics import STUFF, THINGS
+
+    rng = np.random.RandomState(seed)
+    ids = np.array(STUFF[:6] + THINGS[:6] + (11, 40), np.int64)
+    for sub in ("images", "depths", "normals", "segmentations"):
+        os.makedirs(os.path.join(root, sub), exist_ok=True)
+    for stem in stems:
+        img = rng.randint(0, 256, (480, 640, 3), dtype=np.uint8)
+        Image.fromarray(img).save(os.path.join(root, "images", f"{stem}_image.png"))
+        np.save(os.path.join(root, "depths", f"{stem}_depth.npy"),
+                rng.rand(480, 640).astype(np.float32) * 12)
+        snorm = rng.randn(3, 480, 640).astype(np.float32)
+        snorm[:, rng.rand(480, 640) < 0.05] = 0.0
+        np.save(os.path.join(root, "normals", f"{stem}_norm.npy"), snorm)
+        np.savez(os.path.join(root, "segmentations", f"{stem}_image.npz"),
+                 panoptic_map=ids[rng.randint(0, len(ids), (480, 640))])
+
+
+def dino_vitb16_container(torch, seed: int = 10) -> dict:
+    """A full-size raw DINO ViT-B/16 state dict in timm/DINO naming, as
+    ``dino_vitb16.pth`` holds it (85,798,656 float32 parameters, the final
+    ``norm`` included): every tensor N(0, 0.02) from a seeded generator,
+    LayerNorm weights 1."""
+    gen = torch.Generator().manual_seed(seed)
+
+    def normal(*shape):
+        return torch.randn(*shape, generator=gen) * 0.02
+
+    C, F = 768, 3072
+    sd = {"cls_token": normal(1, 1, C), "pos_embed": normal(1, 197, C),
+          "patch_embed.proj.weight": normal(C, 3, 16, 16),
+          "patch_embed.proj.bias": normal(C)}
+    shapes = {"attn.qkv": (3 * C, C), "attn.proj": (C, C), "mlp.fc1": (F, C),
+              "mlp.fc2": (C, F)}
+    for i in range(12):
+        for norm in ("norm1", "norm2"):
+            sd[f"blocks.{i}.{norm}.weight"] = torch.ones(C)
+            sd[f"blocks.{i}.{norm}.bias"] = normal(C)
+        for name, shape in shapes.items():
+            sd[f"blocks.{i}.{name}.weight"] = normal(*shape)
+            sd[f"blocks.{i}.{name}.bias"] = normal(shape[0])
+    sd["norm.weight"], sd["norm.bias"] = torch.ones(C), normal(C)
+    return sd
+
+
+def phase_path_snorm_nyu(torch, smi: str):
+    """The surface-normal trainer (``midvision_probe_torch.train_snorm``)
+    through its ``entry`` as the paper runs it: ``dataset=nyu`` (center
+    crop and augmentation on, as the config has them) on a fabricated tree
+    of 16 GeoNet train frames and 8 test frames, ``probe=snorm_dpt``
+    (uncertainty-aware DPT), ``backbone=dino_b16`` in bf16 with its weights
+    loaded from a full-size fabricated ``dino_vitb16.pth`` under a temporary
+    ``$MVP_CHECKPOINT_DIR`` (restored afterwards, so the other phases keep
+    their random init). First the zoo builds the backbone without the file
+    (random init) and with it (the load; every loaded tensor must equal the
+    container's cast to bf16, and ``random_init`` must not run); then the
+    trainer: finite losses, one ``snorm_results_NYUv2_final.csv``, d1 <= d2
+    <= d3 in [0, 1], rmse in [0, 180] degrees, K1 12 per backbone forward on
+    the wgmma route, wall time and peak memory. Returns the launch counts."""
+    from midvision_probe_torch import train_snorm
+    from midvision_probe_torch.models import zoo
+
+    root = tempfile.mkdtemp(prefix="mvp_chip_smoke_nyu_")
+    saved_dir = os.environ.get("MVP_CHECKPOINT_DIR")
+    random_inits = []
+    random_init = zoo.random_init
+
+    def counted_random_init(module, seed=0):
+        random_inits.append(seed)
+        return random_init(module, seed)
+
+    zoo.random_init = counted_random_init
+    try:
+        t0 = time.perf_counter()
+        make_nyu_tree(os.path.join(root, "train"),
+                      [f"scene_{i:04d}_{i * 7}" for i in range(SNORM_TRAIN_FRAMES)], seed=20)
+        make_nyu_tree(os.path.join(root, "test"),
+                      [f"nyuv2_test_{i}" for i in range(SNORM_TEST_FRAMES)], seed=21)
+        tree_s = time.perf_counter() - t0
+        ckpt_dir = os.path.join(root, "checkpoints")
+        os.makedirs(ckpt_dir)
+        container = dino_vitb16_container(torch)
+        path = os.path.join(ckpt_dir, zoo.ZOO["dino_vitb16"].filename)
+        torch.save(container, path)
+        n_params = sum(t.numel() for t in container.values())
+
+        def build():
+            t0 = time.perf_counter()
+            ext = zoo.build_vit_extractor("dino_vitb16", return_multilayer=True,
+                                          dtype="bfloat16", device="cuda")
+            torch.cuda.synchronize()
+            return ext, time.perf_counter() - t0
+
+        os.environ["MVP_CHECKPOINT_DIR"] = os.path.join(root, "empty")
+        ext, random_init_s = build()
+        inits_without_file = len(random_inits)
+        del ext
+        os.environ["MVP_CHECKPOINT_DIR"] = ckpt_dir
+        ext, load_s = build()
+        loaded = ext.module.state_dict()
+        mismatched = [k for k, v in loaded.items()
+                      if not torch.equal(v.cpu(), container[k].to(torch.bfloat16))]
+        not_loaded = sorted(set(container) - set(loaded))
+        del ext, loaded
+        torch.cuda.empty_cache()
+
+        out_dir = os.path.join(root, "out")
+        argv = ["backbone=dino_b16", "dataset=nyu",
+                f"dataset.train_path={os.path.join(root, 'train')}",
+                f"dataset.test_path={os.path.join(root, 'test')}", "probe=snorm_dpt",
+                "batch_size=8", "optimizer=one_epoch", "+system.backbone_dtype=bfloat16",
+                "+render_images=False", f"output_dir={out_dir}"]
+        inits_before_run = len(random_inits)
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.perf_counter()
+        row = train_snorm.entry(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+        csvs = [f for f in os.listdir(out_dir) if f.endswith(".csv")]
+        inits_in_run = len(random_inits) - inits_before_run
+    finally:
+        zoo.random_init = random_init
+        if saved_dir is None:
+            os.environ.pop("MVP_CHECKPOINT_DIR", None)
+        else:
+            os.environ["MVP_CHECKPOINT_DIR"] = saved_dir
+        shutil.rmtree(root, ignore_errors=True)
+    losses = row.pop("train_losses")
+    res = {"phase": "path_snorm_nyu", "argv": [a for a in argv if root not in a],
+           "frames": {"train": SNORM_TRAIN_FRAMES, "test": SNORM_TEST_FRAMES},
+           "tree_s": tree_s, "container_params": n_params,
+           "random_init_build_s": random_init_s, "checkpoint_load_build_s": load_s,
+           "container_keys_not_loaded": not_loaded, "mismatched_tensors": mismatched,
+           "random_init_calls": {"without_file": inits_without_file,
+                                 "with_file": inits_before_run - inits_without_file,
+                                 "in_run": inits_in_run},
+           "train_losses": losses, "csv_files": csvs, "csv_row": row, "launches": counts,
+           "backbone_forwards": counts["forwards"], "wall_s": wall,
+           "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+           "nvidia_smi": smi, "gpu_state": gpu_state()}
+    emit(res)
+    checks = {
+        "weights_loaded": not mismatched,
+        # DINO's taps are raw block outputs: its final norm is not part of
+        # the probing trunk, and the converter drops it as the JAX one does
+        "only_final_norm_dropped": not_loaded == ["norm.bias", "norm.weight"],
+        "random_init_only_without_file": res["random_init_calls"] == {
+            "without_file": 1, "with_file": 0, "in_run": 0},
+        "losses_finite": bool(losses) and all(math.isfinite(x) for x in losses),
+        "csv_written": csvs == ["snorm_results_NYUv2_final.csv"],
+        "recalls_ordered": 0.0 <= row["d1"] <= row["d2"] <= row["d3"] <= 1.0,
+        "rmse_in_degrees": 0.0 <= row["rmse"] <= 180.0,
+        "attention_per_forward": per_forward_ok(counts, DINO_PER_FORWARD),
+    }
+    if not all(checks.values()):
+        raise SystemExit(f"path_snorm_nyu check failed: {checks}")
+    return counts
+
+
 def phase_forward(torch, smi: str, model, batch, hw, dtype, per_forward, grid, width,
                   iters=10):
     """The frozen forward of ``model`` (4 taps) on a batch made on the card:
@@ -1234,6 +1423,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     by_path["path_depth_radio"] = phase_path(torch, "path_depth_radio", "radio",
                                              RADIO_PER_FORWARD)
+    torch.cuda.empty_cache()
+    by_path["path_snorm_nyu"] = phase_path_snorm_nyu(torch, smi)
     torch.cuda.empty_cache()
 
     bf16 = torch.bfloat16

@@ -333,6 +333,30 @@ class DepthHead(nn.Module):
         return _nhwc(depth)
 
 
+class SurfaceNormalHead(nn.Module):
+    """``probes.py:86-116``: the decoder's raw output, (B, H, W, 3), or
+    (B, H, W, 4) with ``uncertainty_aware`` (the fourth channel is the
+    kappa logit of ``angular_loss``). ``dtype`` as in ``DepthHead``."""
+
+    def __init__(self, feat_dim: Any, head_type: str = "multiscale",
+                 uncertainty_aware: bool = False, hidden_dim: int = 512,
+                 kernel_size: int = 1, dtype=None):
+        super().__init__()
+        self.head_type, self.kernel_size = head_type, kernel_size
+        self.uncertainty_aware = uncertainty_aware
+        self.dtype = dtype
+        self.decoder = make_decoder(head_type, feat_dim, 4 if uncertainty_aware else 3,
+                                    hidden_dim, kernel_size)
+
+    @property
+    def name_tag(self) -> str:
+        name = f"snorm_{self.head_type}_k{self.kernel_size}"
+        return f"{name}_UA" if self.uncertainty_aware else name
+
+    def forward(self, feats):
+        return self.decoder(feats)
+
+
 def _lecun_normal_(t: torch.Tensor, generator: torch.Generator) -> None:
     fan_in = t[0].numel()
     std = math.sqrt(1.0 / fan_in) / 0.87962566103423978

@@ -1,5 +1,5 @@
-"""Depth losses (counterpart of the JAX package's ``utils/losses.py``) on
-NHWC tensors.
+"""Depth and surface-normal losses (counterpart of the JAX package's
+``utils/losses.py``) on NHWC tensors.
 
 Validity is handled with masks (sums over valid pixels) rather than boolean
 indexing, as in the JAX package. Kept from there:
@@ -14,7 +14,24 @@ indexing, as in the JAX package. Kept from there:
 
 from __future__ import annotations
 
+import math
+
 import torch
+import torch.nn.functional as F
+
+
+def _masked_mean(x, mask):
+    """Mean of ``x`` over the pixels where ``mask`` is 1 (no fewer than one
+    in the denominator)."""
+    return (x * mask).sum() / mask.sum().clamp_min(1.0)
+
+
+def _cosine_similarity(a, b, dim=-1, eps=1e-8):
+    """``torch.cosine_similarity`` as the JAX package writes it: each norm
+    clamped to ``eps`` on its own."""
+    na = torch.linalg.vector_norm(a, dim=dim)
+    nb = torch.linalg.vector_norm(b, dim=dim)
+    return (a * b).sum(dim) / (na.clamp_min(eps) * nb.clamp_min(eps))
 
 
 def sig_loss(depth_pr, depth_gt, sigma=0.85, eps=0.001):
@@ -56,3 +73,26 @@ def depth_loss(pred, target, weight_sig=10.0, weight_grad=0.5, max_depth=10.0):
     target = torch.where(target > max_depth, torch.zeros_like(target), target)
     return (weight_sig * sig_loss(pred, target)
             + weight_grad * gradient_loss(pred, target))
+
+
+def angular_loss(snorm_pr, snorm_gt, mask, uncertainty_aware=False, eps=1e-4):
+    """Bae et al. angular loss, with the kappa NLL when
+    ``uncertainty_aware`` (``losses.py:157-182``): the cosine is clipped to
+    ``±(1 - eps)`` before ``arccos`` (a clipped pixel has zero gradient);
+    kappa is ``elu(x) + 1.01`` of the fourth channel.
+
+    snorm_pr: (B, H, W, 3|4); snorm_gt: (B, H, W, 3); mask: (B, H, W, 1)."""
+    m = mask[..., 0].float()
+    ang = torch.arccos(torch.clamp(_cosine_similarity(snorm_pr[..., :3], snorm_gt),
+                                   -1 + eps, 1 - eps))
+    if uncertainty_aware:
+        kappa = F.elu(snorm_pr[..., 3]) + 1.01
+        kappa_reg = torch.log1p(torch.exp(-kappa * math.pi)) - torch.log(kappa**2 + 1)
+        ang = kappa_reg + kappa * ang
+    return _masked_mean(ang, m)
+
+
+def snorm_l1_loss(snorm_pr, snorm_gt, mask):
+    """Masked mean over pixels of the channel-mean L1 (``losses.py:185-200``)."""
+    m = mask[..., 0].float()
+    return _masked_mean((snorm_pr[..., :3] - snorm_gt).abs().mean(dim=-1), m)

@@ -1,13 +1,18 @@
-"""Depth evaluation metrics (counterpart of the JAX package's
-``utils/metrics.py``, depth subset) on torch tensors, plus the binned
-recall of the correspondence evaluations (numpy).
+"""Depth and surface-normal evaluation metrics (counterpart of the JAX
+package's ``utils/metrics.py``, its depth and normal subset) on torch
+tensors, plus the binned recall of the correspondence evaluations (numpy).
 
-Depth maps are (B, H, W) or (B, H, W, 1); segmentation maps (B, H, W) int
-panoptic ids (OneFormer ADE20k-150). Per-image metrics come back as (B,)
-tensors.
+Depth maps are (B, H, W) or (B, H, W, 1); normals (B, H, W, 3[+1]);
+segmentation maps (B, H, W) int panoptic ids (OneFormer ADE20k-150).
+Per-image metrics come back as (B,) tensors. The normal metrics keep the
+reference's quirks, as the JAX package does: per-level thresholds are
+taken on the masked error map, and the stuff/things ``rmse`` is
+``sqrt(sum)/pixels``, not ``sqrt(mean)``.
 """
 
 from __future__ import annotations
+
+import math
 
 import numpy as np
 import torch
@@ -168,6 +173,92 @@ def segment_metrics_depth(depth_pr, depth_gt, segmentation_map,
                 "segment_id": int(segment_id),
                 "image_idx": b,
                 "area": float(safe[b]),
+                "d1_ratio": float(d1[b]),
+            })
+    return out
+
+
+def _snorm_err_deg(snorm_pr, snorm_gt):
+    """Per-pixel angle in degrees between the first three channels of the
+    prediction and the target (norm product clamped to 1e-8)."""
+    pr = snorm_pr[..., :3]
+    dot = (pr * snorm_gt).sum(dim=-1)
+    norm = torch.linalg.vector_norm(pr, dim=-1) * torch.linalg.vector_norm(snorm_gt, dim=-1)
+    cos = torch.clamp(dot / norm.clamp_min(1e-8), -1.0, 1.0)
+    return torch.arccos(cos) * 180.0 / math.pi
+
+
+def _angular_threshold_metrics(err_deg, mask, thresh):
+    """Share of masked pixels under each threshold (``d1``...) and the
+    masked rmse of the error; dict of (B,)."""
+    num = mask.sum(dim=(1, 2)).clamp_min(1)
+    out = {}
+    for i, t in enumerate(thresh):
+        out[f"d{i + 1}"] = ((err_deg < t).float() * mask).sum(dim=(1, 2)) / num
+    out["rmse"] = torch.sqrt((err_deg**2 * mask).sum(dim=(1, 2)) / num)
+    return out
+
+
+def evaluate_surface_norm(snorm_pr, snorm_gt, segmentation_map=None,
+                          image_average=False, num_levels=5,
+                          thresh=(11.25, 22.5, 30.0), is_navi=False):
+    """Angular-error metrics + level + stuff/things splits
+    (``metrics.py:397-537``); valid pixels are those with non-zero target
+    normals. Returns ``(global_metrics, metrics_by_level)`` dicts of (B,)
+    tensors (scalars if ``image_average``)."""
+    valid = (snorm_gt.abs().sum(dim=-1) > 0).float()
+    err_deg = _snorm_err_deg(snorm_pr, snorm_gt) * valid
+    g = _angular_threshold_metrics(err_deg, valid, thresh)
+
+    # the reference compares the masked error map err_deg * m per level
+    by_level = {f"level_{i + 1}": _angular_threshold_metrics(err_deg * m, m, thresh)
+                for i, m in enumerate(_level_masks(valid, num_levels))}
+
+    if not is_navi and segmentation_map is not None:
+        seg = segmentation_map
+        for nm, ids in (("stuff", STUFF), ("things", THINGS)):
+            m = torch.isin(seg, torch.tensor(ids, device=seg.device)).float() * valid
+            part = _angular_threshold_metrics(err_deg, m, thresh)
+            part["pixels"] = m.sum(dim=(1, 2)).clamp_min(1)
+            # reference quirk: sqrt(sum)/pixels (metrics.py:508,520-522)
+            part["rmse"] = torch.sqrt((err_deg**2 * m).sum(dim=(1, 2))) / part["pixels"]
+            g.update({f"{nm}_{k}": v for k, v in part.items()})
+
+    if image_average:
+        g = {k: v.mean() for k, v in g.items()}
+        by_level = {lk: {k: v.mean() for k, v in lv.items()}
+                    for lk, lv in by_level.items()}
+    return g, by_level
+
+
+def evaluate_surface_norm_navi(snorm_pr, snorm_gt, valid, image_average=False):
+    """NAVI variant with an explicit valid mask (``metrics.py:361-394``)."""
+    m = valid[..., 0].float() if valid.ndim == 4 else valid.float()
+    out = _angular_threshold_metrics(_snorm_err_deg(snorm_pr, snorm_gt) * m, m,
+                                     (11.25, 22.5, 30.0))
+    if image_average:
+        out = {k: v.mean() for k, v in out.items()}
+    return out
+
+
+def segment_metrics_snorm(snorm_pr, snorm_gt, segmentation_map, thresh0=11.25):
+    """Per-segment normal d1 vs area (``metrics.py:539-562``); host-side
+    numpy (inputs numpy or tensors)."""
+    snorm_pr = torch.as_tensor(np.asarray(snorm_pr))
+    snorm_gt = np.asarray(snorm_gt)
+    err = _snorm_err_deg(snorm_pr, torch.as_tensor(snorm_gt)).numpy()
+    valid = (np.abs(snorm_gt).sum(axis=-1) > 0).astype(np.float32)
+    seg = np.asarray(segmentation_map)
+    out = []
+    for segment_id in np.unique(seg):
+        m = (seg == segment_id).astype(np.float32) * valid
+        area = np.clip(m.sum(axis=(1, 2)), 1, None)
+        d1 = ((err < thresh0).astype(np.float32) * m).sum(axis=(1, 2)) / area
+        for b in range(err.shape[0]):
+            out.append({
+                "segment_id": int(segment_id),
+                "image_idx": b,
+                "area": float(area[b]),
                 "d1_ratio": float(d1[b]),
             })
     return out

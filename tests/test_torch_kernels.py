@@ -57,6 +57,26 @@ def test_fused_qkv_attention_kernel_matches_plain_twin(cuda, dtype, tol,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol,route", [(torch.bfloat16, 1.6e-2, "wgmma"),
+                                             (torch.float32, 1e-5, "tf32x3")])
+def test_fused_qkv_attention_at_the_nyu_center_crop(cuda, dtype, tol, route):
+    """DINO ViT-B/16 on NYU's 480x480 center crop, the surface-normal
+    trainer's launch: B=8, N = 30*30 + 1 = 901 tokens (no multiple of the
+    kernel's tiles), H=12, d=64, on the route its dtype takes."""
+    x = np.random.RandomState(1).randn(8, 901, 3, 12, 64).astype(np.float32)
+    qkv = torch.from_numpy(x).to(cuda, dtype)
+    routes = dict(attn.route_launches)
+    with torch.no_grad():
+        got = attn.fused_qkv_attention(qkv, 64**-0.5)
+        ref = attn._fused_qkv_attention_plain(qkv, 64**-0.5)
+    torch.cuda.synchronize()
+    assert {r: n - routes[r] for r, n in attn.route_launches.items() if n != routes[r]} == {
+        route: 1}
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got.float(), ref.float(), atol=tol, rtol=0)
+
+
+@pytest.mark.cuda
 def test_fused_qkv_attention_kernel_rejects_what_it_cannot_take(cuda):
     with pytest.raises(ValueError, match="head dim"):
         attn.fused_qkv_attention(torch.zeros(1, 8, 3, 2, 48, device=cuda), 0.1)
