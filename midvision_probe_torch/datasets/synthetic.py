@@ -1,10 +1,11 @@
 """Synthetic datasets (copy of the JAX package's ``datasets/synthetic.py``):
 the NYU-shaped depth items and the NAVI- and ScanNet-shaped pair items of
-the geometric correspondence evaluations.
+the geometric correspondence evaluations, the VOC-shaped objectness items
+and the NIGHTS-shaped 2AFC triplets.
 
 Items are a pure function of ``(seed, index)`` and byte-identical to the
 JAX package's for the same seed: the generators below are the same numpy
-code. The VOC- and 2AFC-shaped sets are not ported yet.
+code.
 """
 
 from __future__ import annotations
@@ -98,6 +99,51 @@ def Synthetic(split="train", num_instances=16, image_size=(64, 64), **kw):
         kw.pop(k, None)
     seed = 0 if "train" in split else 1
     return SyntheticDepth(num_instances, image_size, seed=seed, **kw)
+
+
+def SyntheticVOC(split="trainval", num_instances=16, image_size=(64, 64), **kw):
+    """Config-facing factory for the VOC-shaped synthetic set."""
+    for k in ("trainval_path", "test_path", "trainval_jpeg_dir",
+              "test_jpeg_dir", "trainval_xml_dir", "test_xml_dir",
+              "image_mean", "fixed_size", "name"):
+        kw.pop(k, None)
+    seed = 0 if "train" in split else 1
+    return SyntheticBinaryMask(num_instances, image_size, seed=seed, **kw)
+
+
+class SyntheticBinaryMask:
+    """VOC-shaped items: image + binary object mask (for BinaryHead)."""
+
+    name = "synthetic_voc"
+
+    def __init__(self, num_instances=16, image_size=(64, 64), seed=0, **_):
+        self.num_instances = num_instances
+        self.image_size = tuple(image_size)
+        self.seed = seed
+
+    def __len__(self):
+        return self.num_instances
+
+    def __getitem__(self, index):
+        h, w = self.image_size
+        rng = np.random.RandomState(self.seed * 7919 + index)
+        cy, cx = rng.randint(h // 4, 3 * h // 4), rng.randint(w // 4, 3 * w // 4)
+        ry, rx = rng.randint(h // 8, h // 4), rng.randint(w // 8, w // 4)
+        yy, xx = np.mgrid[0:h, 0:w]
+        mask = (((yy - cy) / ry) ** 2 + ((xx - cx) / rx) ** 2 < 1).astype(
+            np.float32
+        )
+        image = np.stack([mask, 1 - mask, mask * 0.5], axis=-1).astype(np.float32)
+        image += rng.randn(h, w, 3).astype(np.float32) * 0.05
+        return {
+            "image": image,
+            # un-normalized [0,1] copy, like voc.py:79 — MaskCut consumes
+            # raw_image and the driver deliberately swallows per-image
+            # errors, so a missing key silently zeroes the whole eval
+            "raw_image": np.clip(image, 0.0, 1.0),
+            "mask": mask[..., None],
+            "num_objects": np.int32(1),
+        }
 
 
 class SyntheticNAVIPairs:
@@ -390,4 +436,95 @@ class SyntheticScanNetPairs:
             "depth_0": depth_0, "depth_1": depth_1,
             "Rt_0": np.eye(4, dtype=np.float32), "Rt_1": Rt_01,
             "K": K,
+        }
+
+
+def _smooth01(rng, h: int, w: int) -> "np.ndarray":
+    """Smooth random RGB texture in [0, 1] (bilinear upsample of a coarse
+    randn field — the same construction the geometric sets use)."""
+    base = rng.randn(h // 8 + 2, w // 8 + 2, 3)
+    ys = np.linspace(0, base.shape[0] - 1.001, h)
+    xs = np.linspace(0, base.shape[1] - 1.001, w)
+    yi, xi = np.floor(ys).astype(int), np.floor(xs).astype(int)
+    fy = (ys - yi)[:, None, None]
+    fx = (xs - xi)[None, :, None]
+    t = (base[yi][:, xi] * (1 - fy) * (1 - fx)
+         + base[yi + 1][:, xi] * fy * (1 - fx)
+         + base[yi][:, xi + 1] * (1 - fy) * fx
+         + base[yi + 1][:, xi + 1] * fy * fx)
+    return np.clip(0.5 + 0.25 * t, 0.0, 1.0).astype(np.float32)
+
+
+class SyntheticTwoAFC:
+    """NIGHTS-triplet-shaped items (layout of ``twoafcdataset.py:22-44``):
+    ``img_ref`` plus a near-duplicate and an unrelated distractor, with
+    ``p`` encoding which side is near (0 = left). Any feature space that
+    preserves locality picks the near-duplicate, so 2AFC accuracy ~1 is
+    the correct result even for a random-init backbone.
+
+    ``hard=True`` (``synthetic_twoafc_hard``; the easy
+    set saturates at accuracy 1.0 for every backbone): the 2AFC protocol
+    scores a GLOBAL embedding (ViT cls / CNN global-average pool,
+    reference ``evaluate_model_percepture.py:105-131``), so hardness must
+    live on the content-vs-statistics axis that embedding actually sees.
+    The "near" side is a CONTENT-PRESERVING photometric change (per-channel
+    gain/bias jitter of strength ``photometric`` — same texture, slightly
+    shifted global color statistics), while the "far" side is a
+    CONTENT-CHANGING blend toward an independent texture at an
+    index-stratified weight from ``margin_range``. The two sides' global-
+    statistics distances overlap (calibrated: the near-stats-only
+    ``test_tiny`` cls embedding lands at 0.39, content-pooled numpy
+    features near 1.0 — tests/test_synthetic_hard), so accuracy spreads
+    with how much texture/content a backbone's global embedding encodes
+    instead of pinning at 1.0, and an embedding regression collapses it
+    toward the floor."""
+
+    name = "synthetic-2afc"
+
+    def __init__(self, num_instances=16, image_size=(64, 64), seed=3,
+                 split="test", hard=False, photometric=0.02,
+                 margin_range=(0.1, 0.5), **_):
+        self.num_instances = num_instances
+        self.image_size = tuple(image_size)
+        self.seed = seed
+        self.hard = hard
+        self.photometric = photometric
+        self.margin_range = tuple(margin_range)
+
+    def __len__(self):
+        return self.num_instances
+
+    def __getitem__(self, index):
+        h, w = self.image_size
+        rng = np.random.RandomState(self.seed * 32452843 + index)
+        if self.hard:
+            ref = _smooth01(rng, h, w)
+            db = _smooth01(rng, h, w)
+            lo, hi = self.margin_range
+            strata = max(1, (self.num_instances + 1) // 2 - 1)
+            a_far = lo + (hi - lo) * ((index // 2) % (strata + 1)) / strata
+            # near: same content, shifted global statistics
+            gain = 1.0 + self.photometric * (2 * rng.rand(3) - 1)
+            bias = 0.5 * self.photometric * (2 * rng.rand(3) - 1)
+            near = np.clip(ref * gain + bias
+                           + rng.randn(h, w, 3) * 0.02, 0, 1
+                           ).astype(np.float32)
+            # far: different content (plain blend — the natural residual
+            # mean difference keeps global statistics roughly
+            # uninformative rather than anti-informative)
+            far = np.clip((1 - a_far) * ref + a_far * db
+                          + rng.randn(h, w, 3) * 0.02, 0, 1
+                          ).astype(np.float32)
+        else:
+            ref = rng.rand(h, w, 3).astype(np.float32)
+            near = np.clip(ref + rng.randn(h, w, 3).astype(np.float32)
+                           * 0.02, 0, 1)
+            far = rng.rand(h, w, 3).astype(np.float32)
+        left_is_near = index % 2 == 0
+        return {
+            "id": np.int64(index),
+            "p": np.float32(0.0 if left_is_near else 1.0),
+            "img_ref": ref,
+            "img_left": near if left_is_near else far,
+            "img_right": far if left_is_near else near,
         }

@@ -86,10 +86,21 @@ def make_trainer(cfg: Config, backbone, probe, loss_fn, steps_per_epoch: int):
     )
 
 
+def init_from_loader(trainer: ProbeTrainer, loader) -> None:
+    """Draw the init batch from ``loader`` as the JAX drivers do
+    (``trainer.init(next(iter(loader)))``), then init the trainer (its
+    shapes come from the backbone's feature spec, so the batch goes
+    unused). The draw matters for a reader whose items advance a
+    RandomState (NYU's augmentation): the abandoned iterator's producer
+    has read 2-4 batches by the time it stops, as the JAX loader's has."""
+    next(iter(loader))
+    trainer.init()
+
+
 def fit(cfg: Config, trainer: ProbeTrainer, train_loader, logger, wandb,
         exp_dir: str, resume: bool = True):
     """Epoch loop with per-epoch checkpoints and exact resume."""
-    trainer.init()
+    init_from_loader(trainer, train_loader)
     ckpt_dir = os.path.join(exp_dir, "ckpt")
     start_ep = 0
     if resume:
@@ -143,4 +154,4 @@ def append_correspondence_csv(cfg: Config, file_name: str, backbone,
 
 __all__ = ["append_correspondence_csv", "build_backbone", "build_dense_backbone",
            "build_loader", "config_device", "emit_csv", "experiment_name", "fit",
-           "make_trainer", "probe_dtype_kwargs", "setup_experiment"]
+           "init_from_loader", "make_trainer", "probe_dtype_kwargs", "setup_experiment"]

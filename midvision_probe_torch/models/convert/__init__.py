@@ -11,11 +11,13 @@ into the port whether they come from JAX or from a file.
 * ``convert_vit_timm`` — timm/DINO/iBOT/DeiT-layout ViTs (fused qkv),
 * ``convert_vit_hf``   — HuggingFace ViT/ViTMAE layout (split q/k/v),
 * ``convert_radio``    — NVIDIA RADIO, with its input conditioner's
-  mean and std.
+  mean and std,
+* ``convert_vit_openclip`` — open_clip / OpenAI CLIP visual towers.
 
-The ResNet, ConvNeXt, OpenCLIP and SAM converters are not ported yet.
+The ResNet, ConvNeXt and SAM converters are not ported yet.
 """
 
+from midvision_probe_torch.models.convert.clip_convert import convert_vit_openclip  # noqa: F401
 from midvision_probe_torch.models.convert.radio_convert import convert_radio  # noqa: F401
 from midvision_probe_torch.models.convert.remap import (  # noqa: F401
     MMSELFSUP_VIT_RENAME,

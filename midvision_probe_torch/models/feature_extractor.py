@@ -133,18 +133,20 @@ class FeatureExtractor:
     def device(self) -> torch.device:
         return next(self.module.parameters()).device
 
-    def _run(self, images: torch.Tensor):
+    def outputs(self, images: torch.Tensor):
+        """images NHWC -> (feature maps, cls tokens), one of each per tap (a
+        cls token is None without one); one counted forward."""
         FeatureExtractor.forward_count += 1
         with torch.no_grad():
             return self._apply_fn(images.to(self.device))
 
     def __call__(self, images: torch.Tensor):
         """images NHWC (normalized) -> feature map(s) per the contract."""
-        outputs, cls_tokens = self._run(images)
-        if self.return_cls and len(outputs) == 1 and cls_tokens[0] is not None:
+        maps, cls_tokens = self.outputs(images)
+        if self.return_cls and len(maps) == 1 and cls_tokens[0] is not None:
             return cls_tokens[0]
-        return outputs if self.return_multilayer else outputs[-1]
+        return maps if self.return_multilayer else maps[-1]
 
     def features(self, images: torch.Tensor) -> list[torch.Tensor]:
         """Always-multilayer call used by probe training."""
-        return self._run(images)[0]
+        return self.outputs(images)[0]

@@ -47,7 +47,7 @@ def _nhwc(x: torch.Tensor) -> torch.Tensor:
     return x.permute(0, 2, 3, 1)
 
 
-class _TapNorm(nn.Module):
+class _FlaxBatchNorm(nn.Module):
     """BatchNorm over an NHWC map with flax ``nn.BatchNorm`` semantics:
     running stats decay by ``momentum`` (0.9) toward the BIASED batch
     variance (torch's BatchNorm uses the unbiased one), stats in f32."""
@@ -82,7 +82,7 @@ class TapNorms(nn.Module):
     def __init__(self, feat_dims: Sequence[int]):
         super().__init__()
         for i, c in enumerate(feat_dims):
-            self.add_module(f"tap_norm_{i}", _TapNorm(c))
+            self.add_module(f"tap_norm_{i}", _FlaxBatchNorm(c))
         self.num_taps = len(feat_dims)
 
     def forward(self, feats: Sequence[torch.Tensor]):
@@ -357,6 +357,35 @@ class SurfaceNormalHead(nn.Module):
         return self.decoder(feats)
 
 
+class BinaryHead(nn.Module):
+    """``probes.py:7-44`` (the objectness probe), (B, H, W, output_dim): the
+    decoder's output through a BatchNorm and a sigmoid. The BatchNorm is
+    flax's, as the JAX package's head has it: momentum 0.9, decay toward the
+    biased batch variance, eps 1e-5 (``_FlaxBatchNorm``; torch's
+    ``BatchNorm2d`` would decay toward the unbiased one). The default
+    ``output_dim=2`` is the reference constructor's (``probes.py:15``); the
+    objectness config pins 1. Only ``pred_type="sigmoid"`` is ported: the
+    JAX head's ``tanh`` and raw outputs serve ``TaskonomyHead``, which waits
+    for ROADMAP section 1, item 1 (M7c). ``dtype`` as in ``DepthHead``."""
+
+    def __init__(self, feat_dim: Any, head_type: str = "dpt", output_dim: int = 2,
+                 pred_type: str = "sigmoid", hidden_dim: int = 512,
+                 kernel_size: int = 1, dtype=None):
+        super().__init__()
+        if pred_type != "sigmoid":
+            raise NotImplementedError(
+                f"BinaryHead(pred_type={pred_type!r}): only 'sigmoid' is ported "
+                "(the other types serve TaskonomyHead; ROADMAP section 1, item 1)")
+        self.head_type, self.kernel_size = head_type, kernel_size
+        self.dtype = dtype
+        self.decoder = make_decoder(head_type, feat_dim, output_dim, hidden_dim,
+                                    kernel_size)
+        self.batch_norm = _FlaxBatchNorm(output_dim)
+
+    def forward(self, feats):
+        return torch.sigmoid(self.batch_norm(self.decoder(feats)))
+
+
 def _lecun_normal_(t: torch.Tensor, generator: torch.Generator) -> None:
     fan_in = t[0].numel()
     std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
@@ -373,7 +402,7 @@ def init_probe_(module: nn.Module, generator: torch.Generator) -> nn.Module:
             _lecun_normal_(mod.weight, generator)
             if mod.bias is not None:
                 mod.bias.zero_()
-        elif isinstance(mod, _TapNorm):
+        elif isinstance(mod, _FlaxBatchNorm):
             mod.weight.fill_(1.0)
             mod.bias.zero_()
             mod.running_mean.zero_()

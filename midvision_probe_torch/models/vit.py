@@ -92,7 +92,8 @@ class ViTConfig:
         asked = [k for k, v in unsupported.items() if v]
         if asked:
             raise NotImplementedError(
-                f"ViT features {asked} are not ported to PyTorch yet")
+                f"ViT features {asked} are not ported to PyTorch yet (ROADMAP "
+                "section 1, item 3: the other backbone families)")
 
 
 def get_2d_sincos_pos_embed(embed_dim: int, grid_hw: tuple[int, int],

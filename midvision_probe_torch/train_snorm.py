@@ -35,6 +35,7 @@ from midvision_probe_torch.engine.driver_common import (
     build_loader,
     emit_csv,
     fit,
+    init_from_loader,
     make_trainer,
     probe_dtype_kwargs,
     setup_experiment,
@@ -79,7 +80,7 @@ def run(cfg):
     if not cfg.get("is_eval", False):
         fit(cfg, trainer, train_loader, logger, wandb, exp_dir)
     else:
-        trainer.init()
+        init_from_loader(trainer, test_loader)
         ckpt = cfg.get("ckpt_path", "") or os.path.join(exp_dir, "ckpt")
         restored = restore_checkpoint(ckpt, map_location=trainer.device)
         if restored is None:

@@ -1,5 +1,5 @@
-"""Depth and surface-normal losses (counterpart of the JAX package's
-``utils/losses.py``) on NHWC tensors.
+"""Depth, surface-normal and objectness losses (counterpart of the JAX
+package's ``utils/losses.py``) on NHWC tensors.
 
 Validity is handled with masks (sums over valid pixels) rather than boolean
 indexing, as in the JAX package. Kept from there:
@@ -96,3 +96,10 @@ def snorm_l1_loss(snorm_pr, snorm_gt, mask):
     """Masked mean over pixels of the channel-mean L1 (``losses.py:185-200``)."""
     m = mask[..., 0].float()
     return _masked_mean((snorm_pr[..., :3] - snorm_gt).abs().mean(dim=-1), m)
+
+
+def binary_cross_entropy(pred, target, eps=1e-7):
+    """torch ``nn.BCELoss`` on ``pred`` clipped to [eps, 1 - eps] (the
+    objectness trainer, ``train_generic_objectness.py:575``)."""
+    pred = pred.clamp(eps, 1 - eps)
+    return -(target * torch.log(pred) + (1 - target) * torch.log1p(-pred)).mean()

@@ -5,9 +5,12 @@
   on every container of ``tests/test_source_layouts.py`` (the DINO-style
   ``state_dict`` box, MoCo-v3, mmselfsup, HF-MAE, the VISSL and MoCo-v2
   unwraps, CroCo and RADIO), each saved and read back with ``torch.load``;
-* one fabricated file per ported backbone (tiny DINO-style, CroCo-v2 and
-  RADIO configs: both zoos' entries patched to them) is loaded by both
-  zoos: the taps agree within atol 1e-4 (f32; the JAX side under
+* the port's copy of the OpenCLIP converter gives the JAX one's tree
+  exactly on an OpenAI-layout CLIP file (``visual.*`` and text-tower junk);
+* one fabricated file per ported backbone family (tiny DINO-style, CroCo-v2
+  and RADIO configs, and the MILAN, iBOT, MoCo v3, EVA, MAE, CroCo v1,
+  SigLIP and CLIP containers: both zoos' entries patched to them) is loaded
+  by both zoos: the taps agree within atol 1e-4 (f32; the JAX side under
   ``jax.default_matmul_precision("float32")``), RADIO's mean and std come
   from the input conditioner, equal, and the port's random init never runs;
 * a file whose keys do not match makes the port raise, and the converters
@@ -24,11 +27,14 @@ import numpy as np
 import pytest
 import torch
 
+sys.path.insert(0, os.path.dirname(__file__))
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "data_processing"))
 
+from test_convert_extra import _CLIPVisual  # noqa: E402
 from torch_replicas import (  # noqa: E402
     RadioViT,
     TimmViT,
+    sincos2d_pos_embed,
     timm_to_hf_mae,
     timm_to_mmselfsup,
     wrap_croco,
@@ -43,6 +49,7 @@ from midvision_probe_torch.models import zoo as t_zoo  # noqa: E402
 from midvision_probe_tpu.models import convert as j_convert  # noqa: E402
 from midvision_probe_tpu.models import vit as j_vit  # noqa: E402
 from midvision_probe_tpu.models import zoo as j_zoo  # noqa: E402
+from midvision_probe_tpu.models.convert.clip_convert import convert_vit_openclip as j_convert_openclip  # noqa: E402,E501
 from midvision_probe_tpu.models.convert.radio_convert import convert_radio as j_convert_radio  # noqa: E402,E501
 from midvision_probe_tpu.models.convert.remap import unwrap_checkpoint as j_unwrap  # noqa: E402
 
@@ -151,6 +158,37 @@ def test_radio_convert_gives_the_jax_tree_and_conditioner(tmp_path):
     assert got_extras["image_mean"] == tuple(np.float32([0.1, 0.2, 0.3]))
 
 
+def clip_container(seed=26, d=DIM, heads=HEADS, depth=DEPTH, patch=PATCH, img=PATCH * GRID):
+    """An OpenAI CLIP ``.pt`` as ``make_source_layout_checkpoints.py``
+    lays it out: the visual tower under ``visual.`` (open_clip naming, the
+    final ``ln_post`` and projection included) and text-tower junk."""
+    torch.manual_seed(seed)
+    t = _CLIPVisual(d=d, heads=heads, depth=depth, patch=patch, img=img)
+    sd = {f"visual.{k}": v for k, v in t.state_dict().items()}
+    sd["visual.ln_post.weight"] = torch.ones(d) + 0.1 * torch.randn(d)
+    sd["visual.ln_post.bias"] = 0.1 * torch.randn(d)
+    sd["visual.proj"] = torch.randn(d, 16) * 0.02
+    sd["token_embedding.weight"] = torch.zeros(100, 16)
+    sd["transformer.resblocks.0.ln_1.weight"] = torch.ones(16)
+    sd["logit_scale"] = torch.tensor(4.6052)
+    return sd
+
+
+@pytest.mark.parametrize("final_norm", [False, True])
+def test_openclip_convert_gives_the_jax_tree(tmp_path, final_norm):
+    got_sd, ref_sd = _roundtrip(tmp_path, clip_container(), "openclip")
+    _assert_same_trunk(got_sd, ref_sd)
+    kw = dict(pre_norm=True, patch_bias=False, act="quickgelu", layernorm_eps=1e-5,
+              mlp_ratio=4.0, final_norm=final_norm)
+    base = dict(patch_size=PATCH, width=DIM, depth=DEPTH, num_heads=HEADS,
+                table_grid=(GRID, GRID), **kw)
+    got = t_convert.convert_vit_openclip(got_sd, t_vit.ViTConfig(**base))
+    ref = j_convert_openclip(ref_sd, j_vit.ViTConfig(**base))
+    _assert_same_tree(got, ref)
+    assert ("norm" in got["params"]) == final_norm
+    assert "qkv" in got["params"]["blocks_0"]["attn"]
+
+
 # ------------------------------------------------------------- zoo loading
 TINY = {
     "dino_vitb16": dict(vit=dict(patch_size=PATCH, width=DIM, depth=DEPTH, num_heads=HEADS,
@@ -164,12 +202,45 @@ TINY = {
 }
 
 
+# the plain-ViT families: their entries' own fields at the tiny width
+_SHAPE = dict(patch_size=PATCH, width=DIM, depth=DEPTH, num_heads=HEADS, mlp_ratio=2.0)
+for _name in ("milan_vitb16", "ibot_vitb16", "mocov3_vitb16", "eva_vitb16", "mae_vitb16",
+              "croco_vitb16", "siglip_vitb16", "clip_vitb16"):
+    _vit_kw = dict(t_zoo.ZOO[_name].vit, **_SHAPE)
+    if _vit_kw.get("table_grid"):
+        _vit_kw["table_grid"] = (GRID, GRID)
+    if _name == "clip_vitb16":
+        _vit_kw["mlp_ratio"] = 4.0  # open_clip's
+    TINY[_name] = dict(vit=_vit_kw)
+TINY["croco_vitb16"]["fixed_input"] = 32
+
+
 def _container(name):
     """The entry's released-file layout, at the tiny config."""
     if name == "dino_vitb16":
         return _tiny_timm().state_dict()  # DINO's raw trunk, final norm included
     if name == "crocov2_vitb16":
         return wrap_croco(_tiny_timm(class_token=False).state_dict())
+    if name == "milan_vitb16":
+        return {"model": _tiny_timm().state_dict()}
+    if name == "ibot_vitb16":  # the teacher under module., head junk
+        sd = {f"module.{k}": v for k, v in _tiny_timm().state_dict().items()}
+        sd["module.head.mlp.0.weight"] = torch.zeros(32, DIM)
+        return {"state_dict": sd, "epoch": 100}
+    if name == "mocov3_vitb16":
+        return wrap_mocov3_vit(_tiny_timm().state_dict())
+    if name == "eva_vitb16":
+        return timm_to_mmselfsup(_tiny_timm().state_dict())
+    if name == "mae_vitb16":  # HF layout, a stored sincos table with a cls row
+        sd = _tiny_timm(eps=1e-12).state_dict()
+        sd["pos_embed"] = sincos2d_pos_embed(DIM, GRID, cls_row=True)
+        return timm_to_hf_mae(sd)
+    if name == "croco_vitb16":
+        return wrap_croco(_tiny_timm(class_token=False).state_dict())
+    if name == "siglip_vitb16":  # timm, no cls token, a patch-only table
+        return _tiny_timm(class_token=False, act="gelu_tanh").state_dict()
+    if name == "clip_vitb16":
+        return clip_container()
     radio = RadioViT(dim=160, depth=DEPTH, heads=2, patch=PATCH, grid=4, mlp_ratio=2.0,
                      seed=13)
     return wrap_radio(radio.state_dict(), mean=(0.1, 0.2, 0.3), std=(0.9, 0.8, 0.7))
@@ -208,7 +279,7 @@ def test_zoo_loads_the_file_like_the_jax_zoo(tmp_path, monkeypatch, rng, name):
         assert text.spec.image_mean == tuple(np.float32([0.1, 0.2, 0.3]))
         assert text.spec.image_std == tuple(np.float32([0.9, 0.8, 0.7]))
     else:
-        assert text.spec.image_mean == t_zoo.IMAGENET_MEAN
+        assert text.spec.image_mean == t_zoo.ZOO[name].image_mean
 
 
 @pytest.mark.parametrize("drop", ["blocks.2.norm1.weight", "blocks.1.mlp.fc1.bias",
@@ -226,7 +297,7 @@ def test_zoo_refuses_the_converters_it_lacks(tmp_path, monkeypatch):
     monkeypatch.setenv("MVP_CHECKPOINT_DIR", str(tmp_path))
     entry = dataclasses.replace(t_zoo.ZOO["dino_vitb16"], arch="resnet")
     torch.save({}, os.path.join(tmp_path, entry.filename))
-    with pytest.raises(NotImplementedError, match="item 7"):
+    with pytest.raises(NotImplementedError, match="ResNet, ConvNeXt and SAM .* item 3"):
         t_zoo.load_variables(entry, t_vit.ViTConfig())
     variables, extras = t_zoo.load_variables(t_zoo.ZOO["crocov2_vitb16"], t_vit.ViTConfig())
     assert variables is None and extras == {}  # no file: random init, as before

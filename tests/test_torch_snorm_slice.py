@@ -8,10 +8,10 @@ the repository's JAX ``train_snorm.run`` on the same config.
   tree (2 GeoNet train frames, 2 test frames, 480x640) with a fabricated
   DINO-layout checkpoint that both zoos load (their ``dino_vitb16`` entries
   patched to a tiny config of patch 16), so only the probe's init is
-  carried across. Augmentation is off here: the JAX ``fit`` draws its init
-  batch from the train loader, which advances the reader's RandomState
-  before training, where the port's init draws nothing; the augmented
-  items themselves are held item for item in ``test_torch_nyu.py``.
+  carried across. Augmentation is off here; the augmented run, whose
+  reader state both ``fit``s advance by a thread-timed number of batches,
+  is held from a pinned reader state in ``test_torch_init_batch.py``, and
+  the augmented items item for item in ``test_torch_nyu.py``.
 
 Per-step losses within rtol 1e-4, the CSV row's metrics within atol 1e-3
 (f32 everywhere, the JAX side under
