@@ -10,7 +10,8 @@ when the port's package is not next to this file. Otherwise it prints one
 JSON line per phase and fails on the first failing phase:
 
 1. ``device``: the card (``nvidia-smi`` name and power limit), torch and
-   CUDA versions, the time to build the CUDA kernels from ``csrc/`` and
+   CUDA versions, whether ``datasets``, ``pyarrow``, scipy and PIL can be
+   imported, the time to build the CUDA kernels from ``csrc/`` and
    ``gpu_state`` (SM clock, power draw, temperature, throttle reasons,
    sampled again in ``mlp_checks``, every ``forward`` and ``done``).
 2. ``kernel_checks``: the fused-qkv attention kernel (K1) against its plain
@@ -39,8 +40,10 @@ JSON line per phase and fails on the first failing phase:
    d=64 bf16); then K1 on the (B, N, 3, H, d) projection itself at the
    plain-ViT paths' launches: DINO ViT-B/8 at 480x640 (B=64, N=4801, H=12,
    d=64, bf16), CLIP ViT-L/14 at 480x640 (B=64, N=1531, H=16, d=64, bf16),
-   the objectness path's (B=16, N=901, H=12, d=64, bf16) and the 2AFC
-   path's f32 triplet batch (B=48, N=197, H=12, d=64), K1's bf16 cases
+   the objectness path's (B=16, N=901, H=12, d=64, bf16), the 2AFC path's
+   f32 triplet batch (B=48, N=197, H=12, d=64), the SPair path's f32
+   launch (B=16, N=2501: 800x800, a ragged last key tile of 69) and the
+   Taskonomy path's bf16 one (B=16, N=1025: 512x512), K1's bf16 cases
    held to min(1.6e-2, 2^-6 * max|ref|) and its plain version run in
    chunks of images; timed
    cases with SDPA's time as the yardstick, the f32 ones with the bound of
@@ -123,6 +126,25 @@ JSON line per phase and fails on the first failing phase:
    the OpenCLIP converter: every trunk tensor equal to the file's, no random
    init, accuracy, F1, precision and recall in [0, 1], one CSV row, K1 12
    per backbone forward (float32, tf32x3), wall time and peak memory.
+9d. ``path_spair``: the SPair-71k evaluator
+   (``midvision_probe_torch.evaluate_spair_correspondence``) through its
+   ``entry`` with the config's defaults (800x800, batch 8 pairs, every
+   class and viewpoint difference, no bbox crop, one tap), ``dino_b16`` in
+   float32 with seeded random weights, on a fabricated SPair-71k tree (2
+   classes x 8 test pairs over viewpoint differences 0, 1 and 2; 500x375
+   JPEGs, class-id segmentations, 30 keypoint slots with some ``null``):
+   the recall table in [0, 100] (-1 for the 16 classes without pairs), one
+   CSV row, K1 12 per backbone forward on tf32x3, wall time and peak
+   memory; then one class with ``mask_feats`` and ``return_heatmaps``: the
+   heat maps, (pairs, 30, 50, 50) per viewpoint difference.
+9e. ``path_taskonomy``: the Taskonomy trainer
+   (``midvision_probe_torch.train_taskonomy``) through its ``entry``,
+   ``backbone=dino_b16 dataset=taskonomy probe=taskonomy_dpt``, principal
+   curvature, batch 16, bf16 backbone with seeded random weights, on the
+   synthetic fallback at 512x512 (32 train and 32 test items): finite
+   losses, AbsRel >= 0 and the ratio thresholds in [0, 1], one CSV row, K1
+   12 per backbone forward on wgmma, wall time, the init draw's time and
+   reader calls, and peak memory.
 10. ``forward``: the frozen forward in images per second per card (CUDA
    events), peak memory and a profiler breakdown by kernel, with the launch
    counts per forward: dino_vitb16 (the bench protocol: 480x640, batch 64,
@@ -153,6 +175,7 @@ attention check records the route that ran and fails if it is not the one
 from __future__ import annotations
 
 import contextlib
+import importlib.util
 import json
 import math
 import os
@@ -497,6 +520,11 @@ def phase_attention_checks(torch):
         ("clip_vitl14_k1_bf16", "K1", 64, 16, 1531, 64, bf16, True),
         ("objectness_dino_k1_bf16", "K1", 16, 12, 901, 64, bf16, True),
         ("twoafc_clip_k1_fp32", "K1", 48, 12, 197, 64, f32, True),
+        # the SPair path's f32 launch (8 pairs at 800x800: a 50x50 grid, the
+        # last key tile 69 of 128) and the Taskonomy path's bf16 one (batch
+        # 16 at 512x512)
+        ("spair_dino_k1_fp32", "K1", 16, 12, 2501, 64, f32, True),
+        ("taskonomy_dino_k1_bf16", "K1", 16, 12, 1025, 64, bf16, True),
     ]
     results = []
     for name, kernel, B, H, N, d, dtype, timed in cases:
@@ -996,12 +1024,12 @@ RADIO_PER_FORWARD = {"k1": 0, "k2": 32, "k3": 0, "k5": 0, **NO_BENCH_KERNELS,
 
 
 # launches per backbone forward of the plain-ViT paths' backbones: CLIP
-# ViT-L/14 in bf16 (24 blocks, 16 heads of 64) and CLIP ViT-B/16 in float32
-# (the 2AFC forward), both on K1
+# ViT-L/14 in bf16 (24 blocks, 16 heads of 64), and a ViT-B in float32 (CLIP
+# ViT-B/16 on the 2AFC path, DINO ViT-B/16 on the SPair path), all on K1
 CLIP_L_PER_FORWARD = {"k1": 24, "k2": 0, "k3": 0, "k5": 0, **NO_BENCH_KERNELS,
                       **on_route("wgmma", 24)}
-CLIP_B_F32_PER_FORWARD = {"k1": 12, "k2": 0, "k3": 0, "k5": 0, **NO_BENCH_KERNELS,
-                          **on_route("tf32x3", 12)}
+VIT_B_F32_PER_FORWARD = {"k1": 12, "k2": 0, "k3": 0, "k5": 0, **NO_BENCH_KERNELS,
+                         **on_route("tf32x3", 12)}
 
 
 BENCH_VARIANTS = ("base", "wide4", "stagger4", "wide12", "int8", "splash")
@@ -1702,10 +1730,247 @@ def phase_path_2afc_nights(torch, smi: str):
                                for k in ("accuracy", "f1_score", "precision", "recall")),
         "csv_written": csvs == ["final_results_summary.csv"] and csv_rows == 1,
         "two_forwards": counts["forwards"] == 2,  # 32 triplets in batches of 16
-        "attention_per_forward": per_forward_ok(counts, CLIP_B_F32_PER_FORWARD),
+        "attention_per_forward": per_forward_ok(counts, VIT_B_F32_PER_FORWARD),
     }
     if not all(checks.values()):
         raise SystemExit(f"path_2afc_nights check failed: {checks}")
+    return counts
+
+
+@contextlib.contextmanager
+def reader_timed(cls):
+    """``cls.__getitem__`` timed: the dict yielded holds the calls
+    (``reads``) and the seconds they took (``s``), summed."""
+    total = {"reads": 0, "s": 0.0}
+    getitem = cls.__getitem__
+
+    def timed(self, index):
+        t0 = time.perf_counter()
+        try:
+            return getitem(self, index)
+        finally:
+            total["reads"] += 1
+            total["s"] += time.perf_counter() - t0
+
+    cls.__getitem__ = timed
+    try:
+        yield total
+    finally:
+        cls.__getitem__ = getitem
+
+
+# the SPair-71k tree of path_spair: test pairs per class, over viewpoint
+# differences 0, 1 and 2, of PASCAL-sized views
+SPAIR_CLASSES, SPAIR_PAIRS = ("aeroplane", "cat"), 8
+
+
+def make_spair_tree(root: str, classes, pairs: int, seed: int) -> None:
+    """A SPair-71k tree in the reference layout: per class ``2 * pairs``
+    views (``JPEGImages/<class>/<view>.jpg`` at 500x375 or 375x500,
+    ``Segmentation/<class>/<view>.png`` with the class id inside the
+    object's box and 255 on its border, ``ImageAnnotation/<class>/<view>.json``
+    with 30 keypoint slots, some ``null``, the rest on the object) and
+    ``PairAnnotation/test/<n>.json`` per pair with its viewpoint difference
+    (0, 1, 2 in turn), ``src_bndbox``, ``trg_bndbox`` and ``trg_imsize``."""
+    import json
+
+    import numpy as np
+    from PIL import Image
+
+    from midvision_probe_torch.datasets.spair import CLASS_IDS, MAX_KPS
+
+    rng = np.random.RandomState(seed)
+    os.makedirs(os.path.join(root, "PairAnnotation", "test"), exist_ok=True)
+    n_pair = 0
+    for cls in classes:
+        for sub in ("JPEGImages", "Segmentation", "ImageAnnotation"):
+            os.makedirs(os.path.join(root, sub, cls), exist_ok=True)
+        boxes, sizes = {}, {}
+        for v in range(2 * pairs):
+            view = f"2008_{n_pair:04d}{v:02d}"
+            h, w = (375, 500) if v % 3 else (500, 375)
+            bh, bw = rng.randint(h // 3, h - 20), rng.randint(w // 3, w - 20)
+            y0, x0 = rng.randint(5, h - bh - 5), rng.randint(5, w - bw - 5)
+            boxes[view], sizes[view] = [x0, y0, x0 + bw, y0 + bh], [w, h, 3]
+            coarse = rng.randint(0, 256, (h // 25, w // 25, 3), dtype=np.uint8)
+            img = np.asarray(Image.fromarray(coarse).resize((w, h), Image.BICUBIC), np.int32)
+            img = np.clip(img + rng.randint(-12, 13, (h, w, 3)), 0, 255).astype(np.uint8)
+            Image.fromarray(img).save(os.path.join(root, "JPEGImages", cls, f"{view}.jpg"),
+                                      quality=90)
+            seg = np.zeros((h, w), np.uint8)
+            seg[y0:y0 + bh, x0:x0 + bw] = 255
+            seg[y0 + 3:y0 + bh - 3, x0 + 3:x0 + bw - 3] = CLASS_IDS[cls]
+            Image.fromarray(seg).save(os.path.join(root, "Segmentation", cls, f"{view}.png"))
+            kps = {str(k): (None if rng.rand() < 0.3 else
+                            [int(rng.randint(x0, x0 + bw)), int(rng.randint(y0, y0 + bh))])
+                   for k in range(MAX_KPS)}
+            with open(os.path.join(root, "ImageAnnotation", cls, f"{view}.json"), "w") as f:
+                json.dump({"filename": f"{view}.jpg", "kps": kps}, f)
+        views = sorted(boxes)
+        for p in range(pairs):
+            src, trg = views[2 * p], views[2 * p + 1]
+            pair = {"filename": f"{n_pair:06d}-{src}-{trg}:{cls}", "category": cls,
+                    "viewpoint_variation": p % 3, "src_bndbox": boxes[src],
+                    "trg_bndbox": boxes[trg], "trg_imsize": sizes[trg]}
+            with open(os.path.join(root, "PairAnnotation", "test", f"{n_pair:06d}.json"),
+                      "w") as f:
+                json.dump(pair, f)
+            n_pair += 1
+
+
+def phase_path_spair(torch, smi: str):
+    """The SPair-71k evaluator (``midvision_probe_torch.evaluate_spair_correspondence``)
+    through its ``entry`` with the config's defaults (800x800, batch 8
+    pairs, every class, no bbox crop, one tap) on ``backbone=dino_b16`` in
+    float32 as the config and the JAX driver run it (K1 on the tf32x3 route
+    at N = 2501), seeded random weights (no checkpoint in the repository),
+    on a fabricated tree of 2 classes x 8 test pairs (``make_spair_tree``;
+    SPair-71k's test split has 12,234): the recall table (each entry in
+    [0, 100], or -1 for a class without pairs), one CSV row, K1 12 per
+    backbone forward, wall time and peak memory. Then a second run on one
+    class with ``mask_feats`` and ``return_heatmaps``: the heat maps of each
+    viewpoint difference, (pairs, 30, 50, 50). Returns the first run's
+    launch counts."""
+    import numpy as np
+
+    from midvision_probe_torch import evaluate_spair_correspondence as spair
+    from midvision_probe_torch.datasets.spair import SPairDataset
+
+    root = tempfile.mkdtemp(prefix="mvp_chip_smoke_spair_")
+    try:
+        t0 = time.perf_counter()
+        tree = os.path.join(root, "SPair-71k")
+        make_spair_tree(tree, SPAIR_CLASSES, SPAIR_PAIRS, seed=32)
+        tree_s = time.perf_counter() - t0
+        out_dir = os.path.join(root, "out")
+        argv = ["backbone=dino_b16", f"data_root={tree}", f"output_dir={out_dir}"]
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.perf_counter()
+        with reader_timed(SPairDataset) as reads:
+            row = spair.entry(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        csvs = sorted(os.listdir(out_dir))
+        with open(os.path.join(out_dir, "spair_correspondence_final.csv")) as f:
+            csv_rows = len(f.read().strip().splitlines()) - 1
+
+        heat_dir = os.path.join(root, "heat")
+        heat_argv = ["backbone=dino_b16", f"data_root={tree}", f"eval_class={SPAIR_CLASSES[1]}",
+                     "mask_feats=true", "return_heatmaps=true", f"output_dir={heat_dir}"]
+        reset_counts()
+        t0 = time.perf_counter()
+        heat_row = spair.entry(heat_argv)
+        torch.cuda.synchronize()
+        heat_wall = time.perf_counter() - t0
+        heat_counts = read_counts()
+        heat_shapes = {}
+        for name in sorted(os.listdir(os.path.join(heat_dir, "spair_heatmaps"))):
+            with np.load(os.path.join(heat_dir, "spair_heatmaps", name)) as z:
+                heat_shapes[name] = list(z["heatmaps"].shape)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    table = row.pop("class_recalls")
+    heat_table = heat_row.pop("class_recalls")
+    # pairs per viewpoint difference 0, 1, 2 (pair p has difference p % 3)
+    vp_pairs = [len(range(v, SPAIR_PAIRS, 3)) for v in range(3)] + [SPAIR_PAIRS]
+    forwards = len(SPAIR_CLASSES) * sum(-(-n // 8) for n in vp_pairs)
+    res = {"phase": "path_spair", "argv": [a for a in argv if root not in a],
+           "classes": list(SPAIR_CLASSES), "pairs_per_class": SPAIR_PAIRS, "tree_s": tree_s,
+           "recalls": row, "class_recalls": {c: table[c] for c in SPAIR_CLASSES},
+           "csv_files": csvs, "csv_rows": csv_rows, "launches": counts,
+           "backbone_forwards": counts["forwards"], "wall_s": wall, "peak_mem_gib": peak,
+           # the host's share: the reader (JPEG and PNG decode, the 800x800
+           # bicubic resizes on the CPU)
+           "reader": {**reads, "share_of_wall": reads["s"] / wall},
+           "heatmap_run": {"argv": [a for a in heat_argv if root not in a],
+                           "recalls": heat_row, "shapes": heat_shapes, "wall_s": heat_wall,
+                           "launches": heat_counts},
+           "nvidia_smi": smi, "gpu_state": gpu_state()}
+    emit(res)
+    expected_shapes = {f"heatmaps_{SPAIR_CLASSES[1]}_{tag}.npz": [n, 30, 50, 50]
+                       for tag, n in zip(("0", "1", "2", "all"), vp_pairs)}
+    checks = {
+        "recalls_in_range": all(
+            (0.0 <= r <= 100.0) if cls in SPAIR_CLASSES else r == -1.0
+            for cls, rs in table.items() for r in rs) and len(table) == 18,
+        "averages_in_range": all(0.0 <= v <= 100.0 for v in row.values()),
+        "csv_written": csvs == ["spair_correspondence_final.csv"] and csv_rows == 1,
+        "forwards": counts["forwards"] == forwards,
+        "every_pair_read": reads["reads"] == 2 * len(SPAIR_CLASSES) * SPAIR_PAIRS,
+        "attention_per_forward": per_forward_ok(counts, VIT_B_F32_PER_FORWARD),
+        "heatmaps": heat_shapes == expected_shapes,
+        "heatmap_run_recalls": all(0.0 <= r <= 100.0 for r in heat_table[SPAIR_CLASSES[1]]),
+        "heatmap_run_per_forward": per_forward_ok(heat_counts, VIT_B_F32_PER_FORWARD),
+    }
+    if not all(checks.values()):
+        raise SystemExit(f"path_spair check failed: {checks}")
+    return counts
+
+
+TASKONOMY_INSTANCES = 32
+
+
+def phase_path_taskonomy(torch, smi: str):
+    """The Taskonomy trainer (``midvision_probe_torch.train_taskonomy``)
+    through its ``entry`` as the config runs it, ``backbone=dino_b16
+    dataset=taskonomy probe=taskonomy_dpt``, principal curvature (the
+    config's task, 2 channels), batch 16, bf16 backbone with seeded random
+    weights (no checkpoint in the repository), on the synthetic fallback at
+    Taskonomy's native 512x512 (32 train and 32 test items; no HF shards in
+    the repository): 2 steps and 2 validation batches, K1 at B = 16, N =
+    1025 on the wgmma route, 12 per backbone forward, finite losses, AbsRel
+    >= 0 and every ratio threshold in [0, 1], one
+    ``taskonomy_results_principal_curvature_final.csv`` row, wall time, the
+    init draw's time and reader calls, and peak memory. Returns the launch
+    counts."""
+    from midvision_probe_torch import train_taskonomy
+
+    root = tempfile.mkdtemp(prefix="mvp_chip_smoke_taskonomy_")
+    try:
+        out_dir = os.path.join(root, "out")
+        argv = ["backbone=dino_b16", "dataset=taskonomy", "probe=taskonomy_dpt",
+                "dataset.task=principal_curvature", "batch_size=16", "optimizer=one_epoch",
+                "+system.backbone_dtype=bfloat16", "+dataset.image_size=[512,512]",
+                f"+dataset.num_instances={TASKONOMY_INSTANCES}",
+                # no HF directory there: the synthetic fallback
+                f"dataset.other_path={os.path.join(root, 'absent')}", f"output_dir={out_dir}"]
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.perf_counter()
+        with init_draws_timed() as draws:
+            row = train_taskonomy.entry(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+        csvs = [f for f in os.listdir(out_dir) if f.endswith(".csv")]
+        with open(os.path.join(out_dir, csvs[0])) as f:
+            csv_rows = len(f.read().strip().splitlines()) - 1
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    losses = row.pop("train_losses")
+    res = {"phase": "path_taskonomy", "argv": [a for a in argv if root not in a],
+           "instances": TASKONOMY_INSTANCES, "train_losses": losses, "csv_files": csvs,
+           "csv_rows": csv_rows, "csv_row": row, "launches": counts,
+           "backbone_forwards": counts["forwards"], "wall_s": wall, "init_draws": draws,
+           "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+           "nvidia_smi": smi, "gpu_state": gpu_state()}
+    emit(res)
+    deltas = [v for k, v in row.items() if k.startswith("δ")]
+    checks = {
+        "two_steps": len(losses) == 2,
+        "losses_finite": all(math.isfinite(x) for x in losses),
+        "absrel": math.isfinite(row["AbsRel"]) and row["AbsRel"] >= 0.0,
+        "deltas_in_unit": len(deltas) == 9 and all(0.0 <= v <= 1.0 for v in deltas),
+        "csv_written": csvs == ["taskonomy_results_principal_curvature_final.csv"]
+        and csv_rows == 1,
+        "four_forwards": counts["forwards"] == 4,  # 2 train steps, 2 validation batches
+        "attention_per_forward": per_forward_ok(counts, DINO_PER_FORWARD),
+    }
+    if not all(checks.values()):
+        raise SystemExit(f"path_taskonomy check failed: {checks}")
     return counts
 
 
@@ -1800,6 +2065,9 @@ def main() -> int:
              for ln in info["log"].splitlines() if "registers" in ln]
     emit({"phase": "device", "nvidia_smi": smi, "card": card, "torch": torch.__version__,
           "cuda": torch.version.cuda, "device_name": torch.cuda.get_device_name(0),
+          # the Taskonomy reader's HF directories need `datasets` (and pyarrow)
+          "packages": {m: importlib.util.find_spec(m) is not None
+                       for m in ("datasets", "pyarrow", "scipy", "PIL")},
           "sources": list(cuda_build.KERNEL_SOURCES),
           "build_s": time.perf_counter() - t0, "ptxas": ptxas, "gpu_state": gpu_state()})
 
@@ -1838,6 +2106,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     by_path["path_2afc_nights"] = phase_path_2afc_nights(torch, smi)
     torch.cuda.empty_cache()
+    by_path["path_spair"] = phase_path_spair(torch, smi)
+    torch.cuda.empty_cache()
+    by_path["path_taskonomy"] = phase_path_taskonomy(torch, smi)
+    torch.cuda.empty_cache()
 
     bf16 = torch.bfloat16
     by_path["forward_dino_vitb16"] = phase_forward(
@@ -1874,7 +2146,8 @@ def main() -> int:
                                               "route": attn_checks[case]["route_ran"]}
                                        for case in ("dino_vitb8_k1_bf16", "clip_vitl14_k1_bf16",
                                                     "objectness_dino_k1_bf16",
-                                                    "twoafc_clip_k1_fp32")}),
+                                                    "twoafc_clip_k1_fp32", "spair_dino_k1_fp32",
+                                                    "taskonomy_dino_k1_bf16")}),
         kernel_entry("knn2", "knn2.cu", f"{ops}/matching.py:64", "k4", by_path,
                      knn2_checks["scannet_main"], "wgmma"),
         kernel_entry("vit_attention", "vit_attention.cu", f"{ops}/vit_attention.py:129",

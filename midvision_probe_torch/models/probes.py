@@ -357,33 +357,50 @@ class SurfaceNormalHead(nn.Module):
         return self.decoder(feats)
 
 
-class BinaryHead(nn.Module):
-    """``probes.py:7-44`` (the objectness probe), (B, H, W, output_dim): the
-    decoder's output through a BatchNorm and a sigmoid. The BatchNorm is
-    flax's, as the JAX package's head has it: momentum 0.9, decay toward the
-    biased batch variance, eps 1e-5 (``_FlaxBatchNorm``; torch's
-    ``BatchNorm2d`` would decay toward the unbiased one). The default
-    ``output_dim=2`` is the reference constructor's (``probes.py:15``); the
-    objectness config pins 1. Only ``pred_type="sigmoid"`` is ported: the
-    JAX head's ``tanh`` and raw outputs serve ``TaskonomyHead``, which waits
-    for ROADMAP section 1, item 1 (M7c). ``dtype`` as in ``DepthHead``."""
+class _SigmoidHead(nn.Module):
+    """The shared body of ``BinaryHead`` and ``TaskonomyHead``
+    (``probes.py:7-84``), (B, H, W, output_dim): the decoder's output
+    through a BatchNorm and a sigmoid (``pred_type="sigmoid"``), a tanh
+    (``"tanh"``), or as it is (any other type, as Taskonomy's
+    ``pred_type: vanilla``). The BatchNorm is flax's, as the JAX package's
+    head has it: momentum 0.9, decay toward the biased batch variance, eps
+    1e-5 (``_FlaxBatchNorm``; torch's ``BatchNorm2d`` would decay toward the
+    unbiased one). ``dtype`` as in ``DepthHead``."""
 
-    def __init__(self, feat_dim: Any, head_type: str = "dpt", output_dim: int = 2,
+    def __init__(self, feat_dim: Any, head_type: str = "dpt", output_dim: int = 1,
                  pred_type: str = "sigmoid", hidden_dim: int = 512,
                  kernel_size: int = 1, dtype=None):
         super().__init__()
-        if pred_type != "sigmoid":
-            raise NotImplementedError(
-                f"BinaryHead(pred_type={pred_type!r}): only 'sigmoid' is ported "
-                "(the other types serve TaskonomyHead; ROADMAP section 1, item 1)")
         self.head_type, self.kernel_size = head_type, kernel_size
+        self.pred_type = pred_type
         self.dtype = dtype
         self.decoder = make_decoder(head_type, feat_dim, output_dim, hidden_dim,
                                     kernel_size)
-        self.batch_norm = _FlaxBatchNorm(output_dim)
+        if pred_type == "sigmoid":
+            self.batch_norm = _FlaxBatchNorm(output_dim)
 
     def forward(self, feats):
-        return torch.sigmoid(self.batch_norm(self.decoder(feats)))
+        x = self.decoder(feats)
+        if self.pred_type == "sigmoid":
+            return torch.sigmoid(self.batch_norm(x))
+        if self.pred_type == "tanh":
+            return torch.tanh(x)
+        return x
+
+
+class BinaryHead(_SigmoidHead):
+    """``probes.py:7-44`` (the objectness probe). The default
+    ``output_dim=2`` is the reference constructor's (``probes.py:15``); the
+    objectness config pins 1."""
+
+    def __init__(self, feat_dim: Any, head_type: str = "dpt", output_dim: int = 2,
+                 **kwargs):
+        super().__init__(feat_dim, head_type, output_dim, **kwargs)
+
+
+class TaskonomyHead(_SigmoidHead):
+    """``probes.py:46-84`` (the Taskonomy probe); its trainer sets
+    ``output_dim`` to the task's channels."""
 
 
 def _lecun_normal_(t: torch.Tensor, generator: torch.Generator) -> None:

@@ -11,7 +11,8 @@ resample with identical weights:
 * DPT transformer-branch upsamples: nearest (legacy ``floor(dst*in/out)``),
   done as an index gather,
 * correspondence features: bicubic upsampling to the xyz grid, and
-  ``grid_sample`` (bilinear, zeros padding) at projected points.
+  ``grid_sample`` (bilinear, zeros padding) at projected points;
+* ``center_padding``: zero padding to a multiple of the patch size.
 
 Layout: NHWC (or HWC) in and out, like the JAX package's public functions.
 """
@@ -157,3 +158,16 @@ def grid_sample(feats: torch.Tensor, grid: torch.Tensor,
         padding_mode="zeros", align_corners=align_corners)
     return out.permute(0, 2, 3, 1)
 
+
+def center_padding(images: torch.Tensor, patch_size: int) -> torch.Tensor:
+    """Zero-pad NHWC images so H and W are multiples of ``patch_size``; the
+    top and left get the smaller half of the padding."""
+    h, w = images.shape[1], images.shape[2]
+    pad_h = (patch_size - h % patch_size) % patch_size
+    pad_w = (patch_size - w % patch_size) % patch_size
+    if pad_h == 0 and pad_w == 0:
+        return images
+    pad_t, pad_l = pad_h // 2, pad_w // 2
+    # F.pad lists the last dim first: C, then W, then H
+    return torch.nn.functional.pad(
+        images, (0, 0, pad_l, pad_w - pad_l, pad_t, pad_h - pad_t))

@@ -103,3 +103,43 @@ def binary_cross_entropy(pred, target, eps=1e-7):
     objectness trainer, ``train_generic_objectness.py:575``)."""
     pred = pred.clamp(eps, 1 - eps)
     return -(target * torch.log(pred) + (1 - target) * torch.log1p(-pred)).mean()
+
+
+def masked_l1_loss(preds, target, mask_valid=None):
+    """``MaskedL1Loss``: the mean absolute error over the valid entries; a
+    one-channel mask is repeated across the prediction's channels."""
+    if mask_valid is None:
+        mask_valid = torch.ones_like(preds, dtype=torch.bool)
+    if preds.shape[-1] != mask_valid.shape[-1]:
+        mask_valid = mask_valid.repeat_interleave(preds.shape[-1], dim=-1)
+    m = mask_valid.to(preds.dtype)
+    return ((preds - target).abs() * m).sum() / m.sum().clamp_min(1)
+
+
+def _gaussian_window(window_size: int, sigma: float) -> torch.Tensor:
+    x = torch.arange(window_size, dtype=torch.float32) - window_size // 2
+    g = torch.exp(-(x**2) / (2 * sigma**2))
+    g = g / g.sum()
+    return torch.outer(g, g)
+
+
+def ssim(img1, img2, window_size=11, size_average=True):
+    """SSIM of NHWC images with an 11x11 gaussian window (sigma 1.5) as a
+    depthwise convolution with zero padding; C1 = 0.01^2, C2 = 0.03^2. The
+    mean over everything, or per image with ``size_average=False``."""
+    channel = img1.shape[-1]
+    weight = _gaussian_window(window_size, 1.5).to(img1.device, img1.dtype)
+    weight = weight.expand(channel, 1, window_size, window_size)
+
+    def conv(x):
+        return F.conv2d(x.permute(0, 3, 1, 2), weight, padding=window_size // 2,
+                        groups=channel).permute(0, 2, 3, 1)
+
+    mu1, mu2 = conv(img1), conv(img2)
+    mu1_sq, mu2_sq, mu1_mu2 = mu1**2, mu2**2, mu1 * mu2
+    s1 = conv(img1 * img1) - mu1_sq
+    s2 = conv(img2 * img2) - mu2_sq
+    s12 = conv(img1 * img2) - mu1_mu2
+    C1, C2 = 0.01**2, 0.03**2
+    m = ((2 * mu1_mu2 + C1) * (2 * s12 + C2)) / ((mu1_sq + mu2_sq + C1) * (s1 + s2 + C2))
+    return m.mean() if size_average else m.mean(dim=(1, 2, 3))

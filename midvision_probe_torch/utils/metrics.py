@@ -1,6 +1,7 @@
-"""Depth and surface-normal evaluation metrics (counterpart of the JAX
-package's ``utils/metrics.py``, its depth and normal subset) on torch
-tensors, plus the binned recall of the correspondence evaluations (numpy).
+"""Depth, surface-normal and Taskonomy evaluation metrics (counterpart of
+the JAX package's ``utils/metrics.py``, its depth, normal, curvature and
+reshading subset) on torch tensors, plus the binned recall of the
+correspondence evaluations (numpy).
 
 Depth maps are (B, H, W) or (B, H, W, 1); normals (B, H, W, 3[+1]);
 segmentation maps (B, H, W) int panoptic ids (OneFormer ADE20k-150).
@@ -273,4 +274,59 @@ def compute_binned_performance(y, x, x_bins):
     for i in range(len(x_bins) - 1):
         m = (x >= x_bins[i]) & (x < x_bins[i + 1])
         out.append(float(y[m].mean()) if m.any() else float("nan"))
+    return out
+
+
+def evaluate_curvature_absrel(norm_curvature, norm_gt_curvature, valid,
+                              image_average=False):
+    """Taskonomy principal-curvature metrics: per-channel (k1, k2) AbsRel
+    and the ratio thresholds 1.25, 2.5 and 3.75. Inputs NHWC with 2
+    channels; ``valid`` (B, H, W, 1 or 2). The divisions are the JAX
+    package's: ``|gt + 1e-6|`` under AbsRel, none in the ratio, so a zero
+    target gives the same inf or NaN in both."""
+    if valid.shape[-1] == 1:
+        valid = valid.repeat_interleave(2, dim=-1)
+    valid = valid.to(norm_curvature.dtype)
+    pred = norm_curvature[..., :2].clamp(-1.0, 1.0)
+    gt = norm_gt_curvature[..., :2]
+
+    abs_rel_c, d_c = [], []
+    for c in range(2):
+        p, g, v = pred[..., c], gt[..., c], valid[..., c]
+        num_valid = v.sum(dim=(1, 2)).clamp_min(1)
+        ar = (p - g).abs() / (g + 1e-6).abs()
+        abs_rel_c.append((ar * v).sum(dim=(1, 2)) / num_valid)
+        ratio = torch.maximum(p / g, g / p) * v
+        d_c.append([((ratio < th).float() * v).sum(dim=(1, 2)) / num_valid
+                    for th in (1.25, 1.25 * 2, 1.25 * 3)])
+
+    out = {"AbsRel": (abs_rel_c[0] + abs_rel_c[1]) / 2}
+    for k, nm in enumerate(["δ1.25", "δ2.5", "δ3.75"]):
+        out[f"{nm}_k1"] = d_c[0][k]
+        out[f"{nm}_k2"] = d_c[1][k]
+        out[f"{nm}_avg"] = (d_c[0][k] + d_c[1][k]) / 2
+    if image_average:
+        out = {k: v.mean() for k, v in out.items()}
+    return out
+
+
+def evaluate_reshading_absrel_and_delta(pred, target, mask,
+                                        thresholds=(1.1, 1.1**2, 1.1**3),
+                                        image_average=False):
+    """Taskonomy reshading metrics on one-channel maps: AbsRel and the
+    ratio thresholds over the masked pixels, ``+ 1e-6`` in each
+    denominator as the JAX package has it."""
+    pred = _squeeze_chan(pred)
+    target = _squeeze_chan(target)
+    mask = _squeeze_chan(mask).float()
+    pred = pred * mask
+    target = target * mask
+    num = mask.sum(dim=(1, 2)).clamp_min(1)
+    absrel = (pred - target).abs() / (target + 1e-6)
+    out = {"AbsRel": (absrel * mask).sum(dim=(1, 2)) / num}
+    for th in thresholds:
+        ratio = torch.maximum(pred / (target + 1e-6), target / (pred + 1e-6))
+        out[f"δ_{th}"] = ((ratio < th).float() * mask).sum(dim=(1, 2)) / num
+    if image_average:
+        out = {k: v.mean() for k, v in out.items()}
     return out

@@ -1,5 +1,5 @@
-"""Guards of the PyTorch port: it never imports JAX, the JAX package or
-pandas (the GPU host's packages need not include it), it names the JAX
+"""Guards of the PyTorch port: it never imports JAX, the JAX package,
+pandas or sklearn (the GPU host's packages need not include them), it names the JAX
 package only in its config-target mapping, and its entry points refuse to
 run on the CPU unless asked to."""
 
@@ -35,7 +35,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "    importlib.import_module(m)\n"
         "import chip_smoke\n"
         f"bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
-        f" or m.split('.')[0] in ('flax', 'optax', 'orbax', 'pandas', {JAX_PKG!r}))\n"
+        f" or m.split('.')[0] in ('flax', 'optax', 'orbax', 'pandas', 'sklearn', {JAX_PKG!r}))\n"
         "print('BAD', bad)\n"
         "sys.exit(1 if bad else 0)\n"
     )
@@ -96,6 +96,21 @@ def test_correspondence_drivers_raise_without_a_device_on_a_cpu_only_host(
     ("evaluate_model_percepture", ["dataset=synthetic_twoafc"]),
 ])
 def test_objectness_and_2afc_drivers_raise_without_a_device_on_a_cpu_only_host(
+        monkeypatch, tmp_path, driver, argv):
+    import importlib
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    module = importlib.import_module(f"midvision_probe_torch.{driver}")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        module.entry(["backbone=test_tiny", *argv, f"output_dir={tmp_path}"])
+    assert not list(tmp_path.iterdir())  # nothing ran on the CPU
+
+
+@pytest.mark.parametrize("driver,argv", [
+    ("train_taskonomy", ["dataset=taskonomy", "probe=taskonomy_dpt", "optimizer=one_epoch"]),
+    ("evaluate_spair_correspondence", ["data_root=absent", "image_size=64"]),
+])
+def test_taskonomy_and_spair_drivers_raise_without_a_device_on_a_cpu_only_host(
         monkeypatch, tmp_path, driver, argv):
     import importlib
 

@@ -85,15 +85,22 @@ def test_binary_head_train_and_eval_match_jax(rng, head_type, output_dim):
 
 
 def test_binary_head_default_output_dim_and_other_pred_types(rng):
-    """The reference constructor's two channels; the ``tanh`` and ``raw``
-    prediction types (``TaskonomyHead``'s, not ported) are refused before
-    anything is built; ``init_probe_`` starts the BatchNorm where flax's
-    init does."""
+    """The reference constructor's two channels; the ``tanh`` and raw
+    prediction types (no BatchNorm) match the JAX head's; ``init_probe_``
+    starts the BatchNorm where flax's init does."""
     feats = [rng.randn(1, 4, 4, 8).astype(np.float32) for _ in range(4)]
     jf = [jnp.asarray(f) for f in feats]
     for pred_type in ("tanh", "raw"):
-        with pytest.raises(NotImplementedError, match="only 'sigmoid' is ported"):
-            t_probes.BinaryHead(feat_dim=[8] * 4, pred_type=pred_type, hidden_dim=8)
+        jhead = j_probes.BinaryHead(feat_dim=[8] * 4, pred_type=pred_type, hidden_dim=8)
+        variables = jhead.init(jax.random.PRNGKey(2), jf)
+        assert "batch_stats" not in variables
+        thead = t_probes.BinaryHead(feat_dim=[8] * 4, pred_type=pred_type, hidden_dim=8)
+        thead.load_state_dict(probe_state_dict(_np_tree(variables["params"])))
+        with F32:
+            ref = np.asarray(jhead.apply(variables, jf))
+        with torch.no_grad():
+            got = thead([torch.from_numpy(f) for f in feats]).numpy()
+        np.testing.assert_allclose(got, ref, atol=1e-5, rtol=0, err_msg=pred_type)
     jhead = j_probes.BinaryHead(feat_dim=[8] * 4, hidden_dim=8)
     variables = jhead.init(jax.random.PRNGKey(1), jf)
     thead = t_probes.BinaryHead(feat_dim=[8] * 4, hidden_dim=8)
