@@ -10,8 +10,8 @@ when the port's package is not next to this file. Otherwise it prints one
 JSON line per phase and fails on the first failing phase:
 
 1. ``device``: the card (``nvidia-smi`` name and power limit), torch and
-   CUDA versions, whether ``datasets``, ``pyarrow``, scipy and PIL can be
-   imported, the time to build the CUDA kernels from ``csrc/`` and
+   CUDA versions, whether ``datasets``, ``pyarrow``, scipy, PIL and
+   matplotlib (which the port does not use) can be imported, the time to build the CUDA kernels from ``csrc/`` and
    ``gpu_state`` (SM clock, power draw, temperature, throttle reasons,
    sampled again in ``mlp_checks``, every ``forward`` and ``done``).
 2. ``kernel_checks``: the fused-qkv attention kernel (K1) against its plain
@@ -27,7 +27,8 @@ JSON line per phase and fails on the first failing phase:
 3. ``knn2_checks``: the exact 2-NN kernel (K4) against its plain twin
    (f32, TF32 off) at the ScanNet path's launch (B=4, N=M=19200, d=768),
    the NAVI path's (B=4, N=M=16384, d=768) with 30% of the targets
-   displaced to the path's far constant, a ragged, a wide (d=2048), a
+   displaced to the path's far constant, the NAVI render path's (the same
+   at B=1), a ragged, a wide (d=2048), a
    tiny, an odd-d, a 990-magnitude and an exact-tie case; at both path
    shapes with the kernel's, the twin's and ``torch.cdist(...).topk(2)``'s
    times (the last as a yardstick only; the port never calls it).
@@ -43,7 +44,10 @@ JSON line per phase and fails on the first failing phase:
    the objectness path's (B=16, N=901, H=12, d=64, bf16), the 2AFC path's
    f32 triplet batch (B=48, N=197, H=12, d=64), the SPair path's f32
    launch (B=16, N=2501: 800x800, a ragged last key tile of 69) and the
-   Taskonomy path's bf16 one (B=16, N=1025: 512x512), K1's bf16 cases
+   Taskonomy path's bf16 one (B=16, N=1025: 512x512), the DINOv2
+   B/14-reg forward's (B=64, N=1535: cls, 4 registers and 34x45 patches at
+   480x640, unpadded) and the DeiT-III B/16 forward's (B=64, N=577 at
+   384x384), K1's bf16 cases
    held to min(1.6e-2, 2^-6 * max|ref|) and its plain version run in
    chunks of images; timed
    cases with SDPA's time as the yardstick, the f32 ones with the bound of
@@ -145,6 +149,28 @@ JSON line per phase and fails on the first failing phase:
    losses, AbsRel >= 0 and the ratio thresholds in [0, 1], one CSV row, K1
    12 per backbone forward on wgmma, wall time, the init draw's time and
    reader calls, and peak memory.
+9f. ``path_depth_resnet50``: the depth trainer through its ``entry``,
+   ``backbone=simclr_resnet50 dataset=nyu probe=depth_dpt`` with
+   ``render_images`` at its default (on), batch 8, bf16, on the fabricated
+   NYU tree of ``path_snorm_nyu`` (16 + 8 frames at 480x640) with SimCLR's
+   trunk loaded from a full-size fabricated VISSL ``simclr_resnet50.torch``
+   (``data_processing/torch_replicas.py``): every loaded tensor equal to
+   the file's, no random init, the taps (256 channels at 1/4 of the input
+   to 2048 at 1/32), finite losses, one CSV row, the artifacts by count
+   (2 x min(8, B) first-batch PNGs, 4 files per test image of the first 6
+   batches, one scatter PNG), no hand-written kernel launched (cuDNN's
+   convolutions), wall time and peak memory.
+9g. ``path_depth_dinov2_reg``: the depth trainer as ``path`` on DINOv2
+   B/14 with 4 registers (34x45 grid, N = 1535) with ``render_images`` on:
+   K1 12 per backbone forward on wgmma, the artifacts by count.
+9h. ``path_render_navi``: the NAVI render driver
+   (``midvision_probe_torch.render_navi_correspondence``) on dino_b16
+   (bf16), ``synthetic_navi_hard`` at 512x512, num_corr=1000, 8 pairs of
+   batch 1: ``errors.json`` per pair and ``matches.png`` where it has
+   matches, K1 24 and K4 one a pair.
+9i. ``path_scannet_render``: the ScanNet driver as ``path_scannet`` with
+   ``+render_every=4``: instances 0 and 4 rendered (three PNGs and
+   ``correspondence_metrics.json`` each), wall time.
 10. ``forward``: the frozen forward in images per second per card (CUDA
    events), peak memory and a profiler breakdown by kernel, with the launch
    counts per forward: dino_vitb16 (the bench protocol: 480x640, batch 64,
@@ -152,7 +178,11 @@ JSON line per phase and fails on the first failing phase:
    60x80 and a 34x45 grid, K1 12 and 24 per forward), crocov2_vitb16
    (224x224, batch 64, bf16), radio_v2 (480x640, batch 64, bf16) and
    radio_v2 in float32 at 1024x1024 (batch 2, N=4097: the shape that takes
-   the long-sequence route, K3).
+   the long-sequence route, K3); dinov2_vitb14_reg and dinov2_vitl14 at
+   480x640 (K1 12 and 24 per forward), deit3_vitb16 at 384x384 (K1 12),
+   beitv2_vitb16 at 224x224 and midas_l16 at 384x384 (the biased einsum
+   route: no kernel) and simclr_resnet50 at 480x640 (cuDNN: no kernel), all
+   batch 64, bf16.
 11. ``bench_attn``: the attention bench through its entry point
    (``midvision_probe_torch.bench_attn.main``) with every variant (``base``
    K1, ``wide4``/``stagger4``/``wide12`` K7, ``int8`` K8, ``splash`` K9):
@@ -420,6 +450,8 @@ def phase_knn2_checks(torch):
     cases = [
         ("scannet_main", 4, 19200, 19200, 768, "unit", True),
         ("navi_main_masked", 4, 16384, 16384, 768, "masked", True),
+        # the NAVI render driver's launch: one pair a batch
+        ("navi_render_masked", 1, 16384, 16384, 768, "masked", True),
         ("ragged", 2, 1000, 777, 768, "unit", False),
         ("wide", 1, 2048, 3000, 2048, "unit", False),
         ("large_magnitude", 1, 64, 100, 128, "large_magnitude", False),
@@ -525,6 +557,11 @@ def phase_attention_checks(torch):
         # 16 at 512x512)
         ("spair_dino_k1_fp32", "K1", 16, 12, 2501, 64, f32, True),
         ("taskonomy_dino_k1_bf16", "K1", 16, 12, 1025, 64, bf16, True),
+        # the new ViT forwards' launches (batch 64): DINOv2 B/14-reg at
+        # 480x640 (cls + 4 registers + 34x45 patches, unpadded: the port's
+        # ViT does not pad to 128) and DeiT-III B/16 at 384x384
+        ("dinov2_reg_k1_bf16", "K1", 64, 12, 1535, 64, bf16, True),
+        ("deit3_k1_bf16", "K1", 64, 12, 577, 64, bf16, True),
     ]
     results = []
     for name, kernel, B, H, N, d, dtype, timed in cases:
@@ -1032,6 +1069,13 @@ VIT_B_F32_PER_FORWARD = {"k1": 12, "k2": 0, "k3": 0, "k5": 0, **NO_BENCH_KERNELS
                          **on_route("tf32x3", 12)}
 
 
+# launches per backbone forward of the backbones that reach no hand-written
+# kernel: the relative-position-bias ViTs (BEiT-v2, MiDaS; the biased
+# einsum route, as in the JAX package) and ResNet-50 (cuDNN convolutions)
+NO_KERNEL_PER_FORWARD = {"k1": 0, "k2": 0, "k3": 0, "k4": 0, "k5": 0, **NO_BENCH_KERNELS,
+                         **on_route("wgmma", 0)}
+
+
 BENCH_VARIANTS = ("base", "wide4", "stagger4", "wide12", "int8", "splash")
 # every bench variant's max abs error against the f32 oracle: a few bf16
 # ulps at the output's largest magnitude (~0.25), plus int8's quantization
@@ -1132,14 +1176,16 @@ def profile_entry(torch, module, argv) -> dict:
 
 
 def phase_correspondence(torch, phase, module, argv, n_pairs, batch_pairs, k4_ms,
-                         per_forward):
+                         per_forward, artifacts=None, profile=True):
     """One correspondence driver through its ``entry`` on the card: the
     CSV row, the launch counts (K4 once per pair batch; the attention
     kernels ``per_forward`` times per backbone forward, two forwards per
     batch), wall time, peak memory and K4's share of the wall time
     (launches x ``k4_ms``, K4's time at this path's shape in
-    ``knn2_checks``); then a profiled run for the device's busy share and
-    its top kernels. Returns the launch counts of the first run."""
+    ``knn2_checks``); then, with ``profile``, a profiled run for the
+    device's busy share and its top kernels. ``artifacts(out_dir)`` reads
+    the run's files: ``(report, checks)``. Returns the launch counts of the
+    first run."""
     out_dir = tempfile.mkdtemp(prefix="mvp_chip_smoke_")
     try:
         torch.cuda.reset_peak_memory_stats()
@@ -1150,6 +1196,7 @@ def phase_correspondence(torch, phase, module, argv, n_pairs, batch_pairs, k4_ms
         wall = time.perf_counter() - t0
         counts = read_counts()
         csvs = [f for f in os.listdir(out_dir) if f.endswith(".csv")]
+        files, file_checks = artifacts(out_dir) if artifacts else ({}, {})
     finally:
         shutil.rmtree(out_dir, ignore_errors=True)
     row = {k: float(v) for k, v in out["row"].items()}
@@ -1162,7 +1209,10 @@ def phase_correspondence(torch, phase, module, argv, n_pairs, batch_pairs, k4_ms
            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
            "k4_ms_per_launch": k4_ms,
            "k4_share_of_wall": counts["k4"] * k4_ms / (wall * 1e3)}
-    res.update(profile_entry(torch, module, argv))
+    if artifacts:
+        res["artifacts"] = files
+    if profile:
+        res.update(profile_entry(torch, module, argv))
     emit(res)
     recalls = [v for k, v in row.items() if not k.startswith("Bin")]
     bins = [v for k, v in row.items() if k.startswith("Bin")]
@@ -1178,41 +1228,99 @@ def phase_correspondence(torch, phase, module, argv, n_pairs, batch_pairs, k4_ms
         "k4_once_per_batch": counts["k4"] == batches,
         "two_forwards_per_batch": counts["forwards"] == 2 * batches,
         "attention_per_forward": per_forward_ok(counts, per_forward),
+        **file_checks,
     }
     if not all(checks.values()):
         raise SystemExit(f"{phase} check failed: {checks}")
     return counts
 
 
-def phase_path(torch, phase, backbone, per_forward):
+def scannet_render_artifacts(n_pairs: int, render_every: int):
+    """``artifacts`` of the ScanNet driver's renders: under its render
+    directory, ``instance_{i}`` for every ``render_every``-th pair, each with
+    the three PNGs and ``correspondence_metrics.json``."""
+    expected = {f"instance_{i}" for i in range(0, n_pairs, render_every)}
+    names = {"original_views.png", "correspondences.png", "correspondences_sparse200.png",
+             "correspondence_metrics.json"}
+
+    def read(out_dir):
+        found = {}
+        for dirpath, _, files in os.walk(out_dir):
+            if os.path.basename(dirpath).startswith("instance_"):
+                found[os.path.basename(dirpath)] = sorted(files)
+        return ({"instances": found},
+                {"instances_rendered": set(found) == expected,
+                 "three_pngs_and_json_each": all(set(f) == names for f in found.values())})
+
+    return read
+
+
+def depth_artifacts(out_dir: str, n_test: int, batch: int) -> tuple[dict, dict]:
+    """The depth trainer's ``render_images`` files in a run's output
+    directory: ``2 * min(8, B)`` first-batch PNGs and 4 files (pred and
+    target PNG, metrics JSON and TXT) per test image of the first 6 batches
+    under ``val_images/``, and one scatter PNG under ``plots/``."""
+    val, plots = [], []
+    for dirpath, _, files in os.walk(out_dir):
+        if os.path.basename(dirpath) == "val_images":
+            val += files
+        elif os.path.basename(dirpath) == "plots":
+            plots += [f for f in files if f.endswith(".png")]
+    first = [f for f in val if f.startswith("firstbatch_")]
+    dumped = min(n_test, 6 * batch)
+    per_image = {kind: len([f for f in val if f.startswith(kind)])
+                 for kind in ("pred_depth_", "target_depth_")}
+    per_image.update({ext: len([f for f in val if f.startswith("metrics_depth_")
+                                and f.endswith(ext)]) for ext in (".json", ".txt")})
+    report = {"firstbatch_pngs": len(first), "per_image_files": per_image,
+              "scatter_pngs": len(plots)}
+    return report, {"firstbatch_pngs": len(first) == 2 * min(8, batch, n_test),
+                    "four_files_per_dumped_image":
+                        all(n == dumped for n in per_image.values())
+                        and len(val) == len(first) + 4 * dumped,
+                    "one_scatter_png": len(plots) == 1}
+
+
+# the depth paths' synthetic set and batch (its test split as large)
+DEPTH_ITEMS, DEPTH_BATCH = 16, 8
+
+
+def phase_path(torch, phase, backbone, per_forward, render=False):
     """The depth trainer through its ``entry`` on ``backbone`` (480x640
-    synthetic data, DPT probe, bf16 backbone): losses, the CSV row, the
-    launch counts (``per_forward`` per backbone forward), wall time and
-    peak memory. Returns the launch counts."""
+    synthetic data, 16 instances, DPT probe, bf16 backbone): losses, the
+    CSV row, the launch counts (``per_forward`` per backbone forward), wall
+    time and peak memory; with ``render``, ``render_images`` at its default
+    (on) and its files counted (``depth_artifacts``). Returns the launch
+    counts."""
     from midvision_probe_torch import train_depth
 
     out_dir = tempfile.mkdtemp(prefix="mvp_chip_smoke_")
     try:
         argv = [f"backbone={backbone}", "dataset=synthetic",
-                "dataset.image_size=[480,640]", "dataset.num_instances=16",
-                "probe=depth_dpt", "batch_size=8", "optimizer=one_epoch",
-                "+system.backbone_dtype=bfloat16", "+render_images=False",
-                f"output_dir={out_dir}"]
+                "dataset.image_size=[480,640]", f"dataset.num_instances={DEPTH_ITEMS}",
+                "probe=depth_dpt", f"batch_size={DEPTH_BATCH}", "optimizer=one_epoch",
+                "+system.backbone_dtype=bfloat16"]
+        if not render:
+            argv.append("+render_images=False")
         torch.cuda.reset_peak_memory_stats()
         reset_counts()
         t0 = time.perf_counter()
-        row = train_depth.entry(argv)
+        row = train_depth.entry(argv + [f"output_dir={out_dir}"])
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         counts = read_counts()
         csvs = [f for f in os.listdir(out_dir) if f.endswith(".csv")]
+        files, file_checks = (depth_artifacts(out_dir, DEPTH_ITEMS, DEPTH_BATCH) if render
+                              else ({}, {}))
     finally:
         shutil.rmtree(out_dir, ignore_errors=True)
     losses = row.pop("train_losses")
-    res = {"phase": phase, "argv": argv[:-1], "train_losses": losses,
+    res = {"phase": phase, "argv": argv, "train_losses": losses,
            "csv_files": csvs, "csv_row": row, "launches": counts,
            "backbone_forwards": counts["forwards"], "wall_s": wall,
            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30}
+    if render:
+        res["artifacts"] = files
     emit(res)
     checks = {
         "losses_finite": bool(losses) and all(math.isfinite(x) for x in losses),
@@ -1220,6 +1328,7 @@ def phase_path(torch, phase, backbone, per_forward):
         "sa_rmse_finite": math.isfinite(row["sa_rmse"]),
         "sa_d1_in_unit": 0.0 <= row["sa_d1"] <= 1.0,
         "attention_per_forward": per_forward_ok(counts, per_forward),
+        **file_checks,
     }
     if not all(checks.values()):
         raise SystemExit(f"{phase} check failed: {checks}")
@@ -1449,6 +1558,154 @@ def phase_path_snorm_nyu(torch, smi: str):
     }
     if not all(checks.values()):
         raise SystemExit(f"path_snorm_nyu check failed: {checks}")
+    return counts
+
+
+def phase_path_depth_resnet50(torch, smi: str):
+    """The depth trainer through its ``entry`` on ``backbone=simclr_resnet50
+    dataset=nyu probe=depth_dpt`` with ``render_images`` at its default
+    (on), batch 8, one epoch, bf16, on a fabricated NYU tree (16 GeoNet
+    train and 8 test frames at 480x640) with SimCLR's trunk loaded from a
+    full-size fabricated VISSL ``simclr_resnet50.torch``
+    (``data_processing/torch_replicas.py``'s ``wrap_vissl`` around its
+    torchvision-layout ``TorchResNet50``) under a temporary
+    ``$MVP_CHECKPOINT_DIR``. Checks: every trunk tensor the zoo loads equal
+    to the file's (in bf16; only BatchNorm's ``num_batches_tracked`` left
+    out), no random init, the four taps' shapes at 480x640, finite losses,
+    one CSV row, the artifacts by count (``depth_artifacts``) and no
+    hand-written kernel launched (cuDNN's convolutions); wall time and
+    peak memory. Returns the launch counts."""
+    from midvision_probe_torch import train_depth
+    from midvision_probe_torch.models import zoo
+
+    sys.path.insert(0, os.path.join(HERE, "data_processing"))
+    from torch_replicas import TorchResNet50, wrap_vissl
+
+    root = tempfile.mkdtemp(prefix="mvp_chip_smoke_r50_")
+    try:
+        make_nyu_tree(os.path.join(root, "train"),
+                      [f"scene_{i:04d}_{i * 7}" for i in range(SNORM_TRAIN_FRAMES)], seed=30)
+        make_nyu_tree(os.path.join(root, "test"),
+                      [f"nyuv2_test_{i}" for i in range(SNORM_TEST_FRAMES)], seed=31)
+        ckpt_dir = os.path.join(root, "checkpoints")
+        os.makedirs(ckpt_dir)
+        trunk = TorchResNet50(seed=7).state_dict()
+        torch.save(wrap_vissl(trunk), os.path.join(ckpt_dir,
+                                                   zoo.ZOO["simclr_resnet50"].filename))
+        with checkpoints_in(ckpt_dir) as random_inits:
+            t0 = time.perf_counter()
+            ext = zoo.SIMCLR(return_layers=[1, 2, 3, 4], return_multilayer=True,
+                             dtype="bfloat16", device="cuda")
+            torch.cuda.synchronize()
+            load_s = time.perf_counter() - t0
+            loaded = ext.module.state_dict()
+            mismatched = [k for k, v in loaded.items()
+                          if not torch.equal(v.cpu(), trunk[k].to(torch.bfloat16))]
+            not_loaded = sorted(set(trunk) - set(loaded))
+            with torch.no_grad():
+                taps = [tuple(t.shape[1:]) for t in
+                        ext.features(torch.randn(1, 480, 640, 3, device="cuda"))]
+            del ext, loaded
+            torch.cuda.empty_cache()
+
+            out_dir = os.path.join(root, "out")
+            argv = ["backbone=simclr_resnet50", "dataset=nyu",
+                    f"dataset.train_path={os.path.join(root, 'train')}",
+                    f"dataset.test_path={os.path.join(root, 'test')}", "probe=depth_dpt",
+                    "batch_size=8", "optimizer=one_epoch", "+system.backbone_dtype=bfloat16",
+                    f"output_dir={out_dir}"]
+            torch.cuda.reset_peak_memory_stats()
+            reset_counts()
+            t0 = time.perf_counter()
+            row = train_depth.entry(argv)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = read_counts()
+        csvs = [f for f in os.listdir(out_dir) if f.endswith(".csv")]
+        files, file_checks = depth_artifacts(out_dir, SNORM_TEST_FRAMES, 8)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    losses = row.pop("train_losses")
+    res = {"phase": "path_depth_resnet50", "argv": [a for a in argv if root not in a],
+           "frames": {"train": SNORM_TRAIN_FRAMES, "test": SNORM_TEST_FRAMES},
+           "checkpoint_load_build_s": load_s, "trunk_tensors": len(trunk),
+           "trunk_keys_not_loaded": len(not_loaded), "mismatched_tensors": mismatched,
+           "random_init_calls": len(random_inits), "taps_at_480x640": taps,
+           "train_losses": losses, "csv_files": csvs, "csv_row": row, "launches": counts,
+           "backbone_forwards": counts["forwards"], "artifacts": files, "wall_s": wall,
+           "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+           "nvidia_smi": smi, "gpu_state": gpu_state()}
+    emit(res)
+    checks = {
+        "weights_loaded": not mismatched,
+        "only_num_batches_tracked_dropped": bool(not_loaded) and all(
+            k.endswith(".num_batches_tracked") for k in not_loaded),
+        "no_random_init": not random_inits,
+        "taps": taps == [(120, 160, 256), (60, 80, 512), (30, 40, 1024), (15, 20, 2048)],
+        "losses_finite": bool(losses) and all(math.isfinite(x) for x in losses),
+        "csv_written": csvs == ["depth_results_NYUv2_final.csv"],
+        "sa_d1_in_unit": 0.0 <= row["sa_d1"] <= 1.0,
+        "no_kernel": per_forward_ok(counts, NO_KERNEL_PER_FORWARD),
+        **file_checks,
+    }
+    if not all(checks.values()):
+        raise SystemExit(f"path_depth_resnet50 check failed: {checks}")
+    return counts
+
+
+# the NAVI render path's pairs (``render_navi_correspondence.run``'s max_pairs)
+NAVI_RENDER_PAIRS = 8
+
+
+def phase_path_render_navi(torch, smi: str):
+    """The NAVI render driver (``midvision_probe_torch.render_navi_
+    correspondence``) through its ``entry`` on ``dino_b16`` (bf16, random
+    weights), ``synthetic_navi_hard`` at 512x512, num_corr=1000, scale
+    0.25, 8 pairs of batch 1: ``pair_{i}/errors.json`` for each pair and
+    ``matches.png`` where it has matches, K1 24 a pair (two forwards of 12)
+    on wgmma, K4 once a pair, wall time and peak memory. Returns the launch
+    counts."""
+    from midvision_probe_torch import render_navi_correspondence
+
+    argv = ["backbone=dino_b16", "dataset=synthetic_navi_hard", "dataset.image_size=512",
+            "num_corr=1000", "scale_factor=0.25", "+system.backbone_dtype=bfloat16"]
+    out_dir = tempfile.mkdtemp(prefix="mvp_chip_smoke_")
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.perf_counter()
+        render_dir = render_navi_correspondence.entry(argv + [f"output_dir={out_dir}"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+        pairs = {}
+        for name in sorted(os.listdir(render_dir)):
+            with open(os.path.join(render_dir, name, "errors.json")) as f:
+                errors = json.load(f)
+            pairs[name] = {"num_matches": errors["num_matches"],
+                           "err3d_mean": errors["err3d_mean"],
+                           "files": sorted(os.listdir(os.path.join(render_dir, name)))}
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    res = {"phase": "path_render_navi", "argv": argv, "pairs": pairs, "launches": counts,
+           "backbone_forwards": counts["forwards"], "wall_s": wall,
+           "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+           "nvidia_smi": smi, "gpu_state": gpu_state()}
+    emit(res)
+    checks = {
+        "every_pair": sorted(pairs) == [f"pair_{i}" for i in range(NAVI_RENDER_PAIRS)],
+        "png_where_matches": all(
+            p["files"] == (["errors.json", "matches.png"] if p["num_matches"] else
+                           ["errors.json"]) for p in pairs.values()),
+        "some_matches": any(p["num_matches"] for p in pairs.values()),
+        "errors_finite": all(p["err3d_mean"] is None or math.isfinite(p["err3d_mean"])
+                             for p in pairs.values()),
+        "k4_once_per_pair": counts["k4"] == NAVI_RENDER_PAIRS,
+        "two_forwards_per_pair": counts["forwards"] == 2 * NAVI_RENDER_PAIRS,
+        "attention_per_forward": per_forward_ok(counts, DINO_PER_FORWARD),
+    }
+    if not all(checks.values()):
+        raise SystemExit(f"path_render_navi check failed: {checks}")
     return counts
 
 
@@ -1974,25 +2231,35 @@ def phase_path_taskonomy(torch, smi: str):
     return counts
 
 
-def phase_forward(torch, smi: str, model, batch, hw, dtype, per_forward, grid, width,
-                  iters=10):
-    """The frozen forward of ``model`` (4 taps) on a batch made on the card:
+def vit_taps(grid, width) -> list:
+    """The four (h, w, C) tap shapes of a ViT forward."""
+    return [(*grid, width)] * 4
+
+
+def phase_forward(torch, smi: str, model, batch, hw, dtype, per_forward, tap_shapes,
+                  iters=10, build=None):
+    """The frozen forward of ``model`` (4 taps; ``build`` makes its
+    extractor, default ``zoo.build_vit_extractor``) on a batch made on the card:
     images per second per card (CUDA events), peak memory, a profiler
-    breakdown of one forward by kernel, and the launch counts
-    (``per_forward`` per forward, counted over every forward of the phase).
-    Returns the launch counts."""
+    breakdown of one forward by kernel, the taps against ``tap_shapes``,
+    and the launch counts (``per_forward`` per forward, counted over every
+    forward of the phase). Returns the launch counts."""
     from midvision_probe_torch.models.zoo import build_vit_extractor
 
     t0 = time.perf_counter()
-    backbone = build_vit_extractor(model, return_multilayer=True, dtype=dtype, device="cuda")
+    if build is None:
+        backbone = build_vit_extractor(model, return_multilayer=True, dtype=dtype,
+                                       device="cuda")
+    else:
+        backbone = build(dtype)
     build_s = time.perf_counter() - t0
     images = torch.randn(batch, *hw, 3, device="cuda")
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
     ms = cuda_ms(torch, lambda: backbone.features(images), iters=iters, warmup=2)
     feats = backbone.features(images)
-    shapes_ok = all(tuple(f.shape) == (batch, *grid, width) and bool(torch.isfinite(f).all())
-                    for f in feats)
+    shapes_ok = [tuple(f.shape) for f in feats] == [(batch, *t) for t in tap_shapes] and all(
+        bool(torch.isfinite(f).all()) for f in feats)
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
                                             torch.profiler.ProfilerActivity.CUDA]) as prof:
         backbone.features(images)
@@ -2067,7 +2334,7 @@ def main() -> int:
           "cuda": torch.version.cuda, "device_name": torch.cuda.get_device_name(0),
           # the Taskonomy reader's HF directories need `datasets` (and pyarrow)
           "packages": {m: importlib.util.find_spec(m) is not None
-                       for m in ("datasets", "pyarrow", "scipy", "PIL")},
+                       for m in ("datasets", "pyarrow", "scipy", "PIL", "matplotlib")},
           "sources": list(cuda_build.KERNEL_SOURCES),
           "build_s": time.perf_counter() - t0, "ptxas": ptxas, "gpu_state": gpu_state()})
 
@@ -2110,27 +2377,69 @@ def main() -> int:
     torch.cuda.empty_cache()
     by_path["path_taskonomy"] = phase_path_taskonomy(torch, smi)
     torch.cuda.empty_cache()
+    by_path["path_depth_resnet50"] = phase_path_depth_resnet50(torch, smi)
+    torch.cuda.empty_cache()
+    by_path["path_depth_dinov2_reg"] = phase_path(
+        torch, "path_depth_dinov2_reg", "dinov2_b14_reg", DINO_PER_FORWARD, render=True)
+    torch.cuda.empty_cache()
+    by_path["path_render_navi"] = phase_path_render_navi(torch, smi)
+    torch.cuda.empty_cache()
+    # path_scannet's run with the pair renders of every 4th pair (0 and 4)
+    by_path["path_scannet_render"] = phase_correspondence(
+        torch, "path_scannet_render", render_scannet_correspondence,
+        ["backbone=dino_b16"] + common + ["dataset=synthetic_scannet_hard",
+                                          "dataset.image_hw=[480,640]", "+render_every=4"],
+        8, 4, knn2_checks["scannet_main"]["kernel_ms"], DINO_PER_FORWARD,
+        artifacts=scannet_render_artifacts(8, 4), profile=False)
+    torch.cuda.empty_cache()
 
     bf16 = torch.bfloat16
     by_path["forward_dino_vitb16"] = phase_forward(
-        torch, smi, "dino_vitb16", 64, (480, 640), bf16, DINO_PER_FORWARD, (30, 40), 768)
+        torch, smi, "dino_vitb16", 64, (480, 640), bf16, DINO_PER_FORWARD,
+        vit_taps((30, 40), 768))
     by_path["forward_dino_vitb8"] = phase_forward(
-        torch, smi, "dino_vitb8", 64, (480, 640), bf16, DINO_PER_FORWARD, (60, 80), 768)
+        torch, smi, "dino_vitb8", 64, (480, 640), bf16, DINO_PER_FORWARD,
+        vit_taps((60, 80), 768))
     # patch 14 leaves 4 rows and 10 columns of pixels, which the patch conv
     # drops (the top-left is kept)
     by_path["forward_clip_vitl14"] = phase_forward(
-        torch, smi, "clip_vitl14", 64, (480, 640), bf16, CLIP_L_PER_FORWARD, (34, 45), 1024)
+        torch, smi, "clip_vitl14", 64, (480, 640), bf16, CLIP_L_PER_FORWARD,
+        vit_taps((34, 45), 1024))
     by_path["forward_crocov2_vitb16"] = phase_forward(
         torch, smi, "crocov2_vitb16", 64, (224, 224), bf16, CROCOV2_PER_FORWARD,
-        (14, 14), 768)
+        vit_taps((14, 14), 768))
     by_path["forward_radio_v2"] = phase_forward(
-        torch, smi, "radio_v2", 64, (480, 640), bf16, RADIO_PER_FORWARD, (30, 40), 1280)
+        torch, smi, "radio_v2", 64, (480, 640), bf16, RADIO_PER_FORWARD,
+        vit_taps((30, 40), 1280))
     # f32 at 1024x1024: K+V of 4097 tokens at d=80 exceed 2 MB, the JAX
     # package's split to its flash kernel (K3)
     by_path["forward_radio_v2_fp32_1024"] = phase_forward(
         torch, smi, "radio_v2", 2, (1024, 1024), torch.float32,
         {"k1": 0, "k2": 0, "k3": 32, "k5": 0, **NO_BENCH_KERNELS, **on_route("tf32x3", 32)},
-        (64, 64), 1280, iters=3)
+        vit_taps((64, 64), 1280), iters=3)
+    # the LayerScale, register and relative-position-bias ViTs and ResNet-50
+    by_path["forward_dinov2_vitb14_reg"] = phase_forward(
+        torch, smi, "dinov2_vitb14_reg", 64, (480, 640), bf16, DINO_PER_FORWARD,
+        vit_taps((34, 45), 768))
+    by_path["forward_dinov2_vitl14"] = phase_forward(
+        torch, smi, "dinov2_vitl14", 64, (480, 640), bf16, CLIP_L_PER_FORWARD,
+        vit_taps((34, 45), 1024))
+    by_path["forward_deit3_vitb16"] = phase_forward(
+        torch, smi, "deit3_vitb16", 64, (384, 384), bf16, DINO_PER_FORWARD,
+        vit_taps((24, 24), 768))
+    by_path["forward_beitv2_vitb16"] = phase_forward(
+        torch, smi, "beitv2_vitb16", 64, (224, 224), bf16, NO_KERNEL_PER_FORWARD,
+        vit_taps((14, 14), 768))
+    by_path["forward_midas_l16"] = phase_forward(
+        torch, smi, "midas_l16", 64, (384, 384), bf16, NO_KERNEL_PER_FORWARD,
+        vit_taps((24, 24), 1024))
+    from midvision_probe_torch.models.zoo import SIMCLR
+
+    by_path["forward_resnet50"] = phase_forward(
+        torch, smi, "simclr_resnet50", 64, (480, 640), bf16, NO_KERNEL_PER_FORWARD,
+        [(120, 160, 256), (60, 80, 512), (30, 40, 1024), (15, 20, 2048)],
+        build=lambda dtype: SIMCLR(return_layers=[1, 2, 3, 4], return_multilayer=True,
+                                   dtype=dtype, device="cuda"))
     by_path["bench_attn"] = phase_bench_attn(torch)
     by_path["path_fused_mlp"] = phase_path_fused_mlp(torch)
     emit({"phase": "done", "total_s": time.perf_counter() - t_start, "gpu_state": gpu_state()})
@@ -2147,9 +2456,12 @@ def main() -> int:
                                        for case in ("dino_vitb8_k1_bf16", "clip_vitl14_k1_bf16",
                                                     "objectness_dino_k1_bf16",
                                                     "twoafc_clip_k1_fp32", "spair_dino_k1_fp32",
-                                                    "taskonomy_dino_k1_bf16")}),
+                                                    "taskonomy_dino_k1_bf16",
+                                                    "dinov2_reg_k1_bf16", "deit3_k1_bf16")}),
         kernel_entry("knn2", "knn2.cu", f"{ops}/matching.py:64", "k4", by_path,
-                     knn2_checks["scannet_main"], "wgmma"),
+                     knn2_checks["scannet_main"], "wgmma",
+                     navi_render_shape={**case_numbers(knn2_checks["navi_render_masked"]),
+                                        "shape": [1, 16384, 16384, 768]}),
         kernel_entry("vit_attention", "vit_attention.cu", f"{ops}/vit_attention.py:129",
                      "k2", by_path, attn_checks["radio_main_bf16"],
                      attn_checks["radio_main_bf16"]["route_ran"]),

@@ -239,7 +239,8 @@ def _locate(target: str) -> Any:
     if not hasattr(module, attr):
         raise NotImplementedError(
             f"config target '{target}' has no counterpart in the PyTorch port "
-            f"yet ({module_name} has no '{attr}')")
+            f"yet ({module_name} has no '{attr}'; ROADMAP.md section 1 lists "
+            "what is left)")
     return getattr(module, attr)
 
 

@@ -10,7 +10,11 @@ Layout rules:
 * LayerNorm/BatchNorm ``scale`` -> ``weight``; BatchNorm statistics
   ``mean``/``var`` -> ``running_mean``/``running_var``;
 * ViT ``blocks_{i}`` -> ``blocks.{i}``, ``patch_embed`` -> ``patch_embed.proj``,
-  the ``(T, C)`` pos-embed table -> ``(1, T, C)``;
+  the ``(T, C)`` pos-embed table -> ``(1, T, C)``; LayerScale's
+  ``gamma_1``/``gamma_2``, ``register_tokens`` and each block's
+  ``attn.rel_pos_bias_table`` keep their names;
+* ResNet ``layer{s}_{b}`` -> ``layer{s}.{b}``, ``downsample_conv`` /
+  ``downsample_bn`` -> ``downsample.0`` / ``.1`` (torchvision's names);
 * a head's auto-named decoder (``DPT_0``, ``Linear_0``, ``MultiscaleHead_0``)
   -> ``decoder``.
 """
@@ -25,6 +29,8 @@ import torch
 
 _DECODER = re.compile(r"^(DPT|Linear|MultiscaleHead)_0$")
 _BLOCK = re.compile(r"^blocks_(\d+)$")
+_RESNET_BLOCK = re.compile(r"^(layer\d)_(\d+)$")
+_RESNET_DOWNSAMPLE = {"downsample_conv": "downsample.0", "downsample_bn": "downsample.1"}
 
 
 def _flatten(tree: Mapping, prefix: tuple = ()):
@@ -70,6 +76,18 @@ def vit_state_dict(variables: Mapping) -> dict[str, torch.Tensor]:
     sd = _to_state_dict(variables["params"], rename)
     if "pos_embed" in sd:
         sd["pos_embed"] = sd["pos_embed"][None]
+    return sd
+
+
+def resnet_state_dict(variables: Mapping) -> dict[str, torch.Tensor]:
+    """JAX ``ResNet50`` variables (``{"params": ..., "batch_stats": ...}``)
+    -> port ``ResNet50`` state_dict (torchvision's key names)."""
+    def rename(m):
+        b = _RESNET_BLOCK.match(m)
+        return f"{b.group(1)}.{b.group(2)}" if b else _RESNET_DOWNSAMPLE.get(m, m)
+
+    sd = _to_state_dict(variables["params"], rename)
+    sd.update(_to_state_dict(variables["batch_stats"], rename))
     return sd
 
 

@@ -20,7 +20,7 @@ import torch
 import torch.nn as nn
 
 from midvision_probe_torch.models.feature_extractor import FeatureExtractor
-from midvision_probe_torch.models.probes import TapNorms, init_probe_
+from midvision_probe_torch.models.probes import TapNorms, _channels, init_probe_
 from midvision_probe_torch.utils.device import resolve_device, resolve_dtype
 from midvision_probe_torch.utils.optim import make_adamw
 
@@ -60,9 +60,10 @@ class ProbeTrainer:
 
     def __post_init__(self):
         self.device = resolve_device(self.device)
+        # one entry per tap: a width, or a ResNet's (C, hw) pair
         dims = self.backbone.feat_dim
-        dims = list(dims) if isinstance(dims, (list, tuple)) else [dims]
-        self.tap_norms = TapNorms(dims) if self.add_norm else None
+        dims = dims if isinstance(dims, list) else [dims]
+        self.tap_norms = TapNorms(_channels(dims)) if self.add_norm else None
         # the trained modules: probe + tap-norms (state_dict keys probe.*, tap.*)
         self.modules = nn.ModuleDict({"probe": self.probe})
         if self.tap_norms is not None:

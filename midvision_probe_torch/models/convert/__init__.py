@@ -12,13 +12,16 @@ into the port whether they come from JAX or from a file.
 * ``convert_vit_hf``   — HuggingFace ViT/ViTMAE layout (split q/k/v),
 * ``convert_radio``    — NVIDIA RADIO, with its input conditioner's
   mean and std,
-* ``convert_vit_openclip`` — open_clip / OpenAI CLIP visual towers.
+* ``convert_vit_openclip`` — open_clip / OpenAI CLIP visual towers,
+* ``convert_resnet50`` — torchvision-layout ResNet-50 trunks, to the JAX
+  ``ResNet50`` layout (``convert.from_jax.resnet_state_dict`` maps it).
 
-The ResNet, ConvNeXt and SAM converters are not ported yet.
+The ConvNeXt and SAM converters are not ported yet.
 """
 
 from midvision_probe_torch.models.convert.clip_convert import convert_vit_openclip  # noqa: F401
 from midvision_probe_torch.models.convert.radio_convert import convert_radio  # noqa: F401
+from midvision_probe_torch.models.convert.resnet_convert import convert_resnet50  # noqa: F401
 from midvision_probe_torch.models.convert.remap import (  # noqa: F401
     MMSELFSUP_VIT_RENAME,
     prepare_state_dict,

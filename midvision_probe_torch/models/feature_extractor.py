@@ -103,6 +103,19 @@ def make_vit_feature_fn(module: nn.Module, taps: Sequence[int], output: str,
     return apply_fn
 
 
+def make_resnet_feature_fn(module: nn.Module, taps: Sequence[int]) -> Callable:
+    """Build ``images -> (list[NHWC map], list[None])`` for the ResNet
+    trunk. CNN maps are already spatial and have no cls token; callers
+    that want another ``output`` pool them."""
+    taps = tuple(taps)
+
+    def apply_fn(images: torch.Tensor):
+        maps = module(images, taps=taps)
+        return maps, [None] * len(maps)
+
+    return apply_fn
+
+
 class FeatureExtractor:
     """A frozen backbone: ``module`` (an ``nn.Module`` whose parameters do
     not train) and ``apply_fn`` (images NHWC -> (maps, cls tokens)).
@@ -125,9 +138,11 @@ class FeatureExtractor:
         self.output = spec.output
         self.multilayers = list(spec.multilayers)
         self.layer = spec.layer
+        # a ResNet's feat_dim is a (C, hw) pair per tap, and its last pair
+        # alone without multilayer
         self.feat_dim = spec.feat_dim if return_multilayer else (
             spec.feat_dim[-1] if isinstance(spec.feat_dim, (list, tuple))
-            else spec.feat_dim)
+            and spec.arch != "resnet" else spec.feat_dim)
 
     @property
     def device(self) -> torch.device:

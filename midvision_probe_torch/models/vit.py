@@ -16,14 +16,22 @@ A block's attention takes one of the JAX package's two branches
 * generic: q, k and v as ``(B, H, N, d)`` views of the projection, 2D RoPE
   on the patch tokens (``ops.rope2d.rope_2d``, kernel K5; the prefix tokens
   stay unrotated), then ``ops.attention.multi_head_attention`` (kernel K2,
-  or its long-sequence route K3) (CroCo-v2, and RADIO-v2's head dim 80).
+  or its long-sequence route K3) (CroCo-v2, and RADIO-v2's head dim 80);
+  with BEiT's relative-position bias (BEiT-v2, MiDaS) the biased einsum
+  route, as in the JAX package (no kernel takes a bias).
+
+Also from the JAX ``ViT``: LayerScale (DeiT-III, DINOv2, BEiT), ``gamma_1``
+and ``gamma_2`` scaling the attention and MLP branches; register tokens
+(DINOv2-reg), inserted after the position embedding between the cls token
+and the patches (the taps' spatial part drops them).
 
 Each kernel runs on a CUDA tensor, its plain version on a CPU tensor. The
 JAX package's whole-network 128-padding was a TPU layout device and is
-dropped: the kernels take any token count.
+dropped: the kernels take any token count (DINOv2-reg at 480x640 runs
+N = 1 + 4 + 34 * 45 = 1535).
 
-Not ported yet (a config asking for them raises): relative-position bias,
-LayerScale, register tokens, windowed attention, ``scan_blocks``.
+Not ported yet (a config asking for them raises): SAM's windowed attention
+and decomposed relative positions, ``scan_blocks``.
 """
 
 from __future__ import annotations
@@ -83,9 +91,6 @@ class ViTConfig:
 
     def check_supported(self) -> None:
         unsupported = {
-            "rel_pos_bias": self.rel_pos_bias,
-            "layerscale": self.layerscale,
-            "num_register_tokens": self.num_register_tokens,
             "window_size": self.window_size, "use_rel_pos": self.use_rel_pos,
             "scan_blocks": self.scan_blocks,
         }
@@ -93,7 +98,12 @@ class ViTConfig:
         if asked:
             raise NotImplementedError(
                 f"ViT features {asked} are not ported to PyTorch yet (ROADMAP "
-                "section 1, item 3: the other backbone families)")
+                "section 1, item 3: SAM's windowed attention)")
+        if self.rel_pos_bias and (self.table_grid is None or self.num_prefix_tokens != 1):
+            # the bias table is sized by the patch grid, and its index has
+            # one cls row and column (the JAX package's ``_rel_pos_index``)
+            raise ValueError("a relative-position bias needs cfg.table_grid and "
+                             "exactly one prefix token (the cls token)")
 
 
 def get_2d_sincos_pos_embed(embed_dim: int, grid_hw: tuple[int, int],
@@ -164,6 +174,27 @@ class Mlp(nn.Module):
         return self.fc2(x)
 
 
+def _rel_pos_index(window: tuple[int, int]) -> np.ndarray:
+    """BEiT relative-position index over an (h, w) grid plus the cls token's
+    row and column (the JAX package's, assignment for assignment: row 0,
+    then column 0, then [0, 0])."""
+    h, w = window
+    coords = np.stack(np.meshgrid(np.arange(h), np.arange(w), indexing="ij"))
+    coords = coords.reshape(2, -1)
+    rel = coords[:, :, None] - coords[:, None, :]
+    rel = rel.transpose(1, 2, 0).astype(np.int64)
+    rel[:, :, 0] += h - 1
+    rel[:, :, 1] += w - 1
+    rel[:, :, 0] *= 2 * w - 1
+    idx = np.zeros((h * w + 1, h * w + 1), dtype=np.int64)
+    num_rel = (2 * h - 1) * (2 * w - 1)
+    idx[1:, 1:] = rel.sum(-1)
+    idx[0, 0:] = num_rel
+    idx[0:, 0] = num_rel + 1
+    idx[0, 0] = num_rel + 2
+    return idx
+
+
 class Attention(nn.Module):
     def __init__(self, cfg: ViTConfig):
         super().__init__()
@@ -172,8 +203,14 @@ class Attention(nn.Module):
                       and cfg.head_dim in FUSED_HEAD_DIMS)
         self.qkv = nn.Linear(cfg.width, 3 * cfg.width, bias=cfg.qkv_bias)
         self.proj = nn.Linear(cfg.width, cfg.width)
+        if cfg.rel_pos_bias:
+            h, w = cfg.table_grid
+            self.rel_pos_bias_table = nn.Parameter(
+                torch.zeros((2 * h - 1) * (2 * w - 1) + 3, cfg.num_heads))
+            self.register_buffer("rel_pos_index", torch.from_numpy(
+                _rel_pos_index((h, w))), persistent=False)
 
-    def forward(self, x, pos_2d=None):
+    def forward(self, x, pos_2d=None, grid_hw=None):
         c = self.cfg
         B, N, C = x.shape
         scale = c.head_dim**-0.5
@@ -189,7 +226,14 @@ class Attention(nn.Module):
             k_pat = rope_2d(k[:, :, p:], pos_2d, base=c.rope_base)
             q = torch.cat([q[:, :, :p], q_pat], dim=2) if p else q_pat
             k = torch.cat([k[:, :, :p], k_pat], dim=2) if p else k_pat
-        out = multi_head_attention(q, k, v, scale=scale)
+        bias = None
+        if c.rel_pos_bias:
+            if tuple(grid_hw) != tuple(c.table_grid):
+                raise ValueError(f"the relative-position bias tables are for a "
+                                 f"{c.table_grid} grid, got {grid_hw}")
+            # (N, N, H) -> (1, H, N, N), f32, added to the f32 scores
+            bias = self.rel_pos_bias_table.float()[self.rel_pos_index].permute(2, 0, 1)[None]
+        out = multi_head_attention(q, k, v, bias=bias, scale=scale)
         return self.proj(out.transpose(1, 2).reshape(B, N, C))
 
 
@@ -200,10 +244,20 @@ class Block(nn.Module):
         self.attn = Attention(cfg)
         self.norm2 = nn.LayerNorm(cfg.width, eps=cfg.layernorm_eps)
         self.mlp = Mlp(cfg)
+        if cfg.layerscale:
+            self.gamma_1 = nn.Parameter(torch.ones(cfg.width))
+            self.gamma_2 = nn.Parameter(torch.ones(cfg.width))
+        self.layerscale = cfg.layerscale
 
-    def forward(self, x, pos_2d=None):
-        x = x + self.attn(self.norm1(x), pos_2d)
-        return x + self.mlp(self.norm2(x))
+    def forward(self, x, pos_2d=None, grid_hw=None):
+        h = self.attn(self.norm1(x), pos_2d, grid_hw)
+        if self.layerscale:
+            h = h * self.gamma_1.to(h.dtype)
+        x = x + h
+        h = self.mlp(self.norm2(x))
+        if self.layerscale:
+            h = h * self.gamma_2.to(h.dtype)
+        return x + h
 
 
 class PatchEmbed(nn.Module):
@@ -235,6 +289,9 @@ class ViT(nn.Module):
                 raise ValueError("a learned pos-embed needs cfg.table_grid")
             n = c.table_grid[0] * c.table_grid[1] + (1 if c.pos_embed_cls else 0)
             self.pos_embed = nn.Parameter(torch.zeros(1, n, c.width))
+        if c.num_register_tokens:
+            self.register_tokens = nn.Parameter(
+                torch.zeros(1, c.num_register_tokens, c.width))
         if c.pre_norm:
             self.norm_pre = nn.LayerNorm(c.width, eps=c.layernorm_eps)
         self.blocks = nn.ModuleList(Block(c) for _ in range(c.depth))
@@ -272,6 +329,11 @@ class ViT(nn.Module):
                 c.width, (gh, gw), add_cls_token=c.class_token), device=x.device)
             x = x + pos[None].to(dtype)
 
+        if c.num_register_tokens:  # after the pos-embed, between cls and patches
+            reg = self.register_tokens.to(dtype).expand(B, -1, -1)
+            x = (torch.cat([x[:, :1], reg, x[:, 1:]], dim=1) if c.class_token
+                 else torch.cat([reg, x], dim=1))
+
         if c.pre_norm:
             x = self.norm_pre(x)
 
@@ -287,7 +349,7 @@ class ViT(nn.Module):
         max_tap = max(taps)
         outputs = {}
         for i, blk in enumerate(self.blocks):
-            x = blk(x, pos_2d)
+            x = blk(x, pos_2d, (gh, gw))
             if i in taps:
                 outputs[i] = self.norm(x) if c.final_norm else x
             if i == max_tap:

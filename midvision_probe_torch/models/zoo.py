@@ -1,25 +1,22 @@
 """Backbone zoo of the PyTorch port (counterpart of the JAX package's
-``models/zoo.py``): the plain-ViT entries (DINO ViT-B/16 and B/8, MAE,
-iBOT, MoCo v3, MaskFeat, MILAN, EVA, PixMIM, CLIP, SigLIP, CroCo v1 and
-v2, RADIO v2, ``test_tiny_vit``), ``load_variables``,
-``build_vit_extractor`` and the reference-compatible constructors of
-``configs/backbone``.
+``models/zoo.py``): the ViT entries (DINO ViT-B/16 and B/8, DINOv2 B/14,
+B/14-reg and L/14, MAE, iBOT, MoCo v3, MaskFeat, MILAN, EVA, PixMIM,
+DeiT-III B/16 and L/16, BEiT-v2, CLIP, SigLIP, CroCo v1 and v2, MiDaS'
+BEiT-L/16, RADIO v2, ``test_tiny_vit``), the 17 SSL ResNet-50 entries,
+``load_variables``, ``build_vit_extractor``, ``build_resnet_extractor``
+and the reference-compatible constructors of ``configs/backbone``.
 
 A released checkpoint under ``$MVP_CHECKPOINT_DIR`` (default
 ``checkpoints``) is loaded: ``torch.load`` on the CPU, the entry's
 ``source`` unwrapped, its converter's numpy tree mapped onto the port's
-``ViT`` by ``convert.from_jax.vit_state_dict`` and loaded strictly, so a
+``ViT`` or ``ResNet50`` by ``convert.from_jax`` and loaded strictly, so a
 file whose keys do not match raises. Without a file the entry is
 random-initialised from a seeded ``torch.Generator`` (the JAX package
 random-initialises too, with JAX's generator; the draws differ, the
 distributions match).
 
-Not ported yet: the LayerScale, register and relative-position-bias ViTs
-(DINOv2, DINOv2-reg, DeiT-III, BEiT-v2, MiDaS), SAM, ConvNeXt and the
-ResNet-50 zoo (``ROADMAP.md`` section 1, item 3). ``DINO`` with a DINOv2
-name, ``BEiTV2`` and ``DeIT`` raise ``NotImplementedError`` through
-``ViTConfig.check_supported``; the other families' targets do not exist
-here, which ``config.instantiate`` reports.
+Not ported yet: SAM and ConvNeXt (``ROADMAP.md`` section 1, item 3); their
+configs' targets do not exist here, which ``config.instantiate`` reports.
 """
 
 from __future__ import annotations
@@ -30,9 +27,10 @@ import os
 
 import torch
 
-from midvision_probe_torch.convert.from_jax import vit_state_dict
+from midvision_probe_torch.convert.from_jax import resnet_state_dict, vit_state_dict
 from midvision_probe_torch.models.convert import (
     convert_radio,
+    convert_resnet50,
     convert_vit_hf,
     convert_vit_openclip,
     convert_vit_timm,
@@ -42,8 +40,10 @@ from midvision_probe_torch.models.feature_extractor import (
     FeatureExtractor,
     FeatureSpec,
     default_vit_multilayers,
+    make_resnet_feature_fn,
     make_vit_feature_fn,
 )
+from midvision_probe_torch.models.resnet import RESNET50_FEAT_DIMS, ResNet50, init_resnet_
 from midvision_probe_torch.models.vit import VIT_PRESETS, ViT, ViTConfig, init_vit_
 from midvision_probe_torch.utils.device import resolve_device, resolve_dtype
 
@@ -57,11 +57,11 @@ OPENAI_CLIP_STD = (0.26862954, 0.26130258, 0.27577711)
 
 @dataclasses.dataclass(frozen=True)
 class ZooEntry:
-    """One released backbone: its architecture (the port takes the plain
-    ViTs), where its weights come from and how they convert."""
+    """One released backbone: its architecture, where its weights come from
+    and how they convert."""
 
     name: str  # checkpoint_name in the reference CSVs
-    arch: str  # "vit" (the plain-ViT families are the ones ported)
+    arch: str  # "vit" | "resnet" (the families ported)
     source: str  # unwrap_checkpoint convention
     filename: str  # expected file under $MVP_CHECKPOINT_DIR
     url: str = ""  # original weight source (provenance only)
@@ -104,6 +104,21 @@ register(ZooEntry(
     "dino_vitb8", "vit", "raw", "dino_vitb8.pth",
     url="facebookresearch/dino:dino_vitb8",
     vit=_vit("vit_base", 8, 28),
+))
+register(ZooEntry(
+    "dinov2_vitb14", "vit", "raw", "dinov2_vitb14.pth",
+    url="facebookresearch/dinov2:dinov2_vitb14",
+    vit=_vit("vit_base", 14, 37, layerscale=True),
+))
+register(ZooEntry(
+    "dinov2_vitb14_reg", "vit", "raw", "dinov2_vitb14_reg.pth",
+    url="facebookresearch/dinov2:dinov2_vitb14_reg",
+    vit=_vit("vit_base", 14, 37, layerscale=True, num_register_tokens=4),
+))
+register(ZooEntry(
+    "dinov2_vitl14", "vit", "raw", "dinov2_vitl14.pth",
+    url="facebookresearch/dinov2:dinov2_vitl14",
+    vit=_vit("vit_large", 14, 37, layerscale=True),
 ))
 register(ZooEntry(
     "mae_vitb16", "vit", "raw", "mae_vitb16.bin",
@@ -152,6 +167,35 @@ register(ZooEntry(
     "pixmim_vitb16", "vit", "mmselfsup", "pixmim_vitb16.pth",
     url="openmmlab mmselfsup pixmim vit-base-p16",
     vit=_vit("vit_base", 16, 14),
+))
+register(ZooEntry(
+    "deit3_vitb16", "vit", "state_dict", "deit_3_base_384_21k.pth",
+    url="facebookresearch/deit:deit_3_base_384_21k",
+    vit=_vit("vit_base", 16, 24, layerscale=True), default_size=384,
+))
+register(ZooEntry(
+    "deit3_vitl16", "vit", "state_dict", "deit_3_large_384_21k.pth",
+    url="facebookresearch/deit:deit_3_large_384_21k",
+    vit=_vit("vit_large", 16, 24, layerscale=True), default_size=384,
+))
+# BEiT-v2 and MiDaS' BEiT-L/16: a per-block relative-position bias, so they
+# run at the grid their tables were trained for; the reference wrappers
+# resize every input to it (beit_v2.py:255-257, midas_final.py:46-52)
+register(ZooEntry(
+    "beitv2_vitb16", "vit", "state_dict", "beitv2_vitb16.pth",
+    url="gdrive BEiT-v2 ViT-B/16 (beit_v2.py:8-13)",
+    vit=_vit("vit_base", 16, pos_embed="none", rel_pos_bias=True, layerscale=True),
+    fixed_input=224,
+))
+register(ZooEntry(
+    "midas_l16", "vit", "state_dict", "dpt_beit_large_384.pt",
+    url="intel-isl/MiDaS dpt_beit_large_384 (midas_final.py:83-87)",
+    vit=_vit("vit_large", 16, pos_embed="none", rel_pos_bias=True, layerscale=True),
+    prefix="pretrained.model.",
+    default_size=384,
+    fixed_input=384,
+    fixed_input_mode="bicubic",
+    image_mean=(0.5, 0.5, 0.5), image_std=(0.5, 0.5, 0.5),
 ))
 
 # --- CLIP / SigLIP (reference clip.py, siglip.py): CLIP's LN before the
@@ -224,6 +268,47 @@ register(ZooEntry(
     converter="radio",
 ))
 
+# --- ResNet-50 SSL zoo (17 wrappers, template simclr.py:29-115) -----------
+_R50 = [
+    # (name, source, filename, url)
+    ("simclr_resnet50", "vissl", "simclr_resnet50.torch",
+     "dl.fbaipublicfiles.com/vissl simclr_rn50_1000ep"),
+    ("mocov2_resnet50", "mocov2", "mocov2_resnet50.pth.tar",
+     "dl.fbaipublicfiles.com/moco mocov2 800ep"),
+    ("simsiam_resnet50", "mocov2", "simsiam_resnet50.pth.tar",
+     "dl.fbaipublicfiles.com/simsiam 100ep-256bs"),
+    ("byol_resnet50", "state_dict", "byol_resnet50.pth.tar",
+     "gdrive byol r50 (byol.py)"),
+    ("barlowtwins_resnet50", "vissl", "barlowtwins_resnet50.torch",
+     "dl.fbaipublicfiles.com/vissl barlow_twins_32gpus_4node"),
+    ("densecl_resnet50", "state_dict", "densecl_resnet50.pth",
+     "mmselfsup densecl r50 imagenet 200ep"),
+    ("swav_resnet50", "vissl", "swav_resnet50.torch",
+     "dl.fbaipublicfiles.com/vissl swav_in1k_rn50_800ep"),
+    ("selav2_resnet50", "vissl", "selav2_resnet50.torch",
+     "dl.fbaipublicfiles.com/vissl sela-v2 400ep_2x224"),
+    ("deepclusterv2_resnet50", "vissl", "deepclusterv2_resnet50.torch",
+     "dl.fbaipublicfiles.com/vissl deepclusterv2_800ep"),
+    ("clusterfit_resnet50", "vissl", "clusterfit_resnet50.torch",
+     "dl.fbaipublicfiles.com/vissl clusterfit_16k_rotnet"),
+    ("npid_resnet50", "vissl", "npid_resnet50.torch",
+     "dl.fbaipublicfiles.com/vissl npid_1crop_200ep"),
+    ("npid_plusplus_resnet50", "vissl", "npid_plusplus_resnet50.torch",
+     "dl.fbaipublicfiles.com/vissl npid++ 4node_800ep"),
+    ("pirl_resnet50", "vissl", "pirl_resnet50.torch",
+     "dl.fbaipublicfiles.com/vissl pirl_jigsaw_4node_800ep"),
+    ("jigsaw_resnet50", "vissl", "jigsaw_resnet50.torch",
+     "dl.fbaipublicfiles.com/vissl jigsaw_rn50_in22k"),
+    ("rotnet_resnet50", "vissl", "rotnet_resnet50.torch",
+     "dl.fbaipublicfiles.com/vissl rotnet_rn50_in22k"),
+    ("mocov3_resnet50", "mocov3", "mocov3_resnet50.pth.tar",
+     "dl.fbaipublicfiles.com/moco-v3 r50 1000ep"),
+    ("dino_resnet50", "raw", "dino_resnet50.pth",
+     "facebookresearch/dino:dino_resnet50"),
+]
+for _name, _source, _file, _url in _R50:
+    register(ZooEntry(_name, "resnet", _source, _file, url=_url, default_size=480))
+
 # tiny randomly-initialized ViT for smoke tests
 register(ZooEntry(
     "test_tiny_vit", "vit", "raw", "__never_exists__.pth",
@@ -236,22 +321,23 @@ def checkpoint_dir() -> str:
     return os.environ.get("MVP_CHECKPOINT_DIR", "checkpoints")
 
 
-def load_variables(entry: ZooEntry, cfg: ViTConfig) -> tuple[dict | None, dict]:
+def load_variables(entry: ZooEntry, cfg: ViTConfig | None) -> tuple[dict | None, dict]:
     """The entry's checkpoint under ``checkpoint_dir()``, converted: a
-    numpy tree in the JAX package's ``ViT`` layout (None when no file is
-    there) and the converter's extras (RADIO's input-conditioner
-    ``image_mean``/``image_std``)."""
+    numpy tree in the JAX package's ``ViT`` or ``ResNet50`` layout (None
+    when no file is there) and the converter's extras (RADIO's
+    input-conditioner ``image_mean``/``image_std``)."""
     path = os.path.join(checkpoint_dir(), entry.filename)
     if not os.path.exists(path):
         return None, {}
-    if entry.arch != "vit" or entry.converter not in ("timm", "hf", "radio", "openclip"):
+    if entry.arch not in ("vit", "resnet"):
         raise NotImplementedError(
-            f"loading {entry.name} ({entry.arch}, converter {entry.converter!r}) "
-            "is not ported to PyTorch yet: the ResNet, ConvNeXt and SAM "
-            "converters come with the other backbone families (ROADMAP "
+            f"loading {entry.name} ({entry.arch}) is not ported to PyTorch yet: "
+            "the ConvNeXt and SAM converters come with their families (ROADMAP "
             "section 1, item 3)")
     ckpt = torch.load(path, map_location="cpu", weights_only=False)
     sd = unwrap_checkpoint(ckpt, entry.source)
+    if entry.arch == "resnet":
+        return convert_resnet50(sd, prefix=entry.prefix), {}
     if entry.converter == "hf":
         return convert_vit_hf(sd, cfg, prefix=entry.prefix), {}
     if entry.converter == "radio":
@@ -261,9 +347,11 @@ def load_variables(entry: ZooEntry, cfg: ViTConfig) -> tuple[dict | None, dict]:
     return convert_vit_timm(sd, cfg, prefix=entry.prefix), {}
 
 
-def random_init(module: ViT, seed: int = 0) -> ViT:
-    """Seeded random init of a ViT (flax-default distributions)."""
-    return init_vit_(module, torch.Generator().manual_seed(seed))
+def random_init(module: ViT | ResNet50, seed: int = 0) -> ViT | ResNet50:
+    """Seeded random init of a ViT or ResNet-50 (flax-default
+    distributions)."""
+    init = init_resnet_ if isinstance(module, ResNet50) else init_vit_
+    return init(module, torch.Generator().manual_seed(seed))
 
 
 def build_vit_extractor(
@@ -288,9 +376,10 @@ def build_vit_extractor(
     entry = ZOO[name]
     device = resolve_device(device)
     cfg = ViTConfig(**entry.vit)
-    if cfg.pos_embed == "learned" and cfg.table_grid is None:
+    if (cfg.pos_embed == "learned" or cfg.rel_pos_bias) and cfg.table_grid is None:
         # pin the canonical pos-embed grid to the init resolution so inputs
         # of any other size resize the table instead of re-shaping the param
+        # (a relative-position bias table is built for that grid too);
         # fixed-input models always run at their own size: init there
         g = (entry.fixed_input or init_size or entry.default_size) // cfg.patch_size
         cfg = dataclasses.replace(cfg, table_grid=(g, g))
@@ -331,6 +420,51 @@ def build_vit_extractor(
                             return_cls=return_cls)
 
 
+def build_resnet_extractor(
+    name: str,
+    output: str = "dense",
+    return_layers=None,
+    return_multilayer: bool = False,
+    add_norm: bool = False,
+    return_cls: bool = False,
+    dtype=None,
+    device=None,
+) -> FeatureExtractor:
+    """Frozen ResNet-50 extractor for zoo entry ``name``: taps
+    ``return_layers`` (default all five), ``feat_dim`` as ``(C, hw)`` pairs
+    (``RESNET50_FEAT_DIMS``), ``patch_size`` 0, on ``device`` (default
+    cuda; raises without a card unless a device is given) in ``dtype``."""
+    entry = ZOO[name]
+    device = resolve_device(device)
+    return_layers = list(return_layers) if return_layers is not None else [0, 1, 2, 3, 4]
+    feat_dims = [RESNET50_FEAT_DIMS[i] for i in return_layers]
+    multilayers = return_layers if return_multilayer else [return_layers[-1]]
+    spec = FeatureSpec(
+        feat_dim=feat_dims if return_multilayer else feat_dims[-1],
+        patch_size=0,
+        multilayers=tuple(multilayers),
+        arch="resnet",
+        checkpoint_name=f"{name}_{output}_{return_layers}",
+        output=output,
+        num_layers=5,
+        add_norm=add_norm,
+        image_mean=entry.image_mean,
+        image_std=entry.image_std,
+    )
+    variables, _ = load_variables(entry, None)
+    module = ResNet50()
+    if variables is None:
+        log.warning("no checkpoint for %s under %s — random init", name, checkpoint_dir())
+        module = random_init(module)
+    else:
+        module.load_state_dict(resnet_state_dict(variables), strict=True)
+    # cuDNN's convolutions read NHWC (channels-last) memory, which the input is
+    module = module.to(device=device, dtype=resolve_dtype(dtype),
+                       memory_format=torch.channels_last)
+    return FeatureExtractor(make_resnet_feature_fn(module, multilayers), module, spec,
+                            return_multilayer=return_multilayer, return_cls=return_cls)
+
+
 _COMMON_IGNORED = ("return_kqv", "fixed_size", "mode_selected", "return_layers")
 
 
@@ -344,11 +478,9 @@ def DINO(dino_name="dino", model_name="vitb16", output="dense", layer=-1,
          return_multilayer=False, add_norm=False, return_cls=False,
          checkpoint_name=None, **kw) -> FeatureExtractor:
     """Reference ``dino.py:9`` constructor surface (both the dino and the
-    dinov2 hubs; the DINOv2 entries are not ported and raise)."""
+    dinov2 hubs)."""
     name = checkpoint_name or f"{dino_name}_{model_name}"
-    if name.startswith("dinov2_"):  # LayerScale, and registers in "_reg"
-        ViTConfig(layerscale=True, num_register_tokens=4 if name.endswith("_reg") else 0
-                  ).check_supported()
+    name = {"dinov2_b14": "dinov2_vitb14"}.get(name, name)
     return build_vit_extractor(
         name, output=output, layer=layer, return_multilayer=return_multilayer,
         add_norm=add_norm, return_cls=return_cls, **_clean(kw))
@@ -397,16 +529,76 @@ EVA = _simple_vit_wrapper("eva_vitb16")
 PIXMLM = _simple_vit_wrapper("pixmim_vitb16")
 
 
-def BEiTV2(*args, **kw):
-    """Reference ``beit_v2.py``: relative-position bias and LayerScale,
-    which the port's ViT refuses (``ViTConfig.check_supported``)."""
-    ViTConfig(rel_pos_bias=True, layerscale=True).check_supported()
+BEiTV2 = _simple_vit_wrapper("beitv2_vitb16")
 
 
-def DeIT(*args, **kw):
-    """Reference ``deit.py`` (DeiT-III): LayerScale, which the port's ViT
-    refuses (``ViTConfig.check_supported``)."""
-    ViTConfig(layerscale=True).check_supported()
+def DeIT(model_size="base", img_size=384, output="dense", layer=-1,
+         return_multilayer=False, add_norm=False, return_cls=False, **kw):
+    """Reference ``deit.py`` (DeiT-III at 384)."""
+    name = "deit3_vitb16" if model_size == "base" else "deit3_vitl16"
+    return build_vit_extractor(
+        name, output=output, layer=layer, return_multilayer=return_multilayer,
+        add_norm=add_norm, return_cls=return_cls, **_clean(kw))
+
+
+def make_beit_backbone(output="dense", layer=-1, midas=True,
+                       return_multilayer=False, add_norm=False, **kw):
+    """Reference ``midas_final.py:83-119`` (MiDaS DPT-BEiT-L/16-384 trunk)."""
+    kw.pop("return_cls", None)
+    return build_vit_extractor(
+        "midas_l16", output=output, layer=layer,
+        return_multilayer=return_multilayer, add_norm=add_norm, **_clean(kw))
+
+
+# config-surface spellings that differ from the ZOO registry keys
+# (configs/backbone/{deepcluster-v2,sela-v2}_resnet50.yaml)
+_RESNET_NAME_ALIASES = {
+    "deepcluster_v2_resnet50": "deepclusterv2_resnet50",
+    "sela_v2_resnet50": "selav2_resnet50",
+}
+
+
+def _resnet_wrapper(zoo_name: str):
+    def ctor(arch="resnet50", return_layers=None, output="dense",
+             return_multilayer=False, add_norm=False, return_cls=False,
+             checkpoint_name=None, **kw):
+        kw.pop("dino_name", None)
+        kw.pop("model_name", None)
+        _clean(kw)
+        # a backbone YAML's checkpoint_name can retarget the wrapper, as
+        # DINO's does; a name that is no entry raises rather than train on
+        # another backbone's features
+        name = _RESNET_NAME_ALIASES.get(checkpoint_name, checkpoint_name) or zoo_name
+        if name not in ZOO:
+            raise KeyError(
+                f"checkpoint_name={checkpoint_name!r} is not a zoo entry "
+                f"(wrapper default {zoo_name!r}); known resnet entries: "
+                + ", ".join(k for k in ZOO if "resnet" in k))
+        return build_resnet_extractor(
+            name, output=output, return_layers=return_layers,
+            return_multilayer=return_multilayer, add_norm=add_norm,
+            return_cls=return_cls, **kw)
+
+    return ctor
+
+
+SIMCLR = _resnet_wrapper("simclr_resnet50")
+MOCOV2 = _resnet_wrapper("mocov2_resnet50")
+SIMSIAM = _resnet_wrapper("simsiam_resnet50")
+BYOL = _resnet_wrapper("byol_resnet50")
+BARLOWTWINS = _resnet_wrapper("barlowtwins_resnet50")
+DENSECL = _resnet_wrapper("densecl_resnet50")
+SWAV = _resnet_wrapper("swav_resnet50")
+SELAV2 = _resnet_wrapper("selav2_resnet50")
+DEEPCLUSTERV2 = _resnet_wrapper("deepclusterv2_resnet50")
+CLUSTERFIT = _resnet_wrapper("clusterfit_resnet50")
+NPID = _resnet_wrapper("npid_resnet50")
+NPID_PLUSPLUS = _resnet_wrapper("npid_plusplus_resnet50")
+PIRL = _resnet_wrapper("pirl_resnet50")
+JIGSAW = _resnet_wrapper("jigsaw_resnet50")
+ROTNET = _resnet_wrapper("rotnet_resnet50")
+MoCoV3_RES = _resnet_wrapper("mocov3_resnet50")
+DINO_RESNET = _resnet_wrapper("dino_resnet50")
 
 
 def CLIP(arch="ViT-B-16", checkpoint="openai", output="dense", layer=-1,

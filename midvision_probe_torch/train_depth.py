@@ -4,20 +4,20 @@
 Usage::
 
     python -m midvision_probe_torch.train_depth backbone=dino_b16 \\
-        dataset=synthetic probe=depth_dpt +render_images=False \\
+        dataset=synthetic probe=depth_dpt \\
         [+system.backbone_dtype=bfloat16] [+system.device=cpu]
 
 It composes the same YAML configs under ``configs/``. The path: frozen ViT
 forward with 4 taps (every attention layer through the CUDA kernel on a
 GPU), tap-norms + DPT depth head, ``depth_loss``, AdamW with cosine warmup,
 then ``evaluate_depth`` scale-aware and scale-invariant over one prediction
-sweep, and one CSV row. Runs on cuda unless ``system.device`` says
-otherwise.
+sweep, and one CSV row. Then the artifacts of ``utils/reporting.py``:
+with ``render_images`` (the default) the first test batch's panels and the
+first 6 test batches' per-image PNG/JSON/TXT dumps under ``val_images/``;
+and the segment-area-vs-d1 scatter under ``plots/`` over the whole test
+set. Runs on cuda unless ``system.device`` says otherwise.
 
-Not ported yet: the PNG/wandb image dumps and the segment-area scatter of
-``utils/reporting.py`` (``render_images=True`` raises; the per-segment rows
-are written to ``plots/segment_area_vs_d1.csv`` instead of a scatter PNG),
-and the feature cache.
+Not ported yet: the feature cache.
 """
 
 from __future__ import annotations
@@ -39,19 +39,19 @@ from midvision_probe_torch.engine.driver_common import (
     setup_experiment,
 )
 from midvision_probe_torch.ops.image import resize
-from midvision_probe_torch.utils.logging import CSVWriter
 from midvision_probe_torch.utils.losses import depth_loss
 from midvision_probe_torch.utils.metrics import evaluate_depth, segment_metrics_depth
+from midvision_probe_torch.utils.reporting import (
+    log_first_batch_images,
+    plot_segment_area_vs_d1,
+    save_images_to_png,
+)
 
 
 def run(cfg):
     """Train (or restore, with ``is_eval=True``) and evaluate one depth
     probe. Returns the CSV row plus ``train_losses`` (per-step, not written
     to the CSV)."""
-    if bool(cfg.get("render_images", True)):
-        raise NotImplementedError(
-            "render_images=True needs utils/reporting.py, which is not ported "
-            "to PyTorch yet; pass +render_images=False")
     head_type = cfg.probe.get("head_type", "dpt")
     backbone = build_backbone(cfg, needs_multilayer=head_type != "linear")
 
@@ -99,27 +99,41 @@ def run(cfg):
                     flat[f"{tag}__{lk}_{k}"] = v
         return flat
 
-    both = trainer.validate(test_loader, metric_fn_both)
+    # sorted: the JAX driver's columns come back from jit in sorted key order
+    both = dict(sorted(trainer.validate(test_loader, metric_fn_both).items()))
     sa = {k[4:]: v for k, v in both.items() if k.startswith("sa__")}
     si = {k[4:]: v for k, v in both.items() if k.startswith("si__")}
     logger.info(
         "scale-aware  d1 %.4f rmse %.4f | scale-invariant d1 %.4f rmse %.4f",
         sa["d1"].mean(), sa["rmse"].mean(), si["d1"].mean(), si["rmse"].mean())
 
-    # per-segment d1 over the full validation set
+    # artifacts: first-batch panels, per-segment d1 over the full validation
+    # set and per-image dumps of the first 6 batches
+    render_images = bool(cfg.get("render_images", True))
+    is_navi = getattr(train_loader.dataset, "name", "").startswith("navi")
+    val_dir = os.path.join(exp_dir, "val_images")
+
+    def predict_resized(batch):
+        return resize(trainer.predict(batch), batch["depth"].shape[1:3], mode="bilinear")
+
+    if render_images:
+        log_first_batch_images(predict_resized, test_loader, wandb, save_dir=val_dir,
+                               task="depth", is_navi=is_navi)
     seg_rows = []
-    for batch in test_loader:
-        if "segmentation" not in batch:
+    for i, batch in enumerate(test_loader):
+        has_seg = "segmentation" in batch
+        if not has_seg and not (render_images and i < 6):
             break
-        pred_r = resize(trainer.predict(batch), batch["depth"].shape[1:3],
-                        mode="bilinear")
-        seg_rows += segment_metrics_depth(pred_r.cpu().numpy(), batch["depth"],
-                                          batch["segmentation"])
+        pred_r = predict_resized(batch).cpu().numpy()
+        if has_seg:
+            seg_rows += segment_metrics_depth(pred_r, batch["depth"], batch["segmentation"])
+        if render_images and i < 6:
+            save_images_to_png(pred_r, batch["depth"], batch.get("segmentation"),
+                               batch_idx=i, task="depth", save_dir=val_dir,
+                               is_navi=is_navi)
     if seg_rows:
-        seg_csv = CSVWriter(os.path.join(exp_dir, "plots", "segment_area_vs_d1.csv"))
-        for r in seg_rows:
-            seg_csv.append(r)
-        logger.info("segment rows: %s (%d segments)", seg_csv.path, len(seg_rows))
+        plot = plot_segment_area_vs_d1(seg_rows, output_dir=os.path.join(exp_dir, "plots"))
+        logger.info("segment-area scatter: %s (%d segments)", plot, len(seg_rows))
 
     row = {}
     row.update({f"sa_{k}": float(np.mean(v)) for k, v in sa.items()})

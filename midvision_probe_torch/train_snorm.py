@@ -4,7 +4,7 @@ repository's ``train_snorm.py``).
 Usage::
 
     python -m midvision_probe_torch.train_snorm backbone=dino_b16 \\
-        dataset=nyu probe=snorm_dpt +render_images=False \\
+        dataset=nyu probe=snorm_dpt \\
         [+system.backbone_dtype=bfloat16] [+system.device=cpu]
 
 It composes the same YAML configs under ``configs/``. The path is the depth
@@ -13,13 +13,13 @@ is resized to the target bicubically (``a = -0.75``, no antialias), the
 loss is ``angular_loss`` (with the kappa term when the probe is
 ``uncertainty_aware``) over the pixels with non-zero target normals, and
 the metrics are the angular recalls of ``evaluate_surface_norm`` (11.25,
-22.5 and 30 degrees) with the per-level keys flattened. Runs on cuda
-unless ``system.device`` says otherwise.
+22.5 and 30 degrees) with the per-level keys flattened. Then the
+artifacts of ``utils/reporting.py``: with ``render_images`` (the default)
+the first test batch's normal maps under ``val_images/``, and the
+segment-area-vs-d1 scatter under ``plots/`` over the whole test set. Runs
+on cuda unless ``system.device`` says otherwise.
 
-Not ported yet, as in the port's ``train_depth``: the image dumps and the
-segment-area scatter of ``utils/reporting.py`` (``render_images=True``
-raises; the per-segment rows are written to
-``plots/segment_area_vs_d1.csv``), and the feature cache.
+Not ported yet, as in the port's ``train_depth``: the feature cache.
 """
 
 from __future__ import annotations
@@ -41,19 +41,15 @@ from midvision_probe_torch.engine.driver_common import (
     setup_experiment,
 )
 from midvision_probe_torch.ops.image import resize
-from midvision_probe_torch.utils.logging import CSVWriter
 from midvision_probe_torch.utils.losses import angular_loss
 from midvision_probe_torch.utils.metrics import evaluate_surface_norm, segment_metrics_snorm
+from midvision_probe_torch.utils.reporting import log_first_batch_images, plot_segment_area_vs_d1
 
 
 def run(cfg):
     """Train (or restore, with ``is_eval=True``) and evaluate one
     surface-normal probe. Returns the CSV row plus ``train_losses``
     (per-step, not written to the CSV)."""
-    if bool(cfg.get("render_images", True)):
-        raise NotImplementedError(
-            "render_images=True needs utils/reporting.py, which is not ported "
-            "to PyTorch yet; pass +render_images=False")
     head_type = cfg.probe.get("head_type", "dpt")
     backbone = build_backbone(cfg, needs_multilayer=head_type != "linear")
 
@@ -102,6 +98,12 @@ def run(cfg):
     logger.info("snorm d1 %.4f d2 %.4f d3 %.4f rmse %.2fdeg", res["d1"].mean(),
                 res["d2"].mean(), res["d3"].mean(), res["rmse"].mean())
 
+    if bool(cfg.get("render_images", True)):
+        log_first_batch_images(
+            lambda batch: predict_resized(trainer.predict(batch), batch["snorm"]),
+            test_loader, wandb, save_dir=os.path.join(exp_dir, "val_images"),
+            task="snorm")
+
     # per-segment d1 over the full validation set
     seg_rows = []
     for batch in test_loader:
@@ -112,10 +114,8 @@ def run(cfg):
         seg_rows += segment_metrics_snorm(pred_r.cpu().numpy(), target,
                                           batch["segmentation"])
     if seg_rows:
-        seg_csv = CSVWriter(os.path.join(exp_dir, "plots", "segment_area_vs_d1.csv"))
-        for r in seg_rows:
-            seg_csv.append(r)
-        logger.info("segment rows: %s (%d segments)", seg_csv.path, len(seg_rows))
+        plot = plot_segment_area_vs_d1(seg_rows, output_dir=os.path.join(exp_dir, "plots"))
+        logger.info("segment-area scatter: %s (%d segments)", plot, len(seg_rows))
 
     # the JAX driver's columns come back from jit in sorted key order
     row = {k: float(np.mean(res[k])) for k in sorted(res)}

@@ -295,9 +295,9 @@ def test_zoo_raises_on_a_file_whose_keys_do_not_match(tmp_path, monkeypatch, dro
 
 def test_zoo_refuses_the_converters_it_lacks(tmp_path, monkeypatch):
     monkeypatch.setenv("MVP_CHECKPOINT_DIR", str(tmp_path))
-    entry = dataclasses.replace(t_zoo.ZOO["dino_vitb16"], arch="resnet")
+    entry = dataclasses.replace(t_zoo.ZOO["dino_vitb16"], arch="convnext")
     torch.save({}, os.path.join(tmp_path, entry.filename))
-    with pytest.raises(NotImplementedError, match="ResNet, ConvNeXt and SAM .* item 3"):
+    with pytest.raises(NotImplementedError, match="ConvNeXt and SAM .* item 3"):
         t_zoo.load_variables(entry, t_vit.ViTConfig())
     variables, extras = t_zoo.load_variables(t_zoo.ZOO["crocov2_vitb16"], t_vit.ViTConfig())
     assert variables is None and extras == {}  # no file: random init, as before

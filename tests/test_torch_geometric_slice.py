@@ -12,6 +12,7 @@ indices are compared as per-pair sets: ratio weights that tie to ~1e-7
 swap adjacent ranks between the two f32 implementations."""
 
 import csv
+import os
 
 import jax
 import numpy as np
@@ -136,6 +137,12 @@ def test_scannet_driver_matches_jax(tmp_path, monkeypatch, jax_weights):
     assert out["err_3d"].shape == out["valid"].shape == (8, 100)
     assert len(jax_rec) == len(torch_rec) == 2
     _compare(tmp_path, "scannet_correspondence_final.csv", jax_rec, torch_rec)
-    with pytest.raises(NotImplementedError, match="render_every"):
-        t_scannet.entry([a for a in argv if "render_every" not in a]
-                        + ["+system.device=cpu", f"output_dir={tmp_path / 'torch'}"])
+    # render_every at its default (10): pair 0 of the 8 renders
+    t_scannet.entry([a for a in argv if "render_every" not in a]
+                    + ["+system.device=cpu", f"output_dir={tmp_path / 'rendered'}"])
+    rendered = [d for d, _, _ in os.walk(tmp_path / "rendered")
+                if os.path.basename(d).startswith("instance_")]
+    assert [os.path.basename(d) for d in rendered] == ["instance_0"]
+    assert sorted(os.listdir(rendered[0])) == [
+        "correspondence_metrics.json", "correspondences.png",
+        "correspondences_sparse200.png", "original_views.png"]

@@ -1,5 +1,6 @@
 """Guards of the PyTorch port: it never imports JAX, the JAX package,
-pandas or sklearn (the GPU host's packages need not include them), it names the JAX
+pandas, sklearn or matplotlib (the GPU host's packages need not include
+them), it names the JAX
 package only in its config-target mapping, and its entry points refuse to
 run on the CPU unless asked to."""
 
@@ -35,7 +36,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "    importlib.import_module(m)\n"
         "import chip_smoke\n"
         f"bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
-        f" or m.split('.')[0] in ('flax', 'optax', 'orbax', 'pandas', 'sklearn', {JAX_PKG!r}))\n"
+        f" or m.split('.')[0] in ('flax', 'optax', 'orbax', 'pandas', 'sklearn', 'matplotlib',"
+        f" {JAX_PKG!r}))\n"
         "print('BAD', bad)\n"
         "sys.exit(1 if bad else 0)\n"
     )
@@ -60,13 +62,15 @@ def test_port_names_the_jax_package_only_in_the_target_mapping():
 def test_entry_points_raise_without_a_device_on_a_cpu_only_host(monkeypatch, tmp_path):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     from midvision_probe_torch import train_depth
-    from midvision_probe_torch.models.zoo import build_vit_extractor
+    from midvision_probe_torch.models.zoo import build_resnet_extractor, build_vit_extractor
     from midvision_probe_torch.utils.device import resolve_device
 
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         resolve_device()
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         build_vit_extractor("test_tiny_vit")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        build_resnet_extractor("simclr_resnet50")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         train_depth.entry(["backbone=test_tiny", "dataset=synthetic",
                            "probe=depth_linear", "+render_images=False",
@@ -77,6 +81,8 @@ def test_entry_points_raise_without_a_device_on_a_cpu_only_host(monkeypatch, tmp
 @pytest.mark.parametrize("driver,argv", [
     ("evaluate_navi_correspondence", ["dataset=synthetic_navi"]),
     ("render_scannet_correspondence", ["dataset=synthetic_scannet", "+render_every=0"]),
+    ("render_scannet_correspondence", ["dataset=synthetic_scannet"]),
+    ("render_navi_correspondence", ["dataset=synthetic_navi"]),
 ])
 def test_correspondence_drivers_raise_without_a_device_on_a_cpu_only_host(
         monkeypatch, tmp_path, driver, argv):

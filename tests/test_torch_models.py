@@ -85,10 +85,17 @@ def test_extractor_contract_single_layer_and_cls(rng):
 
 
 def test_vit_unported_features_raise():
-    with pytest.raises(NotImplementedError, match="rel_pos_bias"):
-        t_vit.ViT(t_vit.ViTConfig(rel_pos_bias=True, table_grid=(2, 2)))
-    with pytest.raises(NotImplementedError, match="not ported"):
-        t_zoo.build_vit_extractor("dinov2_vitb14", device="cpu")
+    """Only SAM's windowed attention and ``scan_blocks`` are refused now;
+    the relative-position bias, LayerScale and registers build."""
+    with pytest.raises(NotImplementedError, match="window_size"):
+        t_vit.ViT(t_vit.ViTConfig(window_size=14, table_grid=(2, 2)))
+    with pytest.raises(NotImplementedError, match="scan_blocks"):
+        t_vit.ViT(t_vit.ViTConfig(scan_blocks=True, table_grid=(2, 2)))
+    vit = t_vit.ViT(t_vit.ViTConfig(width=32, depth=2, num_heads=2, rel_pos_bias=True,
+                                    layerscale=True, pos_embed="none", table_grid=(2, 2)))
+    assert tuple(vit.blocks[0].attn.rel_pos_bias_table.shape) == (3 * 3 + 3, 2)
+    assert tuple(vit.blocks[1].gamma_2.shape) == (32,)
+    assert not vit.blocks[0].attn.fused  # the biased einsum route
 
 
 def test_vit_matches_jax_fused_kernel_path_with_padding(rng, monkeypatch):

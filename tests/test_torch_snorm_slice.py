@@ -173,8 +173,9 @@ def test_train_snorm_nyu_slice_with_a_loaded_checkpoint_matches_jax(tmp_path, mo
 
 def test_train_snorm_is_eval_restores_and_render_images_raises(tmp_path):
     """A second run with is_eval=True restores the saved probe and
-    reproduces the trained run's metrics exactly; render_images=True
-    raises (utils/reporting.py is not ported)."""
+    reproduces the trained run's metrics exactly; render_images at its
+    default (on) no longer raises: it writes the first test batch's normal
+    maps beside the segment scatter."""
     argv = SYNTHETIC + ["probe=snorm_linear", "dataset.num_instances=8",
                         "+system.device=cpu", f"output_dir={tmp_path}"]
     trained = t_train_snorm.entry(argv)
@@ -182,5 +183,14 @@ def test_train_snorm_is_eval_restores_and_render_images_raises(tmp_path):
     assert restored.pop("train_losses") == []
     assert len(trained.pop("train_losses")) == 1
     assert restored == trained
-    with pytest.raises(NotImplementedError, match="render_images"):
-        t_train_snorm.entry([a for a in argv if "render_images" not in a])
+    rendered = t_train_snorm.entry([a for a in argv if "render_images" not in a]
+                                   + ["is_eval=True"])
+    rendered.pop("train_losses")
+    assert rendered == trained
+    (exp_dir,) = [p for p in tmp_path.iterdir() if p.is_dir()]
+    assert sorted(os.listdir(exp_dir / "val_images")) == sorted(
+        f"firstbatch_{kind}_{i}.png" for kind in ("pred", "target") for i in range(8))
+    # one timestamped scatter per run (runs within a second share a name)
+    plots = os.listdir(exp_dir / "plots")
+    assert plots and all(p.startswith("segment_area_vs_d1_") and p.endswith(".png")
+                         for p in plots)

@@ -5,10 +5,10 @@ weights carried across, and the port's checkpoint resume.
 The JAX side runs under ``jax.default_matmul_precision("float32")``."""
 
 import copy
+import os
 
 import jax
 import numpy as np
-import pytest
 
 import train_depth as jax_train_depth
 from midvision_probe_torch import train_depth as t_train_depth
@@ -97,7 +97,9 @@ def test_train_depth_slice_matches_jax(tmp_path, monkeypatch):
 
 def test_train_depth_checkpoint_resume_is_eval(tmp_path):
     """A second run with is_eval=True restores the saved probe and
-    reproduces the trained run's metrics exactly."""
+    reproduces the trained run's metrics exactly; with render_images at its
+    default (on) the same run writes the first-batch panels, the per-image
+    dumps and the segment scatter."""
     argv = SLICE + ["probe=depth_linear", "dataset.num_instances=8",
                     "+system.device=cpu", f"output_dir={tmp_path}"]
     trained = t_train_depth.entry(argv)
@@ -105,5 +107,15 @@ def test_train_depth_checkpoint_resume_is_eval(tmp_path):
     assert restored.pop("train_losses") == []
     assert len(trained.pop("train_losses")) == 1
     assert restored == trained
-    with pytest.raises(NotImplementedError, match="render_images"):
-        t_train_depth.entry([a for a in argv if "render_images" not in a])
+    rendered = t_train_depth.entry([a for a in argv if "render_images" not in a]
+                                   + ["is_eval=True"])
+    rendered.pop("train_losses")
+    assert rendered == trained
+    (exp_dir,) = [p for p in tmp_path.iterdir() if p.is_dir()]
+    files = sorted(os.listdir(exp_dir / "val_images"))
+    # 8 test images in one batch: 8 first-batch pairs, 4 files per image
+    assert len(files) == 2 * 8 + 4 * 8 and "metrics_depth_0_7.json" in files
+    # one timestamped scatter per run (runs within a second share a name)
+    plots = os.listdir(exp_dir / "plots")
+    assert plots and all(p.startswith("segment_area_vs_d1_") and p.endswith(".png")
+                         for p in plots)
