@@ -47,7 +47,7 @@ JSON line per phase and fails on the first failing phase:
    Taskonomy path's bf16 one (B=16, N=1025: 512x512), the DINOv2
    B/14-reg forward's (B=64, N=1535: cls, 4 registers and 34x45 patches at
    480x640, unpadded) and the DeiT-III B/16 forward's (B=64, N=577 at
-   384x384), K1's bf16 cases
+   384x384) and the MaskCut path's f32 one (B=1, N=901), K1's bf16 cases
    held to min(1.6e-2, 2^-6 * max|ref|) and its plain version run in
    chunks of images; timed
    cases with SDPA's time as the yardstick, the f32 ones with the bound of
@@ -182,7 +182,33 @@ JSON line per phase and fails on the first failing phase:
    480x640 (K1 12 and 24 per forward), deit3_vitb16 at 384x384 (K1 12),
    beitv2_vitb16 at 224x224 and midas_l16 at 384x384 (the biased einsum
    route: no kernel) and simclr_resnet50 at 480x640 (cuDNN: no kernel), all
-   batch 64, bf16.
+   batch 64, bf16; sam_vit_b and sam_vit_l at 480x640 (windows padded to
+   42x42, the global blocks' tables resized from 127 rows) and sam_vit_b at
+   its native 1024x1024 (batch 8, N = 4096 in the global blocks), and
+   cnxt_b_in22k and cnxt_b_fcmae (GRN) at 480x640 (every stage resized to
+   the 30x40 grid): einsum, f32 softmax and cuDNN, no hand-written kernel.
+10a. ``path_depth_sam`` and ``path_depth_convnext_laion``: the depth
+   trainer as ``path`` on ``sam_base`` and ``clip_convnext`` (renders off),
+   each trunk loaded in bf16 from a full-size fabricated file in its
+   source's naming (segment_anything's ``sam_vit_b_01ec64.pth`` with the
+   neck and prompt-encoder/mask-decoder keys; open_clip's
+   ``convnext_base_w_laion2b.pt`` under ``visual.trunk.`` with its head and
+   text-tower keys): every loaded tensor equal to the file's (the pos-embed
+   kept f32), only those keys left out, no random init, the taps, the
+   spec's mean and std (OpenAI's for the open_clip file), finite losses,
+   the metrics in range, one CSV row, no hand-written kernel.
+10b. ``path_maskcut_voc``: the MaskCut evaluator
+   (``midvision_probe_torch.evaluate_generic_objectness``) through its
+   ``entry``, ``backbone=dino_b16`` in float32 at ``maskcut.fixed_size=480``
+   on 4 fabricated VOC2007 frames with the fabricated ``dino_vitb16.pth``:
+   ``Num Errors`` 0, ``Num Images`` 4, the metrics in [0, 1], one CSV row,
+   the DenseCRF library built from ``native/densecrf/`` into
+   ``build/densecrf`` (its path and build seconds), K1 12 per image on
+   ``tf32x3`` (B = 1, N = 901), and the host seconds split into features,
+   affinity + 2-means, ``eigh``, CRF and the rest.
+10c. ``extract_kqv``: ``FeatureExtractor.extract_kqv`` on dino_vitb16 at
+   480x640, bf16, batch 8, ``k`` and ``kqv`` against a plain recompute of
+   block 11's projection, K1 12 a call on ``wgmma``.
 11. ``bench_attn``: the attention bench through its entry point
    (``midvision_probe_torch.bench_attn.main``) with every variant (``base``
    K1, ``wide4``/``stagger4``/``wide12`` K7, ``int8`` K8, ``splash`` K9):
@@ -562,6 +588,8 @@ def phase_attention_checks(torch):
         # ViT does not pad to 128) and DeiT-III B/16 at 384x384
         ("dinov2_reg_k1_bf16", "K1", 64, 12, 1535, 64, bf16, True),
         ("deit3_k1_bf16", "K1", 64, 12, 577, 64, bf16, True),
+        # the MaskCut path's f32 launch: one image at 480x480 (cls + 30x30)
+        ("maskcut_dino_k1_fp32", "K1", 1, 12, 901, 64, f32, True),
     ]
     results = []
     for name, kernel, B, H, N, d, dtype, timed in cases:
@@ -2231,6 +2259,360 @@ def phase_path_taskonomy(torch, smi: str):
     return counts
 
 
+
+def sam_vitb_container(torch, seed: int = 12) -> dict:
+    """A full-size segment_anything ``sam_vit_b_01ec64.pth`` in its own
+    naming: the image encoder under ``image_encoder.`` (64x64 pos-embed,
+    windowed blocks with 27-row relative-position tables and global blocks
+    2, 5, 8, 11 with 127-row ones, the neck) and some prompt-encoder and
+    mask-decoder keys the converter skips; N(0, 0.02) from a seeded
+    generator, LayerNorm weights 1."""
+    gen = torch.Generator().manual_seed(seed)
+
+    def normal(*shape):
+        return torch.randn(*shape, generator=gen) * 0.02
+
+    C, F, hd = 768, 3072, 64
+    enc = "image_encoder"
+    sd = {f"{enc}.pos_embed": normal(1, 64, 64, C),
+          f"{enc}.patch_embed.proj.weight": normal(C, 3, 16, 16),
+          f"{enc}.patch_embed.proj.bias": normal(C)}
+    for i in range(12):
+        b = f"{enc}.blocks.{i}"
+        table = 127 if i in (2, 5, 8, 11) else 27
+        for norm in ("norm1", "norm2"):
+            sd[f"{b}.{norm}.weight"], sd[f"{b}.{norm}.bias"] = torch.ones(C), normal(C)
+        sd[f"{b}.attn.rel_pos_h"], sd[f"{b}.attn.rel_pos_w"] = normal(table, hd), normal(table, hd)
+        for name, shape in {"attn.qkv": (3 * C, C), "attn.proj": (C, C),
+                            "mlp.lin1": (F, C), "mlp.lin2": (C, F)}.items():
+            sd[f"{b}.{name}.weight"], sd[f"{b}.{name}.bias"] = normal(*shape), normal(shape[0])
+    sd.update({f"{enc}.neck.0.weight": normal(256, C, 1, 1),
+               f"{enc}.neck.1.weight": torch.ones(256), f"{enc}.neck.1.bias": normal(256),
+               f"{enc}.neck.2.weight": normal(256, 256, 3, 3),
+               f"{enc}.neck.3.weight": torch.ones(256), f"{enc}.neck.3.bias": normal(256),
+               "prompt_encoder.pe_layer.positional_encoding_gaussian_matrix": normal(2, 128),
+               "prompt_encoder.not_a_point_embed.weight": normal(1, 256),
+               "mask_decoder.iou_token.weight": normal(1, 256),
+               "mask_decoder.mask_tokens.weight": normal(4, 256),
+               "mask_decoder.transformer.layers.0.self_attn.q_proj.weight": normal(256, 256)})
+    return sd
+
+
+def sam_file_name(key: str) -> str:
+    """The ``sam_vit_b_01ec64.pth`` key that a port ``SAMViT`` parameter
+    loads from."""
+    key = key.replace("mlp_lin1", "mlp.lin1").replace("mlp_lin2", "mlp.lin2")
+    if key.startswith("patch_embed."):
+        key = "patch_embed.proj." + key[len("patch_embed."):]
+    return f"image_encoder.{key}"
+
+
+CONVNEXT_DEPTHS, CONVNEXT_DIMS = (3, 3, 27, 3), (128, 256, 512, 1024)
+
+
+def convnext_laion_container(torch, seed: int = 13) -> dict:
+    """A full-size open_clip ``convnext_base_w_laion2b.pt`` state dict: the
+    ConvNeXt-B trunk in timm naming (layer-scale ``gamma``) under
+    ``visual.trunk.``, its head norm and the projection, and some text-tower
+    keys the converter skips; N(0, 0.02) from a seeded generator, LayerNorm
+    weights 1, ``gamma`` 1e-6 + N(0, 0.02)."""
+    gen = torch.Generator().manual_seed(seed)
+
+    def normal(*shape):
+        return torch.randn(*shape, generator=gen) * 0.02
+
+    t = "visual.trunk"
+    d0 = CONVNEXT_DIMS[0]
+    sd = {f"{t}.stem.0.weight": normal(d0, 3, 4, 4), f"{t}.stem.0.bias": normal(d0),
+          f"{t}.stem.1.weight": torch.ones(d0), f"{t}.stem.1.bias": normal(d0)}
+    for s, (depth, d) in enumerate(zip(CONVNEXT_DEPTHS, CONVNEXT_DIMS)):
+        if s > 0:
+            prev = CONVNEXT_DIMS[s - 1]
+            sd[f"{t}.stages.{s}.downsample.0.weight"] = torch.ones(prev)
+            sd[f"{t}.stages.{s}.downsample.0.bias"] = normal(prev)
+            sd[f"{t}.stages.{s}.downsample.1.weight"] = normal(d, prev, 2, 2)
+            sd[f"{t}.stages.{s}.downsample.1.bias"] = normal(d)
+        for b in range(depth):
+            p = f"{t}.stages.{s}.blocks.{b}"
+            sd.update({f"{p}.conv_dw.weight": normal(d, 1, 7, 7), f"{p}.conv_dw.bias": normal(d),
+                       f"{p}.norm.weight": torch.ones(d), f"{p}.norm.bias": normal(d),
+                       f"{p}.mlp.fc1.weight": normal(4 * d, d), f"{p}.mlp.fc1.bias": normal(4 * d),
+                       f"{p}.mlp.fc2.weight": normal(d, 4 * d), f"{p}.mlp.fc2.bias": normal(d),
+                       f"{p}.gamma": 1e-6 + normal(d)})
+    sd.update({f"{t}.head.norm.weight": torch.ones(1024), f"{t}.head.norm.bias": normal(1024),
+               "visual.head.proj.weight": normal(640, 1024),
+               "positional_embedding": normal(77, 640), "text_projection": normal(640, 640),
+               "ln_final.weight": torch.ones(640), "ln_final.bias": normal(640),
+               "transformer.resblocks.0.attn.in_proj_weight": normal(1920, 640),
+               "logit_scale": torch.tensor(4.6052)})
+    return sd
+
+
+def convnext_file_name(key: str) -> str:
+    """The ``convnext_base_w_laion2b.pt`` key that a port ``ConvNeXt``
+    parameter loads from."""
+    parts = key.split(".")
+    if parts[0] in ("stem_conv", "stem_norm"):
+        name = f"stem.{0 if parts[0] == 'stem_conv' else 1}.{parts[1]}"
+    elif parts[0] in ("downsample_norm", "downsample_conv"):
+        name = (f"stages.{int(parts[1]) + 1}.downsample."
+                f"{0 if parts[0] == 'downsample_norm' else 1}.{parts[2]}")
+    else:  # stages.{s}.{b}.<layer>.<param>
+        layer = {"dwconv": "conv_dw", "pwconv1": "mlp.fc1", "pwconv2": "mlp.fc2"}.get(
+            parts[3], parts[3])
+        name = ".".join([f"stages.{parts[1]}.blocks.{parts[2]}", layer, *parts[4:]])
+    return f"visual.trunk.{name}"
+
+
+def phase_path_depth_loaded(torch, smi: str, phase: str, backbone: str, entry: str,
+                            container, file_name, taps, image_mean):
+    """The depth trainer through its ``entry`` as ``path`` runs it
+    (``backbone``, synthetic 480x640, 16 items, DPT, batch 8, one epoch,
+    bf16 backbone), the trunk loaded from a full-size fabricated file in the
+    source's own naming (``container``) under a temporary
+    ``$MVP_CHECKPOINT_DIR``. Checks: every tensor the zoo loads equal to the
+    file's at the dtype it holds it in (``file_name`` maps a parameter to
+    its key), the file's keys left out only the ones the converter skips,
+    no random init, the taps at 480x640, the spec's mean and std, finite
+    losses, the depth metrics in range, one CSV row and no hand-written
+    kernel launched; wall time and peak memory. Returns the launch
+    counts."""
+    from midvision_probe_torch import train_depth
+    from midvision_probe_torch.config import compose, instantiate
+    from midvision_probe_torch.models import zoo
+
+    root = tempfile.mkdtemp(prefix=f"mvp_chip_smoke_{phase}_")
+    try:
+        ckpt_dir = os.path.join(root, "checkpoints")
+        os.makedirs(ckpt_dir)
+        t0 = time.perf_counter()
+        sd = container(torch)
+        torch.save(sd, os.path.join(ckpt_dir, zoo.ZOO[entry].filename))
+        file_s = time.perf_counter() - t0
+        file_bytes = os.path.getsize(os.path.join(ckpt_dir, zoo.ZOO[entry].filename))
+        with checkpoints_in(ckpt_dir) as random_inits:
+            t0 = time.perf_counter()
+            ext = instantiate(compose("depth_training", [f"backbone={backbone}"]).backbone,
+                              return_multilayer=True, dtype="bfloat16", device="cuda")
+            torch.cuda.synchronize()
+            load_s = time.perf_counter() - t0
+            loaded = ext.module.state_dict()
+            mismatched = [k for k, v in loaded.items()
+                          if not torch.equal(v.cpu(), sd[file_name(k)].to(v.dtype))]
+            kept_f32 = sorted(k for k, v in loaded.items() if v.dtype == torch.float32)
+            not_loaded = sorted(set(sd) - {file_name(k) for k in loaded})
+            with torch.no_grad():
+                tap_shapes = [tuple(t.shape[1:]) for t in
+                              ext.features(torch.randn(1, 480, 640, 3, device="cuda"))]
+            spec_mean = tuple(ext.spec.image_mean)
+            del ext, loaded
+            torch.cuda.empty_cache()
+
+            out_dir = os.path.join(root, "out")
+            argv = [f"backbone={backbone}", "dataset=synthetic",
+                    "dataset.image_size=[480,640]", f"dataset.num_instances={DEPTH_ITEMS}",
+                    "probe=depth_dpt", f"batch_size={DEPTH_BATCH}", "optimizer=one_epoch",
+                    "+system.backbone_dtype=bfloat16", "+render_images=False",
+                    f"output_dir={out_dir}"]
+            torch.cuda.reset_peak_memory_stats()
+            reset_counts()
+            t0 = time.perf_counter()
+            row = train_depth.entry(argv)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = read_counts()
+        csvs = [f for f in os.listdir(out_dir) if f.endswith(".csv")]
+        with open(os.path.join(out_dir, csvs[0])) as f:
+            csv_rows = len(f.read().strip().splitlines()) - 1
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    losses = row.pop("train_losses")
+    emit({"phase": phase, "argv": [a for a in argv if root not in a],
+          "file": zoo.ZOO[entry].filename, "file_bytes": file_bytes, "file_write_s": file_s,
+          "checkpoint_load_build_s": load_s, "file_tensors": len(sd),
+          "trunk_tensors_loaded": len(sd) - len(not_loaded), "keys_not_loaded": not_loaded,
+          "mismatched_tensors": mismatched, "kept_float32": kept_f32,
+          "random_init_calls": len(random_inits), "taps_at_480x640": tap_shapes,
+          "image_mean": spec_mean, "train_losses": losses, "csv_files": csvs,
+          "csv_rows": csv_rows, "csv_row": row, "launches": counts,
+          "backbone_forwards": counts["forwards"], "wall_s": wall,
+          "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+          "nvidia_smi": smi, "gpu_state": gpu_state()})
+    checks = {
+        "weights_loaded": not mismatched,
+        "only_skipped_keys_left": all(
+            k.startswith(("image_encoder.neck.", "prompt_encoder.", "mask_decoder.",
+                          "visual.trunk.head.", "visual.head.")) or not k.startswith(
+                ("image_encoder.", "visual.")) for k in not_loaded),
+        "no_random_init": not random_inits,
+        "taps": tap_shapes == taps,
+        "image_mean": spec_mean == tuple(image_mean),
+        "two_steps": len(losses) == DEPTH_ITEMS // DEPTH_BATCH,
+        "losses_finite": all(math.isfinite(x) for x in losses),
+        "csv_written": len(csvs) == 1 and csv_rows == 1,
+        "sa_rmse_finite": math.isfinite(row["sa_rmse"]),
+        "sa_d1_in_unit": 0.0 <= row["sa_d1"] <= 1.0,
+        "si_d1_in_unit": 0.0 <= row["si_d1"] <= 1.0,
+        "no_kernel": per_forward_ok(counts, NO_KERNEL_PER_FORWARD),
+    }
+    if not all(checks.values()):
+        raise SystemExit(f"{phase} check failed: {checks}")
+    return counts
+
+
+MASKCUT_IMAGES = 4
+
+
+@contextlib.contextmanager
+def maskcut_stages_timed():
+    """The host seconds of MaskCut's stages, summed over a run: the backbone
+    features (the forward and the copy to the host), the affinity with its
+    2-means, the generalized ``eigh`` and the DenseCRF; one dict is
+    yielded."""
+    from midvision_probe_torch.models import maskcut
+
+    seconds = {"features": 0.0, "affinity_kmeans": 0.0, "eigh": 0.0, "crf": 0.0}
+    cls = maskcut.MaskCutProcessor
+    saved = {"_default_features": cls.__dict__["_default_features"],
+             "get_affinity_matrix": cls.__dict__["get_affinity_matrix"],
+             "second_smallest_eigenvector": cls.__dict__["second_smallest_eigenvector"]}
+    densecrf = maskcut.densecrf
+
+    def timed(fn, key):
+        def wrapper(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                seconds[key] += time.perf_counter() - t0
+        return wrapper
+
+    cls._default_features = timed(saved["_default_features"], "features")
+    cls.get_affinity_matrix = timed(saved["get_affinity_matrix"], "affinity_kmeans")
+    cls.second_smallest_eigenvector = staticmethod(
+        timed(saved["second_smallest_eigenvector"].__func__, "eigh"))
+    maskcut.densecrf = timed(densecrf, "crf")
+    try:
+        yield seconds
+    finally:
+        for name, attr in saved.items():
+            setattr(cls, name, attr)
+        maskcut.densecrf = densecrf
+
+
+def phase_path_maskcut_voc(torch, smi: str):
+    """The MaskCut evaluator (``midvision_probe_torch.evaluate_generic_
+    objectness``) through its ``entry`` as the paper runs it,
+    ``backbone=dino_b16`` (float32, the config's default) at
+    ``maskcut.fixed_size=480`` (K1 at B = 1, N = 901 on ``tf32x3``), on a
+    fabricated VOC2007 tree of 4 trainval frames (1-3 objects each, so 1-3
+    masks an image) with DINO ViT-B/16 loaded from the full-size fabricated
+    ``dino_vitb16.pth``. Checks: ``Num Errors`` 0 (the per-image catch must
+    not hide a failure on the card), ``Num Images`` 4, the metrics in [0, 1],
+    one CSV row, no random init, the DenseCRF library built from the
+    repository's sources into ``build/densecrf`` (its path and build
+    seconds), K1 12 per image on ``tf32x3``; the host seconds split into
+    features, affinity + 2-means, ``eigh``, CRF and the rest. Returns the
+    launch counts."""
+    import csv
+
+    from midvision_probe_torch import evaluate_generic_objectness
+    from midvision_probe_torch.models import crf, zoo
+
+    root = tempfile.mkdtemp(prefix="mvp_chip_smoke_maskcut_")
+    try:
+        voc = os.path.join(root, "VOC2007")
+        make_voc_tree(voc, MASKCUT_IMAGES, seed=31)
+        ckpt_dir = os.path.join(root, "checkpoints")
+        os.makedirs(ckpt_dir)
+        torch.save(dino_vitb16_container(torch),
+                   os.path.join(ckpt_dir, zoo.ZOO["dino_vitb16"].filename))
+        out_dir = os.path.join(root, "out")
+        argv = ["backbone=dino_b16", "dataset=voc",
+                f"dataset.trainval_path={os.path.join(voc, 'SegmentationObject')}",
+                f"dataset.trainval_jpeg_dir={os.path.join(voc, 'JPEGImages')}",
+                f"dataset.trainval_xml_dir={os.path.join(voc, 'Annotations')}",
+                "maskcut.fixed_size=480", f"output_dir={out_dir}"]
+        with checkpoints_in(ckpt_dir) as random_inits, maskcut_stages_timed() as stages:
+            torch.cuda.reset_peak_memory_stats()
+            reset_counts()
+            t0 = time.perf_counter()
+            metrics = evaluate_generic_objectness.entry(argv)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = read_counts()
+        csvs = [f for f in os.listdir(out_dir) if f.endswith(".csv")]
+        with open(os.path.join(out_dir, csvs[0]), newline="") as f:
+            rows = list(csv.DictReader(f))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    stages["rest"] = wall - sum(stages.values())
+    row = rows[0] if rows else {}
+    emit({"phase": "path_maskcut_voc", "argv": [a for a in argv if root not in a],
+          "images": MASKCUT_IMAGES, "metrics": metrics, "csv_files": csvs,
+          "csv_rows": len(rows), "csv_row": row, "crf_library": crf.BUILD_INFO,
+          "random_init_calls": len(random_inits), "launches": counts,
+          "backbone_forwards": counts["forwards"], "wall_s": wall, "host_s": stages,
+          "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+          "nvidia_smi": smi, "gpu_state": gpu_state()})
+    checks = {
+        "no_errors": row.get("Num Errors") == "0",
+        "all_images": row.get("Num Images") == str(MASKCUT_IMAGES),
+        "metrics_in_unit": len(metrics) == 4 and all(0.0 <= v <= 1.0 for v in metrics.values()),
+        "csv_written": csvs == ["final_results_summary_voc.csv"] and len(rows) == 1,
+        "weights_loaded": not random_inits,
+        "crf_built_from_sources": str(crf.BUILD_INFO.get("path", "")).startswith(
+            str(crf.BUILD_DIR)),
+        "one_forward_an_image": counts["forwards"] == MASKCUT_IMAGES,
+        "attention_per_forward": per_forward_ok(counts, VIT_B_F32_PER_FORWARD),
+    }
+    if not all(checks.values()):
+        raise SystemExit(f"path_maskcut_voc check failed: {checks}")
+    return counts
+
+
+def phase_extract_kqv(torch):
+    """``FeatureExtractor.extract_kqv`` on dino_vitb16 at 480x640, bf16,
+    batch 8: ``mode="k"`` and ``mode="kqv"`` against a plain recompute of
+    the last tapped block's projection (block 11's ``norm1`` and ``qkv``
+    applied to block 10's output), each within 2^-8 * max|ref|, and K1 12
+    launches a call on ``wgmma`` (the projection is the one the fused
+    branch hands its kernel). Returns the launch counts."""
+    from midvision_probe_torch.models.zoo import build_vit_extractor
+
+    ext = build_vit_extractor("dino_vitb16", dtype="bfloat16", device="cuda")
+    images = torch.randn(8, 480, 640, 3, device="cuda",
+                         generator=torch.Generator(device="cuda").manual_seed(4))
+    reset_counts()
+    k_map = ext.extract_kqv(images, "k")
+    kqv = ext.extract_kqv(images, "kqv")
+    torch.cuda.synchronize()
+    counts = read_counts()
+    module = ext.module
+    with torch.no_grad():
+        x = module(images, taps=(10,))["tokens"][0]
+        blk = module.blocks[11]
+        qkv = blk.attn.qkv(blk.norm1(x)).reshape(8, 1201, 3, 12, 64)
+        plain = qkv[:, 1:].reshape(8, 30, 40, 3, 768)
+        ref_kqv = torch.cat([plain[..., 1, :], plain[..., 0, :], plain[..., 2, :]], dim=-1)
+    errs = {"k": (k_map.float() - plain[..., 1, :].float()).abs().max().item(),
+            "kqv": (kqv.float() - ref_kqv.float()).abs().max().item()}
+    max_ref = ref_kqv.float().abs().max().item()
+    res = {"phase": "extract_kqv", "model": "dino_vitb16", "batch": 8, "image_hw": [480, 640],
+           "dtype": "torch.bfloat16", "shapes": {"k": list(k_map.shape), "kqv": list(kqv.shape)},
+           "max_abs_err": errs, "max_abs_ref": max_ref, "tol": 2.0**-8 * max_ref,
+           "launches": counts}
+    emit(res)
+    ok = (tuple(k_map.shape) == (8, 30, 40, 768) and tuple(kqv.shape) == (8, 30, 40, 2304)
+          and all(e <= res["tol"] for e in errs.values())
+          and per_forward_ok(counts, DINO_PER_FORWARD) and counts["forwards"] == 2)
+    del ext, images, k_map, kqv, x, qkv, plain, ref_kqv
+    torch.cuda.empty_cache()
+    if not ok:
+        raise SystemExit(f"extract_kqv check failed: {res}")
+    return counts
+
+
 def vit_taps(grid, width) -> list:
     """The four (h, w, C) tap shapes of a ViT forward."""
     return [(*grid, width)] * 4
@@ -2440,6 +2822,47 @@ def main() -> int:
         [(120, 160, 256), (60, 80, 512), (30, 40, 1024), (15, 20, 2048)],
         build=lambda dtype: SIMCLR(return_layers=[1, 2, 3, 4], return_multilayer=True,
                                    dtype=dtype, device="cuda"))
+    # SAM's windowed and global attention and ConvNeXt's convolutions are
+    # einsum, softmax and library convolutions, as in the JAX package: no
+    # hand-written kernel
+    from midvision_probe_torch.models.zoo import SAM, ConvNext
+
+    sam_b = lambda dtype: SAM(arch="vit_b", return_multilayer=True, dtype=dtype,  # noqa: E731
+                              device="cuda")
+    by_path["forward_sam_vitb"] = phase_forward(
+        torch, smi, "sam_vit_b", 64, (480, 640), bf16, NO_KERNEL_PER_FORWARD,
+        vit_taps((30, 40), 768), build=sam_b)
+    by_path["forward_sam_vitl"] = phase_forward(
+        torch, smi, "sam_vit_l", 64, (480, 640), bf16, NO_KERNEL_PER_FORWARD,
+        vit_taps((30, 40), 1024), iters=5,
+        build=lambda dtype: SAM(arch="vit_l", return_multilayer=True, dtype=dtype,
+                                device="cuda"))
+    # SAM's native 1024x1024: N = 4096 in the global blocks, no table resize
+    by_path["forward_sam_vitb_1024"] = phase_forward(
+        torch, smi, "sam_vit_b", 8, (1024, 1024), bf16, NO_KERNEL_PER_FORWARD,
+        vit_taps((64, 64), 768), build=sam_b)
+    convnext_taps = [(30, 40, d) for d in CONVNEXT_DIMS]
+    by_path["forward_convnext_in22k"] = phase_forward(
+        torch, smi, "cnxt_b_in22k", 64, (480, 640), bf16, NO_KERNEL_PER_FORWARD,
+        convnext_taps, build=lambda dtype: ConvNext(checkpoint="in22k", return_multilayer=True,
+                                                    dtype=dtype, device="cuda"))
+    by_path["forward_convnext_fcmae"] = phase_forward(
+        torch, smi, "cnxt_b_fcmae", 64, (480, 640), bf16, NO_KERNEL_PER_FORWARD,
+        convnext_taps, build=lambda dtype: ConvNext(
+            checkpoint="fcmae_ft_in22k_in1k_384", return_multilayer=True, dtype=dtype,
+            device="cuda"))
+    by_path["path_depth_sam"] = phase_path_depth_loaded(
+        torch, smi, "path_depth_sam", "sam_base", "sam_vit_b", sam_vitb_container,
+        sam_file_name, vit_taps((30, 40), 768), (0.485, 0.456, 0.406))
+    torch.cuda.empty_cache()
+    by_path["path_depth_convnext_laion"] = phase_path_depth_loaded(
+        torch, smi, "path_depth_convnext_laion", "clip_convnext", "cnxt_b_w_laion2b",
+        convnext_laion_container, convnext_file_name, convnext_taps,
+        (0.48145466, 0.4578275, 0.40821073))
+    torch.cuda.empty_cache()
+    by_path["path_maskcut_voc"] = phase_path_maskcut_voc(torch, smi)
+    torch.cuda.empty_cache()
+    by_path["extract_kqv"] = phase_extract_kqv(torch)
     by_path["bench_attn"] = phase_bench_attn(torch)
     by_path["path_fused_mlp"] = phase_path_fused_mlp(torch)
     emit({"phase": "done", "total_s": time.perf_counter() - t_start, "gpu_state": gpu_state()})
@@ -2457,7 +2880,8 @@ def main() -> int:
                                                     "objectness_dino_k1_bf16",
                                                     "twoafc_clip_k1_fp32", "spair_dino_k1_fp32",
                                                     "taskonomy_dino_k1_bf16",
-                                                    "dinov2_reg_k1_bf16", "deit3_k1_bf16")}),
+                                                    "dinov2_reg_k1_bf16", "deit3_k1_bf16",
+                                                    "maskcut_dino_k1_fp32")}),
         kernel_entry("knn2", "knn2.cu", f"{ops}/matching.py:64", "k4", by_path,
                      knn2_checks["scannet_main"], "wgmma",
                      navi_render_shape={**case_numbers(knn2_checks["navi_render_masked"]),

@@ -15,6 +15,12 @@ Layout rules:
   ``attn.rel_pos_bias_table`` keep their names;
 * ResNet ``layer{s}_{b}`` -> ``layer{s}.{b}``, ``downsample_conv`` /
   ``downsample_bn`` -> ``downsample.0`` / ``.1`` (torchvision's names);
+* ConvNeXt ``stage{s}_block{b}`` -> ``stages.{s}.{b}``,
+  ``downsample_{norm,conv}_{s}`` -> ``downsample_{norm,conv}.{s-1}``; GRN's
+  ``grn_gamma``/``grn_beta`` and the v1 ``gamma`` keep their names;
+* SAM ``blocks_{i}`` -> ``blocks.{i}``, the ``(H, W, C)`` pos-embed table
+  -> ``(1, H, W, C)``; the per-axis ``rel_pos_h``/``rel_pos_w`` keep their
+  names;
 * a head's auto-named decoder (``DPT_0``, ``Linear_0``, ``MultiscaleHead_0``)
   -> ``decoder``.
 """
@@ -30,6 +36,8 @@ import torch
 _DECODER = re.compile(r"^(DPT|Linear|MultiscaleHead)_0$")
 _BLOCK = re.compile(r"^blocks_(\d+)$")
 _RESNET_BLOCK = re.compile(r"^(layer\d)_(\d+)$")
+_CONVNEXT_BLOCK = re.compile(r"^stage(\d+)_block(\d+)$")
+_CONVNEXT_DOWNSAMPLE = re.compile(r"^downsample_(norm|conv)_(\d+)$")
 _RESNET_DOWNSAMPLE = {"downsample_conv": "downsample.0", "downsample_bn": "downsample.1"}
 
 
@@ -88,6 +96,29 @@ def resnet_state_dict(variables: Mapping) -> dict[str, torch.Tensor]:
 
     sd = _to_state_dict(variables["params"], rename)
     sd.update(_to_state_dict(variables["batch_stats"], rename))
+    return sd
+
+
+def convnext_state_dict(variables: Mapping) -> dict[str, torch.Tensor]:
+    """JAX ``ConvNeXt`` variables -> port ``ConvNeXt`` state_dict."""
+    def rename(m):
+        b = _CONVNEXT_BLOCK.match(m)
+        if b:
+            return f"stages.{b.group(1)}.{b.group(2)}"
+        d = _CONVNEXT_DOWNSAMPLE.match(m)
+        return f"downsample_{d.group(1)}.{int(d.group(2)) - 1}" if d else m
+
+    return _to_state_dict(variables["params"], rename)
+
+
+def sam_state_dict(variables: Mapping) -> dict[str, torch.Tensor]:
+    """JAX ``SAMViT`` variables -> port ``SAMViT`` state_dict."""
+    def rename(m):
+        b = _BLOCK.match(m)
+        return f"blocks.{b.group(1)}" if b else m
+
+    sd = _to_state_dict(variables["params"], rename)
+    sd["pos_embed"] = sd["pos_embed"][None]
     return sd
 
 

@@ -14,14 +14,18 @@ into the port whether they come from JAX or from a file.
   mean and std,
 * ``convert_vit_openclip`` — open_clip / OpenAI CLIP visual towers,
 * ``convert_resnet50`` — torchvision-layout ResNet-50 trunks, to the JAX
-  ``ResNet50`` layout (``convert.from_jax.resnet_state_dict`` maps it).
-
-The ConvNeXt and SAM converters are not ported yet.
+  ``ResNet50`` layout (``convert.from_jax.resnet_state_dict`` maps it),
+* ``convert_convnext`` — timm, FB and open_clip ConvNeXt trunks, to the
+  JAX ``ConvNeXt`` layout (``convert.from_jax.convnext_state_dict``),
+* ``convert_sam`` — segment_anything image encoders, to the JAX
+  ``SAMViT`` layout (``convert.from_jax.sam_state_dict``).
 """
 
 from midvision_probe_torch.models.convert.clip_convert import convert_vit_openclip  # noqa: F401
+from midvision_probe_torch.models.convert.convnext_convert import convert_convnext  # noqa: F401
 from midvision_probe_torch.models.convert.radio_convert import convert_radio  # noqa: F401
 from midvision_probe_torch.models.convert.resnet_convert import convert_resnet50  # noqa: F401
+from midvision_probe_torch.models.convert.sam_convert import convert_sam  # noqa: F401
 from midvision_probe_torch.models.convert.remap import (  # noqa: F401
     MMSELFSUP_VIT_RENAME,
     prepare_state_dict,

@@ -84,12 +84,15 @@ def make_vit_feature_fn(module: nn.Module, taps: Sequence[int], output: str,
     that fixed grid whatever the input size."""
     taps = tuple(taps)
 
-    def apply_fn(images: torch.Tensor):
+    def fit_input(images: torch.Tensor) -> torch.Tensor:
         if fixed_input is not None and tuple(images.shape[1:3]) != (fixed_input,
                                                                     fixed_input):
             images = resize(images, (fixed_input, fixed_input), mode=fixed_input_mode,
                             align_corners=False)
-        res = module(images, taps=taps)
+        return images
+
+    def apply_fn(images: torch.Tensor):
+        res = module(fit_input(images), taps=taps)
         gh, gw = res["grid_hw"]
         num_spatial = gh * gw
         maps, clss = [], []
@@ -100,6 +103,21 @@ def make_vit_feature_fn(module: nn.Module, taps: Sequence[int], output: str,
             clss.append(cls_tok)
         return maps, clss
 
+    def qkv_fn(images: torch.Tensor):
+        """The last tapped block's (B, N, 3, H, d) qkv projection, the q, k
+        and v before any RoPE, and the patch grid, from one forward: a hook
+        on that block's ``attn.qkv`` keeps its output (JAX's ``sow``)."""
+        attn = module.blocks[max(taps)].attn
+        seen = []
+        hook = attn.qkv.register_forward_hook(lambda _m, _i, out: seen.append(out))
+        try:
+            res = module(fit_input(images), taps=taps)
+        finally:
+            hook.remove()
+        B, N, _ = seen[0].shape
+        return seen[0].reshape(B, N, 3, attn.cfg.num_heads, attn.cfg.head_dim), res["grid_hw"]
+
+    apply_fn.qkv_fn = qkv_fn  # for FeatureExtractor.extract_kqv
     return apply_fn
 
 
@@ -165,3 +183,28 @@ class FeatureExtractor:
     def features(self, images: torch.Tensor) -> list[torch.Tensor]:
         """Always-multilayer call used by probe training."""
         return self.outputs(images)[0]
+
+    def extract_kqv(self, images: torch.Tensor, mode: str = "k") -> torch.Tensor:
+        """Dense features from the last tapped block's attention (reference
+        ``return_kqv`` / ``extract_kqv``, ``dino.py:82-138``): its q, k or v
+        as (B, h, w, C) patch maps, or (B, h, w, 3C) for ``"kqv"`` (k, q, v
+        in that order). The projection is the one the block's attention ran
+        on (K1's input on the fused branch); one counted forward. ViT
+        extractors only."""
+        qkv_fn = getattr(self._apply_fn, "qkv_fn", None)
+        if self.arch != "vit" or qkv_fn is None:
+            raise ValueError(f"kqv extraction is a ViT feature, not one of {self.arch!r}")
+        if mode not in ("k", "q", "v", "kqv"):
+            raise ValueError(f"mode must be one of k, q, v, kqv; got {mode!r}")
+        FeatureExtractor.forward_count += 1
+        with torch.no_grad():
+            qkv, (gh, gw) = qkv_fn(images.to(self.device))
+        B, N, _, H, d = qkv.shape
+
+        def to_map(role: int) -> torch.Tensor:  # patch tokens only
+            t = qkv[:, :, role].reshape(B, N, H * d)
+            return t[:, -gh * gw:].reshape(B, gh, gw, H * d)
+
+        if mode == "kqv":
+            return torch.cat([to_map(1), to_map(0), to_map(2)], dim=-1)
+        return to_map("qkv".index(mode))

@@ -30,8 +30,10 @@ JAX package's whole-network 128-padding was a TPU layout device and is
 dropped: the kernels take any token count (DINOv2-reg at 480x640 runs
 N = 1 + 4 + 34 * 45 = 1535).
 
-Not ported yet (a config asking for them raises): SAM's windowed attention
-and decomposed relative positions, ``scan_blocks``.
+Not ported (a config asking for them raises): the windowed attention and
+decomposed relative positions of ``window_size``/``use_rel_pos`` (SAM's
+encoder is its own module, ``models/vit_sam.py``, as in the JAX package),
+``scan_blocks``.
 """
 
 from __future__ import annotations
@@ -97,8 +99,8 @@ class ViTConfig:
         asked = [k for k, v in unsupported.items() if v]
         if asked:
             raise NotImplementedError(
-                f"ViT features {asked} are not ported to PyTorch yet (ROADMAP "
-                "section 1, item 3: SAM's windowed attention)")
+                f"ViT features {asked} are not ported to PyTorch (SAM's windowed "
+                "attention is models/vit_sam.py)")
         if self.rel_pos_bias and (self.table_grid is None or self.num_prefix_tokens != 1):
             # the bias table is sized by the patch grid, and its index has
             # one cls row and column (the JAX package's ``_rel_pos_index``)

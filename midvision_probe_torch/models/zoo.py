@@ -2,21 +2,24 @@
 ``models/zoo.py``): the ViT entries (DINO ViT-B/16 and B/8, DINOv2 B/14,
 B/14-reg and L/14, MAE, iBOT, MoCo v3, MaskFeat, MILAN, EVA, PixMIM,
 DeiT-III B/16 and L/16, BEiT-v2, CLIP, SigLIP, CroCo v1 and v2, MiDaS'
-BEiT-L/16, RADIO v2, ``test_tiny_vit``), the 17 SSL ResNet-50 entries,
-``load_variables``, ``build_vit_extractor``, ``build_resnet_extractor``
-and the reference-compatible constructors of ``configs/backbone``.
+BEiT-L/16, RADIO v2, ``test_tiny_vit``), the SAM image encoders, the three
+ConvNeXt-B entries, the 17 SSL ResNet-50 entries, ``load_variables``, the
+extractor builders (``build_vit_extractor``, ``build_sam_extractor``,
+``build_convnext_extractor``, ``build_resnet_extractor``) and the
+reference-compatible constructors of ``configs/backbone``.
 
 A released checkpoint under ``$MVP_CHECKPOINT_DIR`` (default
 ``checkpoints``) is loaded: ``torch.load`` on the CPU, the entry's
 ``source`` unwrapped, its converter's numpy tree mapped onto the port's
-``ViT`` or ``ResNet50`` by ``convert.from_jax`` and loaded strictly, so a
-file whose keys do not match raises. Without a file the entry is
+``ViT``, ``SAMViT``, ``ConvNeXt`` or ``ResNet50`` by ``convert.from_jax``
+and loaded strictly, so a file whose keys do not match raises. Without a file the entry is
 random-initialised from a seeded ``torch.Generator`` (the JAX package
 random-initialises too, with JAX's generator; the draws differ, the
 distributions match).
 
-Not ported yet: SAM and ConvNeXt (``ROADMAP.md`` section 1, item 3); their
-configs' targets do not exist here, which ``config.instantiate`` reports.
+Not ported yet: the SD featurizers (``dift``, ``zero123``; ``ROADMAP.md``
+section 1, item 5); their configs' targets do not exist here, which
+``config.instantiate`` reports.
 """
 
 from __future__ import annotations
@@ -27,10 +30,19 @@ import os
 
 import torch
 
-from midvision_probe_torch.convert.from_jax import resnet_state_dict, vit_state_dict
+from midvision_probe_torch.convert.from_jax import (
+    convnext_state_dict,
+    resnet_state_dict,
+    sam_state_dict,
+    vit_state_dict,
+)
+from midvision_probe_torch.models import convnext as convnext_mod
+from midvision_probe_torch.models import vit_sam
 from midvision_probe_torch.models.convert import (
+    convert_convnext,
     convert_radio,
     convert_resnet50,
+    convert_sam,
     convert_vit_hf,
     convert_vit_openclip,
     convert_vit_timm,
@@ -45,6 +57,7 @@ from midvision_probe_torch.models.feature_extractor import (
 )
 from midvision_probe_torch.models.resnet import RESNET50_FEAT_DIMS, ResNet50, init_resnet_
 from midvision_probe_torch.models.vit import VIT_PRESETS, ViT, ViTConfig, init_vit_
+from midvision_probe_torch.ops.image import resize
 from midvision_probe_torch.utils.device import resolve_device, resolve_dtype
 
 log = logging.getLogger(__name__)
@@ -61,12 +74,12 @@ class ZooEntry:
     and how they convert."""
 
     name: str  # checkpoint_name in the reference CSVs
-    arch: str  # "vit" | "resnet" (the families ported)
+    arch: str  # "vit" | "sam" | "convnext" | "resnet"
     source: str  # unwrap_checkpoint convention
     filename: str  # expected file under $MVP_CHECKPOINT_DIR
     url: str = ""  # original weight source (provenance only)
     vit: dict | None = None  # ViTConfig kwargs
-    converter: str = "timm"  # timm | hf | radio | openclip
+    converter: str = "timm"  # timm | hf | radio | openclip (ViTs)
     prefix: str = ""  # key prefix inside the trunk state_dict
     image_mean: tuple = IMAGENET_MEAN
     image_std: tuple = IMAGENET_STD
@@ -268,6 +281,32 @@ register(ZooEntry(
     converter="radio",
 ))
 
+# --- SAM image encoders (reference sam.py; windowed-attention ViTDet) -----
+for _arch, _file in [("vit_b", "sam_vit_b_01ec64.pth"),
+                     ("vit_l", "sam_vit_l_0b3195.pth"),
+                     ("vit_h", "sam_vit_h_4b8939.pth")]:
+    register(ZooEntry(
+        f"sam_{_arch}", "sam", "raw", _file,
+        url=f"dl.fbaipublicfiles.com/segment_anything/{_file}",
+        default_size=1024,
+    ))
+
+# --- ConvNeXt family (reference convnext.py) ------------------------------
+register(ZooEntry(
+    "cnxt_b_in22k", "convnext", "raw", "convnext_base_in22k.pth",
+    url="timm convnext_base_in22k",
+))
+register(ZooEntry(
+    "cnxt_b_fcmae", "convnext", "raw", "convnextv2_base_fcmae.pth",
+    url="timm convnextv2_base.fcmae_ft_in22k_in1k_384",
+))
+register(ZooEntry(
+    "cnxt_b_w_laion2b", "convnext", "openclip", "convnext_base_w_laion2b.pt",
+    url="open_clip convnext_base_w laion2b_s13b_b82k",
+    prefix="visual.trunk.",
+    image_mean=OPENAI_CLIP_MEAN, image_std=OPENAI_CLIP_STD,
+))
+
 # --- ResNet-50 SSL zoo (17 wrappers, template simclr.py:29-115) -----------
 _R50 = [
     # (name, source, filename, url)
@@ -321,23 +360,29 @@ def checkpoint_dir() -> str:
     return os.environ.get("MVP_CHECKPOINT_DIR", "checkpoints")
 
 
-def load_variables(entry: ZooEntry, cfg: ViTConfig | None) -> tuple[dict | None, dict]:
+def load_variables(entry: ZooEntry, cfg) -> tuple[dict | None, dict]:
     """The entry's checkpoint under ``checkpoint_dir()``, converted: a
-    numpy tree in the JAX package's ``ViT`` or ``ResNet50`` layout (None
-    when no file is there) and the converter's extras (RADIO's
-    input-conditioner ``image_mean``/``image_std``)."""
+    numpy tree in the JAX package's ``ViT``, ``SAMViT``, ``ConvNeXt`` or
+    ``ResNet50`` layout (None when no file is there) and the converter's
+    extras (RADIO's input-conditioner ``image_mean``/``image_std``).
+    ``cfg``: the architecture's config (``ViTConfig``, ``SAMViTConfig``,
+    ``ConvNeXtConfig``; None for ResNet-50)."""
     path = os.path.join(checkpoint_dir(), entry.filename)
     if not os.path.exists(path):
         return None, {}
-    if entry.arch not in ("vit", "resnet"):
+    if entry.arch not in ("vit", "sam", "convnext", "resnet"):
         raise NotImplementedError(
             f"loading {entry.name} ({entry.arch}) is not ported to PyTorch yet: "
-            "the ConvNeXt and SAM converters come with their families (ROADMAP "
-            "section 1, item 3)")
+            "no ported family takes this architecture (the SD featurizers are "
+            "ROADMAP section 1, item 5)")
     ckpt = torch.load(path, map_location="cpu", weights_only=False)
     sd = unwrap_checkpoint(ckpt, entry.source)
     if entry.arch == "resnet":
         return convert_resnet50(sd, prefix=entry.prefix), {}
+    if entry.arch == "sam":
+        return convert_sam(sd, cfg, prefix=entry.prefix or "image_encoder."), {}
+    if entry.arch == "convnext":
+        return convert_convnext(sd, cfg, prefix=entry.prefix), {}
     if entry.converter == "hf":
         return convert_vit_hf(sd, cfg, prefix=entry.prefix), {}
     if entry.converter == "radio":
@@ -347,11 +392,26 @@ def load_variables(entry: ZooEntry, cfg: ViTConfig | None) -> tuple[dict | None,
     return convert_vit_timm(sd, cfg, prefix=entry.prefix), {}
 
 
-def random_init(module: ViT | ResNet50, seed: int = 0) -> ViT | ResNet50:
-    """Seeded random init of a ViT or ResNet-50 (flax-default
-    distributions)."""
-    init = init_resnet_ if isinstance(module, ResNet50) else init_vit_
-    return init(module, torch.Generator().manual_seed(seed))
+_INITS = {ViT: init_vit_, ResNet50: init_resnet_, vit_sam.SAMViT: vit_sam.init_sam_,
+          convnext_mod.ConvNeXt: convnext_mod.init_convnext_}
+
+
+def random_init(module, seed: int = 0):
+    """Seeded random init of a ViT, SAM encoder, ConvNeXt or ResNet-50
+    (flax-default distributions)."""
+    return _INITS[type(module)](module, torch.Generator().manual_seed(seed))
+
+
+def _cast(module: torch.nn.Module, device, dtype, keep_f32=(), channels_last=False):
+    """``module`` on ``device`` in ``dtype``, but the parameters named in
+    ``keep_f32`` stay float32, as the JAX package keeps them."""
+    kw = {"memory_format": torch.channels_last} if channels_last else {}
+    module = module.to(device=device, **kw)
+    dtype = resolve_dtype(dtype)
+    for name, p in module.named_parameters():
+        if name.rsplit(".", 1)[-1] not in keep_f32:
+            p.data = p.data.to(dtype)
+    return module
 
 
 def build_vit_extractor(
@@ -463,6 +523,124 @@ def build_resnet_extractor(
                        memory_format=torch.channels_last)
     return FeatureExtractor(make_resnet_feature_fn(module, multilayers), module, spec,
                             return_multilayer=return_multilayer, return_cls=return_cls)
+
+
+def build_sam_extractor(
+    name: str,
+    output: str = "dense",
+    layer: int = -1,
+    return_multilayer: bool = False,
+    add_norm: bool = False,
+    return_cls: bool = False,
+    dtype=None,
+    checkpoint_name: str | None = None,  # config-surface nicety; ignored
+    device=None,
+) -> FeatureExtractor:
+    """Frozen SAM image encoder for zoo entry ``name`` (``sam_vit_{b,l,h}``):
+    taps at ``default_vit_multilayers(depth)``, float32 (B, h, w, C) maps
+    (``gap``: their spatial mean), no cls token, on ``device`` (default
+    cuda; raises without a card unless a device is given) in ``dtype``."""
+    entry = ZOO[name]
+    device = resolve_device(device)
+    cfg = vit_sam.SAMViTConfig(**vit_sam.SAM_PRESETS[name.replace("sam_", "")])
+    multilayers = default_vit_multilayers(cfg.depth)
+    if not return_multilayer:
+        multilayers = [multilayers[-1] if layer == -1 else layer]
+    spec = FeatureSpec(
+        feat_dim=[cfg.width] * len(multilayers) if return_multilayer else cfg.width,
+        patch_size=cfg.patch_size,
+        multilayers=tuple(multilayers),
+        arch="sam",
+        checkpoint_name=name,
+        output=output,
+        num_layers=cfg.depth,
+        add_norm=add_norm,
+        image_mean=entry.image_mean,
+        image_std=entry.image_std,
+    )
+    variables, _ = load_variables(entry, cfg)
+    module = vit_sam.SAMViT(cfg)
+    if variables is None:
+        log.warning("no checkpoint for %s under %s — random init", name, checkpoint_dir())
+        module = random_init(module)
+    else:
+        module.load_state_dict(sam_state_dict(variables), strict=True)
+    module = _cast(module, device, dtype, keep_f32=vit_sam.KEEP_F32)
+    taps = tuple(multilayers)
+
+    def apply_fn(images: torch.Tensor):
+        maps = [m.float() for m in module(images, taps=taps)["maps"]]
+        if output == "gap":
+            maps = [m.mean(dim=(1, 2)) for m in maps]
+        return maps, [None] * len(maps)
+
+    return FeatureExtractor(apply_fn, module, spec, return_multilayer=return_multilayer,
+                            return_cls=return_cls)
+
+
+def build_convnext_extractor(
+    name: str,
+    output: str = "dense",
+    layer: int = -1,
+    return_multilayer: bool = False,
+    add_norm: bool = False,
+    return_cls: bool = False,
+    dtype=None,
+    use_grn: bool | None = None,
+    checkpoint_name: str | None = None,  # config-surface nicety; ignored
+    device=None,
+) -> FeatureExtractor:
+    """Frozen ConvNeXt-B for zoo entry ``name``: stage taps; ``dense``
+    resizes every stage map in float32 to the /16 grid (bilinear, no
+    antialias; reference ``convnext.py:99-105``), ``gap`` takes their
+    spatial mean, ``raw`` keeps the stage resolutions. GRN (ConvNeXt-v2)
+    unless ``use_grn`` says otherwise when ``"fcmae"`` is in the name. On
+    ``device`` (default cuda; raises without a card unless a device is
+    given) in ``dtype``."""
+    entry = ZOO[name]
+    device = resolve_device(device)
+    grn = use_grn if use_grn is not None else ("fcmae" in name)
+    cfg = convnext_mod.ConvNeXtConfig(use_grn=grn)
+    multilayers = [0, 1, 2, 3]
+    if not return_multilayer:
+        multilayers = [multilayers[-1] if layer == -1 else layer]
+    spec = FeatureSpec(
+        feat_dim=([cfg.dims[i] for i in multilayers] if return_multilayer
+                  else cfg.dims[multilayers[-1]]),
+        patch_size=16,
+        multilayers=tuple(multilayers),
+        arch="convnext",
+        checkpoint_name=name,
+        output=output,
+        num_layers=4,
+        add_norm=add_norm,
+        image_mean=entry.image_mean,
+        image_std=entry.image_std,
+    )
+    variables, _ = load_variables(entry, cfg)
+    module = convnext_mod.ConvNeXt(cfg)
+    if variables is None:
+        log.warning("no checkpoint for %s under %s — random init", name, checkpoint_dir())
+        module = random_init(module)
+    else:
+        module.load_state_dict(convnext_state_dict(variables), strict=True)
+    # cuDNN's convolutions read NHWC (channels-last) memory, which the
+    # activations are
+    module = _cast(module, device, dtype, keep_f32=convnext_mod.KEEP_F32,
+                   channels_last=True)
+    taps = tuple(multilayers)
+
+    def apply_fn(images: torch.Tensor):
+        maps = module(images, taps=taps)
+        if output == "dense":
+            out_hw = (images.shape[1] // 16, images.shape[2] // 16)
+            maps = [resize(m.float(), out_hw, mode="bilinear") for m in maps]
+        elif output == "gap":
+            maps = [m.mean(dim=(1, 2)) for m in maps]
+        return maps, [None] * len(maps)
+
+    return FeatureExtractor(apply_fn, module, spec, return_multilayer=return_multilayer,
+                            return_cls=return_cls)
 
 
 _COMMON_IGNORED = ("return_kqv", "fixed_size", "mode_selected", "return_layers")
@@ -599,6 +777,31 @@ JIGSAW = _resnet_wrapper("jigsaw_resnet50")
 ROTNET = _resnet_wrapper("rotnet_resnet50")
 MoCoV3_RES = _resnet_wrapper("mocov3_resnet50")
 DINO_RESNET = _resnet_wrapper("dino_resnet50")
+
+
+def SAM(arch="vit_b", output="dense", layer=-1, return_multilayer=False,
+        add_norm=False, **kw):
+    """Reference ``sam.py:11-113`` constructor surface."""
+    kw.pop("return_cls", None)
+    return build_sam_extractor(
+        f"sam_{arch}", output=output, layer=layer,
+        return_multilayer=return_multilayer, add_norm=add_norm, **_clean(kw))
+
+
+def ConvNext(arch="convnext_base", checkpoint="in22k", output="dense",
+             layer=-1, return_multilayer=False, add_norm=False, **kw):
+    """Reference ``convnext.py`` constructor surface: both open_clip laion2b
+    checkpoints (``clip_convnext``, ``clip_convnext_augreg``) map to
+    ``cnxt_b_w_laion2b``, as in the JAX zoo."""
+    name = {
+        "in22k": "cnxt_b_in22k",
+        "fcmae_ft_in22k_in1k_384": "cnxt_b_fcmae",
+    }.get(checkpoint, "cnxt_b_w_laion2b" if "laion" in str(checkpoint)
+          else "cnxt_b_in22k")
+    kw.pop("return_cls", None)
+    return build_convnext_extractor(
+        name, output=output, layer=layer, return_multilayer=return_multilayer,
+        add_norm=add_norm, **_clean(kw))
 
 
 def CLIP(arch="ViT-B-16", checkpoint="openai", output="dense", layer=-1,

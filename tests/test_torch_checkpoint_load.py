@@ -13,8 +13,8 @@
   by both zoos: the taps agree within atol 1e-4 (f32; the JAX side under
   ``jax.default_matmul_precision("float32")``), RADIO's mean and std come
   from the input conditioner, equal, and the port's random init never runs;
-* a file whose keys do not match makes the port raise, and the converters
-  the port lacks raise ``NotImplementedError``.
+* a file whose keys do not match makes the port raise, and an architecture
+  no ported family takes raises ``NotImplementedError``.
 
 The containers are made by ``data_processing/torch_replicas.py``."""
 
@@ -294,10 +294,13 @@ def test_zoo_raises_on_a_file_whose_keys_do_not_match(tmp_path, monkeypatch, dro
 
 
 def test_zoo_refuses_the_converters_it_lacks(tmp_path, monkeypatch):
+    """An architecture no ported family takes (the SD featurizers' U-Net)
+    raises, naming the roadmap item; SAM and ConvNeXt load since their
+    families were ported."""
     monkeypatch.setenv("MVP_CHECKPOINT_DIR", str(tmp_path))
-    entry = dataclasses.replace(t_zoo.ZOO["dino_vitb16"], arch="convnext")
+    entry = dataclasses.replace(t_zoo.ZOO["dino_vitb16"], arch="sd_unet")
     torch.save({}, os.path.join(tmp_path, entry.filename))
-    with pytest.raises(NotImplementedError, match="ConvNeXt and SAM .* item 3"):
+    with pytest.raises(NotImplementedError, match="sd_unet.*section 1, item 5"):
         t_zoo.load_variables(entry, t_vit.ViTConfig())
     variables, extras = t_zoo.load_variables(t_zoo.ZOO["crocov2_vitb16"], t_vit.ViTConfig())
     assert variables is None and extras == {}  # no file: random init, as before

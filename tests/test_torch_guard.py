@@ -1,8 +1,10 @@
 """Guards of the PyTorch port: it never imports JAX, the JAX package,
 pandas, sklearn or matplotlib (the GPU host's packages need not include
 them), it names the JAX
-package only in its config-target mapping, and its entry points refuse to
-run on the CPU unless asked to."""
+package only in its config-target mapping, it never names the prebuilt
+DenseCRF library committed in ``native/densecrf/`` (it builds its own from
+the sources), and its entry points refuse to run on the CPU unless asked
+to."""
 
 import os
 import pathlib
@@ -59,6 +61,16 @@ def test_port_names_the_jax_package_only_in_the_target_mapping():
                      f'_JAX_TARGET_PREFIX = "{JAX_PKG}."')], hits
 
 
+def test_port_never_names_the_prebuilt_densecrf_library():
+    prebuilt = "libdensecrf" + ".so"  # spelled apart: this file is not scanned
+    hits = []
+    for path in sorted(PORT.rglob("*")) + [ROOT / "chip_smoke.py"]:
+        if path.is_file() and path.suffix in (".py", ".cu", ".cuh", ".md"):
+            hits += [(str(path.relative_to(ROOT)), n) for n, line in
+                     enumerate(path.read_text().splitlines(), 1) if prebuilt in line]
+    assert hits == []
+
+
 def test_entry_points_raise_without_a_device_on_a_cpu_only_host(monkeypatch, tmp_path):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     from midvision_probe_torch import train_depth
@@ -100,6 +112,7 @@ def test_correspondence_drivers_raise_without_a_device_on_a_cpu_only_host(
     ("train_generic_objectness", ["dataset=synthetic_voc", "probe=binaryhead",
                                   "optimizer=one_epoch"]),
     ("evaluate_model_percepture", ["dataset=synthetic_twoafc"]),
+    ("evaluate_generic_objectness", ["dataset=synthetic_voc", "max_images=1"]),
 ])
 def test_objectness_and_2afc_drivers_raise_without_a_device_on_a_cpu_only_host(
         monkeypatch, tmp_path, driver, argv):

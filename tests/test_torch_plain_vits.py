@@ -17,7 +17,8 @@
   same zoo entry through both packages' ``instantiate``, whose ``ViTConfig``
   fields, mean, std and ``fixed_input`` are equal; built at a tiny width,
   both extractors have the same feature spec.
-* The families the port lacks still raise."""
+* The families the port lacks (the SD featurizers) still raise; the
+  others build."""
 
 import dataclasses
 import functools
@@ -142,13 +143,18 @@ def test_backbone_config_names_the_same_entry_in_both_packages(monkeypatch, conf
 
 @pytest.mark.parametrize("config", ["dinov2_b14", "dinov2_b14_reg", "dinov2_l14",
                                     "deit3_b16", "beit-v2_vitb16", "midas_l16",
-                                    "sam_base", "convnext_in22k", "simclr_resnet50"])
+                                    "sam_base", "convnext_in22k", "simclr_resnet50",
+                                    "dift", "zero123"])
 def test_unported_families_raise(monkeypatch, config):
-    """SAM and ConvNeXt still raise, pointing at ROADMAP.md; the LayerScale,
-    register and relative-position-bias ViTs and ResNet-50 now build (the
-    ViTs at a tiny width) and give features of their config's shape."""
+    """The SD featurizers still raise, pointing at ROADMAP.md; the
+    LayerScale, register and relative-position-bias ViTs, SAM, ConvNeXt
+    (each at a tiny width) and ResNet-50 build and give features of their
+    config's shape."""
+    from midvision_probe_torch.models import convnext as t_convnext
+    from midvision_probe_torch.models import vit_sam as t_sam
+
     compose = t_compose("depth_training", [f"backbone={config}"])
-    if config in ("sam_base", "convnext_in22k"):
+    if config in ("dift", "zero123"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             t_instantiate(compose.backbone, device="cpu")
         return
@@ -157,6 +163,10 @@ def test_unported_families_raise(monkeypatch, config):
     if name in t_zoo.ZOO and t_zoo.ZOO[name].arch == "vit":
         monkeypatch.setitem(t_zoo.ZOO, name, dataclasses.replace(
             t_zoo.ZOO[name], vit=dict(t_zoo.ZOO[name].vit, **TINY, depth=4)))
+    monkeypatch.setitem(t_sam.SAM_PRESETS, "vit_b",
+                        dict(t_sam.SAM_PRESETS["vit_b"], width=32, num_heads=2))
+    monkeypatch.setattr(t_convnext, "ConvNeXtConfig", functools.partial(
+        t_convnext.ConvNeXtConfig, depths=(1, 1, 1, 1), dims=(8, 16, 24, 32)))
     ext = t_instantiate(compose.backbone, device="cpu")
     size = ext.spec.patch_size * 4 if ext.arch == "vit" else 64
     with torch.no_grad():

@@ -37,7 +37,7 @@ def test_config_targets_map_onto_the_port_without_global_aliases():
     ext = t_instantiate(cfg.backbone, return_multilayer=True, device="cpu")
     assert ext.checkpoint_name == "test_tiny_vit" and ext.multilayers == [0, 1, 2, 3]
     with pytest.raises(NotImplementedError, match="no counterpart"):
-        t_instantiate(t_compose("depth_training", ["backbone=sam_base"]).backbone)
+        t_instantiate(t_compose("depth_training", ["backbone=dift"]).backbone)
     assert j_config_core._TARGET_ALIASES == aliases
 
 

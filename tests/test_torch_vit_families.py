@@ -14,14 +14,16 @@ BEiT-v2, MiDaS):
   checkpoints.py``'s layouts) loaded strictly by both zoos: taps within
   1e-4 * max|ref| at batch 1 and the entry's own size, and no random init
   in the port;
-* each of the 7 backbone configs names the same entry in both packages
-  (the entry's fields and, built at a tiny width, the feature spec);
+* each of the 7 backbone configs, and the 2 SAM and 4 ConvNeXt configs,
+  names the same entry in both packages (the entry's fields and, built at
+  a tiny width, the feature spec);
 * the register tokens are not in the spatial taps; BEiT's fixed-input
   resize.
 
 The JAX side runs under ``jax.default_matmul_precision("float32")``."""
 
 import dataclasses
+import functools
 import os
 import sys
 
@@ -211,11 +213,37 @@ def test_beit_resizes_every_input_to_its_fixed_size(rng, monkeypatch):
         np.testing.assert_allclose(g.numpy(), np.asarray(r), atol=1e-4, rtol=0)
 
 
-# the 7 configs of these families and the zoo entry each names
+# the 7 configs of these families, the SAM and ConvNeXt configs, and the zoo
+# entry each names
 CONFIGS = {"dinov2_b14": "dinov2_vitb14", "dinov2_b14_reg": "dinov2_vitb14_reg",
            "dinov2_l14": "dinov2_vitl14", "deit3_b16": "deit3_vitb16",
            "deit3_l16": "deit3_vitl16", "beit-v2_vitb16": "beitv2_vitb16",
-           "midas_l16": "midas_l16"}
+           "midas_l16": "midas_l16", "sam_base": "sam_vit_b", "sam_large": "sam_vit_l",
+           "convnext_in22k": "cnxt_b_in22k", "convnext_fcmae": "cnxt_b_fcmae",
+           "clip_convnext": "cnxt_b_w_laion2b", "clip_convnext_augreg": "cnxt_b_w_laion2b"}
+
+
+def _narrow(monkeypatch, name):
+    """The entry's architecture at a tiny width in both packages: a ViT's
+    config, a SAM preset (its depth and global blocks kept) or ConvNeXt's
+    stage widths."""
+    from midvision_probe_torch.models import convnext as t_convnext
+    from midvision_probe_torch.models import vit_sam as t_sam
+    from midvision_probe_tpu.models import convnext as j_convnext
+    from midvision_probe_tpu.models import vit_sam as j_sam
+
+    arch = t_zoo.ZOO[name].arch
+    for zoo, sam, convnext in ((t_zoo, t_sam, t_convnext), (j_zoo, j_sam, j_convnext)):
+        if arch == "vit":
+            monkeypatch.setitem(zoo.ZOO, name, dataclasses.replace(
+                zoo.ZOO[name], vit=dict(zoo.ZOO[name].vit, width=32, num_heads=2, depth=4)))
+        elif arch == "sam":
+            preset = name.replace("sam_", "")
+            monkeypatch.setitem(sam.SAM_PRESETS, preset,
+                                dict(sam.SAM_PRESETS[preset], width=32, num_heads=2))
+        else:
+            monkeypatch.setattr(convnext, "ConvNeXtConfig", functools.partial(
+                convnext.ConvNeXtConfig, depths=(1, 1, 1, 1), dims=(8, 16, 24, 32)))
 
 
 @pytest.mark.parametrize("config", list(CONFIGS))
@@ -226,9 +254,7 @@ def test_backbone_config_names_the_same_entry_in_both_packages(monkeypatch, conf
     for f in ("arch", "source", "filename", "converter", "prefix", "image_mean",
               "image_std", "default_size", "fixed_input", "fixed_input_mode"):
         assert getattr(t_entry, f) == getattr(j_entry, f), f
-    for zoo in (t_zoo, j_zoo):
-        monkeypatch.setitem(zoo.ZOO, name, dataclasses.replace(
-            zoo.ZOO[name], vit=dict(zoo.ZOO[name].vit, width=32, num_heads=2, depth=4)))
+    _narrow(monkeypatch, name)
     monkeypatch.setenv("MVP_CHECKPOINT_DIR", "/nonexistent")
     text = t_instantiate(t_compose("depth_training", [f"backbone={config}"]).backbone,
                          return_multilayer=True, device="cpu")
