@@ -47,7 +47,8 @@ JSON line per phase and fails on the first failing phase:
    Taskonomy path's bf16 one (B=16, N=1025: 512x512), the DINOv2
    B/14-reg forward's (B=64, N=1535: cls, 4 registers and 34x45 patches at
    480x640, unpadded) and the DeiT-III B/16 forward's (B=64, N=577 at
-   384x384) and the MaskCut path's f32 one (B=1, N=901), K1's bf16 cases
+   384x384), the MaskCut path's f32 one (B=1, N=901) and Zero123's f32
+   conditioning launch (CLIP ViT-L/14: B=8, N=257, H=16), K1's bf16 cases
    held to min(1.6e-2, 2^-6 * max|ref|) and its plain version run in
    chunks of images; timed
    cases with SDPA's time as the yardstick, the f32 ones with the bound of
@@ -206,7 +207,21 @@ JSON line per phase and fails on the first failing phase:
    ``build/densecrf`` (its path and build seconds), K1 12 per image on
    ``tf32x3`` (B = 1, N = 901), and the host seconds split into features,
    affinity + 2-means, ``eigh``, CRF and the rest.
-10c. ``extract_kqv``: ``FeatureExtractor.extract_kqv`` on dino_vitb16 at
+10c. ``forward_dift`` and ``forward_zero123``: the SD featurizers from
+   their configs at full widths on 480x640 images, batch 8, float32 with
+   TF32 off, random weights drawn on the card: DIFT with a fabricated
+   tokenizer (the 23-layer text tower encodes the empty prompt), Zero123
+   with a full-size fabricated CLIP ViT-L/14 conditioning state dict; the
+   four taps' shapes, wall and device time, images per second, peak
+   memory, the FLOPs from the configs with their bound at the float32
+   peak, launches (DIFT none; Zero123 K1 24 on ``tf32x3``, with K1's check
+   at that launch beside them) and one image again in float64.
+10d. ``path_depth_cached``: the depth trainer on dino_b16 (bf16, 480x640,
+   32 items in batches of 8, three epochs) with ``system.cache_features``
+   under the default budgets, the host tier alone and none: backbone
+   forwards, wall time, the tiers' bytes and peak memory per epoch, K1 12
+   per backbone forward.
+10e. ``extract_kqv``: ``FeatureExtractor.extract_kqv`` on dino_vitb16 at
    480x640, bf16, batch 8, ``k`` and ``kqv`` against a plain recompute of
    block 11's projection, K1 12 a call on ``wgmma``.
 11. ``bench_attn``: the attention bench through its entry point
@@ -590,6 +605,9 @@ def phase_attention_checks(torch):
         ("deit3_k1_bf16", "K1", 64, 12, 577, 64, bf16, True),
         # the MaskCut path's f32 launch: one image at 480x480 (cls + 30x30)
         ("maskcut_dino_k1_fp32", "K1", 1, 12, 901, 64, f32, True),
+        # Zero123's conditioning: CLIP ViT-L/14 in f32 on a batch of 8 at
+        # 224x224 (cls + 16x16)
+        ("zero123_clip_k1_fp32", "K1", 8, 16, 257, 64, f32, True),
     ]
     results = []
     for name, kernel, B, H, N, d, dtype, timed in cases:
@@ -2613,6 +2631,370 @@ def phase_extract_kqv(torch):
     return counts
 
 
+@contextlib.contextmanager
+def env_vars(**values):
+    """The environment variables set (a value) or unset (None), restored on
+    exit."""
+    saved = {k: os.environ.get(k) for k in values}
+    try:
+        for k, v in values.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+SD_HW, SD_BATCH = (480, 640), 8
+
+
+def write_sd_tokenizer(d: str) -> None:
+    """A CLIP BPE ``vocab.json`` + ``merges.txt`` in the HF layout SD
+    checkpoints ship: the byte alphabet, a few merges and the specials."""
+    from midvision_probe_torch.models.sd.tokenizer import bytes_to_unicode
+
+    os.makedirs(d, exist_ok=True)
+    byte_vocab = list(bytes_to_unicode().values())
+    merges = [("a", "</w>"), ("p", "h"), ("o", "t"), ("ph", "ot"), ("phot", "o</w>")]
+    tokens = byte_vocab + [v + "</w>" for v in byte_vocab] + ["".join(m) for m in merges]
+    tokens += ["<|startoftext|>", "<|endoftext|>"]
+    with open(os.path.join(d, "vocab.json"), "w") as f:
+        json.dump({t: i for i, t in enumerate(tokens)}, f)
+    with open(os.path.join(d, "merges.txt"), "w") as f:
+        f.write("#version: 0.2\n" + "".join(f"{a} {b}\n" for a, b in merges))
+
+
+def sd_flops(torch, batch: int, hw, unet_cfg, unet_passes: int, ctx_shape, text_cfg=None) -> float:
+    """FLOPs (two per multiply-add) of one featurizer call derived from the
+    configs: ``torch.utils.flop_counter`` over the VAE encoder on ``batch``
+    images, ``unet_passes`` UNet passes and (``text_cfg``) one text-tower
+    pass over 77 tokens, built and run on the meta device (shapes only,
+    nothing computed)."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from midvision_probe_torch.models.sd.text_encoder import CLIPTextEncoder
+    from midvision_probe_torch.models.sd.unet import UNet2DCondition
+    from midvision_probe_torch.models.sd.vae import VAEEncoder, VAEEncoderConfig
+
+    with torch.device("meta"), FlopCounterMode(display=False) as counter:
+        latents = VAEEncoder(VAEEncoderConfig())(torch.empty(batch, *hw, 3))
+        unet = UNet2DCondition(unet_cfg)
+        x = torch.empty(batch, *latents.shape[1:3], unet_cfg.in_channels)
+        for _ in range(unet_passes):
+            unet(x, torch.zeros(batch, dtype=torch.long), torch.empty(batch, *ctx_shape))
+        if text_cfg is not None:
+            CLIPTextEncoder(text_cfg)(torch.zeros(1, 77, dtype=torch.long))
+    return float(counter.get_total_flops())
+
+
+def vit_flops(batch: int, tokens: int, patches: int, patch: int, width: int, depth: int) -> float:
+    """A pre-norm ViT's FLOPs: the patch projection, then per block the qkv
+    and output projections, the 4x MLP and QK^T and PV over ``tokens``."""
+    per_block = (2 * tokens * width * 3 * width + 2 * tokens * width * width
+                 + 2 * 2 * tokens * width * 4 * width + 4 * tokens * tokens * width)
+    return batch * (2.0 * patches * 3 * patch * patch * width + depth * per_block)
+
+
+def f64_errors(taps32, taps64) -> dict:
+    """The float32 taps' largest errors against the float64 run's, each
+    beside the float64 taps' largest magnitude."""
+    errs = [float((a.double() - b.double()).abs().max()) for a, b in zip(taps32, taps64)]
+    refs = [float(b.double().abs().max()) for b in taps64]
+    return {"max_abs_err": errs, "max_abs_ref": refs,
+            "max_rel_err": max(e / r for e, r in zip(errs, refs))}
+
+
+# the float32 SD forward against its float64 run, relative to the largest
+# float64 magnitude: TF32 (10-bit mantissa) would miss it by far
+SD_F64_REL_BOUND = 1e-3
+
+
+def sd_phase_end(torch, res: dict, ok: bool, what: str) -> None:
+    emit(res)
+    torch.cuda.empty_cache()
+    if not ok:
+        raise SystemExit(f"{what} check failed: {res}")
+
+
+def phase_forward_dift(torch, smi: str) -> dict:
+    """DIFT (``configs/backbone/dift.yaml``: t = 1, the empty prompt) at
+    SD-2.1's widths on 480x640 images, batch 8, random weights drawn on the
+    card, with a fabricated tokenizer under a temporary
+    ``$MVP_CHECKPOINT_DIR`` so that the 23-layer text tower encodes the
+    prompt, ``return_multilayer``: the four taps' shapes (1280, 1280, 640
+    and 320 channels on the 30x40 grid), the build, the wall time of a call
+    and its device time (CUDA events), images per second, peak memory, the
+    FLOPs derived from the config with their bound at the float32 peak, no
+    hand-written kernel, and one image again in float64 (a float64 copy of
+    the three modules, the same noise): the float32 taps' largest error
+    beside the largest magnitude. Returns the launch counts."""
+    import copy
+
+    from midvision_probe_torch.models.sd.featurizer import FEAT_DIMS
+    from midvision_probe_torch.models.sd.text_encoder import CLIPTextConfig
+    from midvision_probe_torch.models.sd.unet import UNetConfig
+    from midvision_probe_torch.models.zoo import DIFT
+
+    ckpt = tempfile.mkdtemp(prefix="mvp_chip_smoke_sd_")
+    try:
+        write_sd_tokenizer(os.path.join(ckpt, "sd21", "tokenizer"))
+        with env_vars(MVP_CHECKPOINT_DIR=ckpt):
+            t0 = time.perf_counter()
+            dift = DIFT(return_multilayer=True, device="cuda")
+            torch.cuda.synchronize()
+            build_s = time.perf_counter() - t0
+            gen = torch.Generator(device="cuda").manual_seed(6)
+            B, (H, W) = SD_BATCH, SD_HW
+            images = torch.rand(B, H, W, 3, device="cuda", generator=gen) * 2 - 1
+            noise = torch.randn(B, H // 8, W // 8, 4, device="cuda", generator=gen)
+            torch.cuda.reset_peak_memory_stats()
+            reset_counts()
+            t0 = time.perf_counter()
+            feats = dift(images, noise=noise)  # the first call encodes the empty prompt
+            torch.cuda.synchronize()
+            first_s = time.perf_counter() - t0
+            counts = read_counts()
+            t0 = time.perf_counter()
+            dift(images, noise=noise)
+            torch.cuda.synchronize()
+            wall_s = time.perf_counter() - t0
+            ms = cuda_ms(torch, lambda: dift(images, noise=noise), iters=3, warmup=1)
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            shapes = [tuple(f.shape) for f in feats]
+            finite = all(bool(torch.isfinite(f).all()) for f in feats)
+            emb = dift._empty_embed
+            text_ran = tuple(emb.shape) == (1, 77, 1024) and float(emb.abs().max()) > 0
+            del feats
+            f32 = dift.featurizer
+            taps32 = f32(images[:1], emb, t=dift.time_step, noise=noise[:1])
+            f64 = copy.deepcopy(f32)
+            for m in (f64.unet, f64.vae, f64.text):
+                m.double()
+            taps64 = f64(images[:1].double(), f64.encode_prompt([""]), t=dift.time_step,
+                         noise=noise[:1].double())
+            check64 = f64_errors(taps32, taps64)
+            del f64, taps32, taps64, dift
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    flops = sd_flops(torch, B, SD_HW, UNetConfig(), 1, (77, 1024), CLIPTextConfig())
+    res = {"phase": "forward_dift", "model": "dift_sd21", "batch": B, "image_hw": list(SD_HW),
+           "dtype": "torch.float32", "tf32": False, "tap_shapes": shapes, "text_tower_ran": text_ran,
+           "build_s": build_s, "first_call_s": first_s, "wall_s": wall_s, "forward_ms": ms,
+           "imgs_per_s_per_card": B / (ms / 1e3), "peak_mem_gib": peak, "launches": counts,
+           "flops": flops, "bound_ms": flops / PEAK_FP32_FLOPS * 1e3, "bound_by": "operations",
+           "float64_check": {"images": 1, **check64, "bound": SD_F64_REL_BOUND},
+           "nvidia_smi": smi, "gpu_state": gpu_state()}
+    ok = (shapes == [(B, 30, 40, c) for c in FEAT_DIMS] and finite and text_ran
+          and all(counts[k] == 0 for k in KERNELS)
+          and check64["max_rel_err"] <= SD_F64_REL_BOUND)
+    sd_phase_end(torch, res, ok, "forward_dift")
+    return counts
+
+
+def clip_l14_conditioning(torch, seed: int = 14) -> dict:
+    """Zero123's conditioning in its lightning checkpoint's naming, made on
+    the card from a seeded generator: OpenAI CLIP ViT-L/14's image tower in
+    open_clip naming under ``cond_stage_model.model.visual.`` (24 blocks of
+    width 1024, patch 14, a 16x16 table at 224), its ``proj`` to 768 and
+    ``cc_projection`` (772 -> 768)."""
+    W, L, P, E = 1024, 24, 14, 768
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def r(*shape, mean=0.0):
+        return mean + 0.02 * torch.randn(*shape, device="cuda", generator=gen)
+
+    pre = "cond_stage_model.model.visual."
+    sd = {pre + "conv1.weight": r(W, 3, P, P), pre + "class_embedding": r(W),
+          pre + "positional_embedding": r(257, W), pre + "ln_pre.weight": r(W, mean=1.0),
+          pre + "ln_pre.bias": r(W), pre + "ln_post.weight": r(W, mean=1.0),
+          pre + "ln_post.bias": r(W), pre + "proj": r(W, E),
+          "cc_projection.weight": r(E, E + 4), "cc_projection.bias": r(E)}
+    for i in range(L):
+        b = f"{pre}transformer.resblocks.{i}."
+        sd.update({b + "ln_1.weight": r(W, mean=1.0), b + "ln_1.bias": r(W),
+                   b + "attn.in_proj_weight": r(3 * W, W), b + "attn.in_proj_bias": r(3 * W),
+                   b + "attn.out_proj.weight": r(W, W), b + "attn.out_proj.bias": r(W),
+                   b + "ln_2.weight": r(W, mean=1.0), b + "ln_2.bias": r(W),
+                   b + "mlp.c_fc.weight": r(4 * W, W), b + "mlp.c_fc.bias": r(4 * W),
+                   b + "mlp.c_proj.weight": r(W, 4 * W), b + "mlp.c_proj.bias": r(W)})
+    return sd
+
+
+# K1's launches in one Zero123 call: the CLIP ViT-L/14 conditioning tower
+# in float32 (24 blocks, 16 heads of 64, 257 tokens at 224x224)
+ZERO123_LAUNCHES = {"k1": 24, "k2": 0, "k3": 0, "k4": 0, "k5": 0, **NO_BENCH_KERNELS,
+                    **on_route("tf32x3", 24)}
+
+
+def phase_forward_zero123(torch, smi: str, k1_case: dict) -> dict:
+    """Zero123 (``configs/backbone/zero123.yaml``) at full widths on
+    480x640 images, batch 8: the LDM UNet and VAE encoder random-initialised
+    on the card (no checkpoint), a full-size CLIP ViT-L/14 conditioning
+    state dict fabricated on the card and loaded by ``_load_conditioning``,
+    ``return_multilayer``: K1's launches in one call (24, all on
+    ``tf32x3``), the taps' shapes, the wall and device time, images per
+    second, peak memory, the FLOPs (the VAE, two UNet passes and the CLIP
+    tower) with their bound at the float32 peak, and one image again in
+    float64 (a float64 copy of the UNet and the VAE, the float32 context and
+    the same noise); beside them ``k1_case``, K1 held against its plain
+    version at this launch (``attention_checks``' ``zero123_clip_k1_fp32``:
+    the error, the kernel's, the plain version's and SDPA's times and the
+    bound). Returns the launch counts of the call."""
+    import copy
+
+    from midvision_probe_torch.models.sd.featurizer import FEAT_DIMS
+    from midvision_probe_torch.models.zoo import Zero123
+
+    ckpt = tempfile.mkdtemp(prefix="mvp_chip_smoke_sd_")
+    try:
+        with env_vars(MVP_CHECKPOINT_DIR=ckpt):
+            t0 = time.perf_counter()
+            z = Zero123(return_multilayer=True, device="cuda")
+            torch.cuda.synchronize()
+            build_s = time.perf_counter() - t0
+            unet_cfg = z.unet_cfg
+            sd = clip_l14_conditioning(torch)
+            t0 = time.perf_counter()
+            z._load_conditioning(sd)
+            torch.cuda.synchronize()
+            conditioning_s = time.perf_counter() - t0
+            del sd
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    B, (H, W) = SD_BATCH, SD_HW
+    images = torch.rand(B, H, W, 3, device="cuda", generator=gen) * 2 - 1
+    noise = torch.randn(B, H // 8, W // 8, 4, device="cuda", generator=gen)
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    feats = z(images, noise=noise)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    counts = read_counts()
+    ms = cuda_ms(torch, lambda: z(images, noise=noise), iters=3, warmup=1)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    shapes = [tuple(f.shape) for f in feats]
+    finite = all(bool(torch.isfinite(f).all()) for f in feats)
+    del feats
+    ctx = z.cond_embedding(images[:1])
+    taps32 = z(images[:1], cond_embeds=ctx, noise=noise[:1])
+    z64 = copy.deepcopy(z)
+    z64.unet.double()
+    z64.vae.double()
+    # the dense taps leave the featurizer as float32: the float64 run's are
+    # rounded once (2^-24 relative), far below the float32 run's error
+    taps64 = z64(images[:1].double(), cond_embeds=ctx.double(), noise=noise[:1].double())
+    check64 = f64_errors(taps32, taps64)
+    del z, z64, taps32, taps64
+    flops = (sd_flops(torch, B, SD_HW, unet_cfg, 2, (1, 768))
+             + vit_flops(B, 257, 256, 14, 1024, 24))
+    res = {"phase": "forward_zero123", "model": "zero123", "batch": B, "image_hw": list(SD_HW),
+           "dtype": "torch.float32", "tf32": False, "tap_shapes": shapes, "build_s": build_s,
+           "k1_at_this_launch": {"shape": k1_case["shape"], "route": k1_case["route_ran"],
+                                 **case_numbers(k1_case)},
+           "conditioning_load_s": conditioning_s, "wall_s": wall_s, "forward_ms": ms,
+           "imgs_per_s_per_card": B / (ms / 1e3), "peak_mem_gib": peak, "launches": counts,
+           "flops": flops, "bound_ms": flops / PEAK_FP32_FLOPS * 1e3, "bound_by": "operations",
+           "float64_check": {"images": 1, "context": "float32", **check64,
+                             "bound": SD_F64_REL_BOUND},
+           "nvidia_smi": smi, "gpu_state": gpu_state()}
+    ok = (shapes == [(B, 30, 40, c) for c in FEAT_DIMS] and finite
+          and all(counts[k] == n for k, n in ZERO123_LAUNCHES.items())
+          and check64["max_rel_err"] <= SD_F64_REL_BOUND)
+    sd_phase_end(torch, res, ok, "forward_zero123")
+    return counts
+
+
+CACHED_ITEMS, CACHED_BATCH, CACHED_EPOCHS = 32, 8, 3
+
+
+def phase_path_depth_cached(torch, smi: str) -> dict:
+    """The depth trainer through its ``entry`` on dino_b16 (bf16, random
+    weights) at 480x640 with ``system.cache_features=true``: 32 synthetic
+    items in batches of 8, three epochs, the DPT probe, renders off; run
+    under the default budgets, with ``MVP_FEATURE_CACHE_DEVICE_GB=0`` (the
+    host tier serves) and with both budgets 0 (every epoch recomputes). Per
+    run and epoch: the backbone forwards, the wall time, the device tier's
+    and the host tier's bytes and peak memory; per run: K1 12 per backbone
+    forward on wgmma, finite losses, one CSV row. Returns the launch counts
+    of the three runs together."""
+    from midvision_probe_torch import train_depth
+    from midvision_probe_torch.engine import probe_fit
+    from midvision_probe_torch.models.feature_extractor import FeatureExtractor
+
+    n_batches = CACHED_ITEMS // CACHED_BATCH
+    epochs = []
+    train_epoch = probe_fit.ProbeTrainer.train_epoch
+
+    def timed_epoch(self, loader, *args, **kwargs):
+        before, t0 = FeatureExtractor.forward_count, time.perf_counter()
+        out = train_epoch(self, loader, *args, **kwargs)
+        torch.cuda.synchronize()
+        epochs.append({"backbone_forwards": FeatureExtractor.forward_count - before,
+                       "wall_s": time.perf_counter() - t0,
+                       "device_tier_bytes": self._dev_cache_bytes,
+                       "host_tier_bytes": self._cache_bytes,
+                       "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30})
+        return out
+
+    runs, total = [], {}
+    probe_fit.ProbeTrainer.train_epoch = timed_epoch
+    try:
+        for label, dev_gb, host_gb, want in (
+                ("default", None, None, [n_batches, 0, 0]),
+                ("host_tier", "0", None, [n_batches, 0, 0]),
+                ("no_budget", "0", "0", [n_batches] * CACHED_EPOCHS)):
+            out_dir = tempfile.mkdtemp(prefix="mvp_chip_smoke_")
+            argv = ["backbone=dino_b16", "dataset=synthetic", "dataset.image_size=[480,640]",
+                    f"dataset.num_instances={CACHED_ITEMS}", "probe=depth_dpt",
+                    f"batch_size={CACHED_BATCH}", "optimizer=one_epoch",
+                    f"optimizer.n_epochs={CACHED_EPOCHS}", "+system.backbone_dtype=bfloat16",
+                    "system.cache_features=true", "+render_images=False"]
+            del epochs[:]
+            try:
+                with env_vars(MVP_FEATURE_CACHE_DEVICE_GB=dev_gb, MVP_FEATURE_CACHE_GB=host_gb):
+                    torch.cuda.reset_peak_memory_stats()
+                    reset_counts()
+                    t0 = time.perf_counter()
+                    row = train_depth.entry(argv + [f"output_dir={out_dir}"])
+                    torch.cuda.synchronize()
+                    wall = time.perf_counter() - t0
+                    counts = read_counts()
+                csvs = [f for f in os.listdir(out_dir) if f.endswith(".csv")]
+            finally:
+                shutil.rmtree(out_dir, ignore_errors=True)
+            losses = row.pop("train_losses")
+            forwards = [e["backbone_forwards"] for e in epochs]
+            run = {"budgets": label, "MVP_FEATURE_CACHE_DEVICE_GB": dev_gb,
+                   "MVP_FEATURE_CACHE_GB": host_gb, "epochs": list(epochs), "wall_s": wall,
+                   "train_losses": losses, "sa_rmse": row["sa_rmse"], "launches": counts,
+                   "checks": {"forwards_per_epoch": forwards == want,
+                              "tier": (epochs[-1]["device_tier_bytes"] > 0) == (dev_gb is None)
+                              and (epochs[-1]["host_tier_bytes"] > 0) == (label == "host_tier"),
+                              "losses_finite": len(losses) == n_batches * CACHED_EPOCHS
+                              and all(math.isfinite(x) for x in losses),
+                              "csv_written": len(csvs) == 1,
+                              "attention_per_forward": per_forward_ok(counts, DINO_PER_FORWARD)}}
+            runs.append(run)
+            total = {k: total.get(k, 0) + v for k, v in counts.items()}
+    finally:
+        probe_fit.ProbeTrainer.train_epoch = train_epoch
+    res = {"phase": "path_depth_cached", "argv": argv, "runs": runs, "nvidia_smi": smi,
+           "gpu_state": gpu_state()}
+    emit(res)
+    torch.cuda.empty_cache()
+    if not all(all(r["checks"].values()) for r in runs):
+        raise SystemExit(f"path_depth_cached check failed: {[r['checks'] for r in runs]}")
+    return total
+
+
 def vit_taps(grid, width) -> list:
     """The four (h, w, C) tap shapes of a ViT forward."""
     return [(*grid, width)] * 4
@@ -2862,6 +3244,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     by_path["path_maskcut_voc"] = phase_path_maskcut_voc(torch, smi)
     torch.cuda.empty_cache()
+    by_path["forward_dift"] = phase_forward_dift(torch, smi)
+    by_path["forward_zero123"] = phase_forward_zero123(torch, smi,
+                                                       attn_checks["zero123_clip_k1_fp32"])
+    by_path["path_depth_cached"] = phase_path_depth_cached(torch, smi)
     by_path["extract_kqv"] = phase_extract_kqv(torch)
     by_path["bench_attn"] = phase_bench_attn(torch)
     by_path["path_fused_mlp"] = phase_path_fused_mlp(torch)
@@ -2881,7 +3267,8 @@ def main() -> int:
                                                     "twoafc_clip_k1_fp32", "spair_dino_k1_fp32",
                                                     "taskonomy_dino_k1_bf16",
                                                     "dinov2_reg_k1_bf16", "deit3_k1_bf16",
-                                                    "maskcut_dino_k1_fp32")}),
+                                                    "maskcut_dino_k1_fp32",
+                                                    "zero123_clip_k1_fp32")}),
         kernel_entry("knn2", "knn2.cu", f"{ops}/matching.py:64", "k4", by_path,
                      knn2_checks["scannet_main"], "wgmma",
                      navi_render_shape={**case_numbers(knn2_checks["navi_render_masked"]),

@@ -21,6 +21,9 @@ Layout rules:
 * SAM ``blocks_{i}`` -> ``blocks.{i}``, the ``(H, W, C)`` pos-embed table
   -> ``(1, H, W, C)``; the per-axis ``rel_pos_h``/``rel_pos_w`` keep their
   names;
+* the SD UNet, VAE encoder and text tower keep the flax module names
+  (``down_0_res_0``, ``mid_attn``, ``layers_0``, ...), and the text
+  tower's ``token_embedding.embedding`` -> ``token_embedding.weight``;
 * a head's auto-named decoder (``DPT_0``, ``Linear_0``, ``MultiscaleHead_0``)
   -> ``decoder``.
 """
@@ -119,6 +122,26 @@ def sam_state_dict(variables: Mapping) -> dict[str, torch.Tensor]:
 
     sd = _to_state_dict(variables["params"], rename)
     sd["pos_embed"] = sd["pos_embed"][None]
+    return sd
+
+
+def sd_unet_state_dict(variables: Mapping) -> dict[str, torch.Tensor]:
+    """JAX SD ``UNet2DCondition`` variables (or ``convert_unet``'s or
+    ``convert_unet_ldm``'s tree) -> port ``UNet2DCondition`` state_dict."""
+    return _to_state_dict(variables["params"], lambda m: m)
+
+
+def sd_vae_state_dict(variables: Mapping) -> dict[str, torch.Tensor]:
+    """JAX SD ``VAEEncoder`` variables (or a VAE converter's tree) -> port
+    ``VAEEncoder`` state_dict."""
+    return _to_state_dict(variables["params"], lambda m: m)
+
+
+def sd_text_state_dict(variables: Mapping) -> dict[str, torch.Tensor]:
+    """JAX SD ``CLIPTextEncoder`` variables (or ``convert_text_encoder``'s
+    tree) -> port ``CLIPTextEncoder`` state_dict."""
+    sd = _to_state_dict(variables["params"], lambda m: m)
+    sd["token_embedding.weight"] = sd.pop("token_embedding.embedding")
     return sd
 
 

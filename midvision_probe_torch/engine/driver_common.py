@@ -45,6 +45,16 @@ def build_dense_backbone(cfg: Config):
                        return_multilayer=cfg.multilayer, **kwargs)
 
 
+def cache_shuffle_kwargs(cfg: Config) -> dict:
+    """Train-loader kwargs for ``system.cache_features``: the cache keys
+    features by batch, so a batch's composition stays fixed across epochs
+    (no sample shuffling) while the batches' order is permuted per epoch.
+    Without the cache, nothing (the loader's sample shuffling applies)."""
+    if cfg.get_path("system.cache_features", False):
+        return {"shuffle": False, "shuffle_batch_order": True}
+    return {}
+
+
 def probe_dtype_kwargs(cfg: Config) -> dict:
     """``system.probe_dtype``: the probe's autocast dtype (params stay f32)."""
     name = cfg.get_path("system.probe_dtype", None)
@@ -69,9 +79,6 @@ def setup_experiment(cfg: Config, task: str, backbone, probe_tag: str):
 
 
 def make_trainer(cfg: Config, backbone, probe, loss_fn, steps_per_epoch: int):
-    if cfg.get_path("system.cache_features", False):
-        raise NotImplementedError(
-            "system.cache_features is not ported to PyTorch yet")
     n_epochs = cfg.optimizer.n_epochs
     return ProbeTrainer(
         backbone=backbone,
@@ -83,6 +90,7 @@ def make_trainer(cfg: Config, backbone, probe, loss_fn, steps_per_epoch: int):
         add_norm=bool(cfg.backbone.get("add_norm", False)),
         seed=cfg.system.get("random_seed", 8),
         device=config_device(cfg),
+        cache_features=bool(cfg.get_path("system.cache_features", False)),
     )
 
 
@@ -153,5 +161,6 @@ def append_correspondence_csv(cfg: Config, file_name: str, backbone,
 
 
 __all__ = ["append_correspondence_csv", "build_backbone", "build_dense_backbone",
-           "build_loader", "config_device", "emit_csv", "experiment_name", "fit",
-           "init_from_loader", "make_trainer", "probe_dtype_kwargs", "setup_experiment"]
+           "build_loader", "cache_shuffle_kwargs", "config_device", "emit_csv",
+           "experiment_name", "fit", "init_from_loader", "make_trainer", "probe_dtype_kwargs",
+           "setup_experiment"]

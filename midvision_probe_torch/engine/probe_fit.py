@@ -5,13 +5,25 @@ Each step runs the frozen backbone under ``torch.no_grad()`` (the
 counterpart of ``jax.lax.stop_gradient`` on the tapped features), the
 optional per-tap BatchNorms and the probe, the task loss, backward and an
 AdamW step with the cosine-warmup schedule. Features enter the probe in
-float32; ``system.probe_dtype`` autocasts the probe. The feature cache of
-the JAX engine is not ported yet.
+float32; ``system.probe_dtype`` autocasts the probe.
+
+``cache_features`` (``system.cache_features``) extracts each training
+batch's features once and reuses them in later epochs, keyed by the
+loader's ``_batch_id``, as the JAX engine does: features are cast to
+bfloat16 in every epoch, the first included, so the probe trains on
+bf16-rounded values promoted to float32 from step one. Two tiers: the
+device tier holds the features and the batch's targets on the device under
+``$MVP_FEATURE_CACHE_DEVICE_GB`` (default 4 GiB); the host tier holds the
+features alone, charged their bytes alone, under ``$MVP_FEATURE_CACHE_GB``
+(default 8 GiB); past both budgets a batch is recomputed every epoch (one
+warning). The cache refuses a loader that shuffles samples.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import logging
+import os
 import time
 from typing import Any, Callable
 
@@ -26,6 +38,9 @@ from midvision_probe_torch.utils.optim import make_adamw
 
 
 _LOG_EVERY = 50  # train steps between loss log lines
+_GIB = 1024**3
+
+log = logging.getLogger(__name__)
 
 
 def batch_to_device(batch: dict, device: torch.device) -> dict:
@@ -46,6 +61,7 @@ class ProbeTrainer:
         add_norm: train per-tap BatchNorms (reference ``add_norm``).
         seed: seeds the probe's random init.
         device: default cuda; raises without a card unless given.
+        cache_features: reuse each batch's bf16 features across epochs.
     """
 
     backbone: FeatureExtractor
@@ -57,6 +73,7 @@ class ProbeTrainer:
     add_norm: bool = False
     seed: int = 8
     device: Any = None
+    cache_features: bool = False
 
     def __post_init__(self):
         self.device = resolve_device(self.device)
@@ -74,6 +91,12 @@ class ProbeTrainer:
         self.scheduler = None
         self.step = 0
         self.step_losses: list[float] = []
+        self._feature_cache: dict = {}
+        self._dev_cache_bytes = self._cache_bytes = 0
+        self._dev_cache_budget = int(float(os.environ.get("MVP_FEATURE_CACHE_DEVICE_GB", "4"))
+                                     * _GIB)
+        self._cache_budget = int(float(os.environ.get("MVP_FEATURE_CACHE_GB", "8")) * _GIB)
+        self._cache_full_warned = False
 
     # ---------------------------------------------------------------- init
     def init(self) -> None:
@@ -100,8 +123,8 @@ class ProbeTrainer:
         self.step = int(state["step"])
 
     # ------------------------------------------------------------- forward
-    def _forward(self, images: torch.Tensor, train: bool) -> torch.Tensor:
-        feats = [f.float() for f in self.backbone.features(images)]
+    def _forward(self, feats: list[torch.Tensor], train: bool) -> torch.Tensor:
+        feats = [f.float() for f in feats]
         self.modules.train(train)
         if self.tap_norms is not None:
             feats = self.tap_norms(feats)
@@ -111,12 +134,52 @@ class ProbeTrainer:
         return pred.float()
 
     # ---------------------------------------------------------------- step
+    def _cached_features(self, bid, batch: dict, logger=None) -> tuple[list, dict]:
+        """The bf16 features and the on-device targets of the batch keyed
+        ``bid``: from the device tier, from the host tier, or extracted
+        (and kept in the first tier with room)."""
+        cached = self._feature_cache.get(bid)
+        if isinstance(cached, tuple):  # device tier: features and targets
+            return cached
+        image = batch.pop("image")
+        batch = batch_to_device(batch, self.device)
+        if cached is not None:  # host tier: features only
+            return [f.to(self.device, non_blocking=True) for f in cached], batch
+        feats = [f.to(torch.bfloat16) for f in self.backbone.features(torch.as_tensor(image))]
+        feat_bytes = sum(f.numel() * f.element_size() for f in feats)
+        size = feat_bytes + sum(v.numel() * v.element_size() for v in batch.values())
+        if self._dev_cache_bytes + size <= self._dev_cache_budget:
+            self._feature_cache[bid] = (feats, batch)
+            self._dev_cache_bytes += size
+        elif self._cache_bytes + feat_bytes <= self._cache_budget:
+            self._feature_cache[bid] = [f.cpu() for f in feats]
+            self._cache_bytes += feat_bytes
+        elif not self._cache_full_warned:
+            self._cache_full_warned = True
+            (logger or log).warning(
+                "feature cache budgets reached (device %.1f GiB $MVP_FEATURE_CACHE_DEVICE_GB + "
+                "host %.1f GiB $MVP_FEATURE_CACHE_GB) — later batches recompute",
+                self._dev_cache_budget / _GIB, self._cache_budget / _GIB)
+        return feats, batch
+
     def train_epoch(self, loader, logger=None, wandb=None) -> float:
+        if self.cache_features and getattr(loader, "shuffle", False):
+            raise ValueError(
+                "cache_features requires fixed batch composition (shuffle=False); "
+                "sample-level reshuffling would serve stale features. Use "
+                "shuffle_batch_order=True for an epoch-seeded permutation of the batch "
+                "order, which the cache takes.")
         losses = []
         t0 = time.time()
         for i, batch in enumerate(loader):
-            batch = batch_to_device(batch, self.device)
-            loss = self.loss_fn(self._forward(batch["image"], train=True), batch)
+            # the batch's identity, stable when the loader permutes the order
+            bid = batch.pop("_batch_id", i)
+            if self.cache_features:
+                feats, batch = self._cached_features(bid, batch, logger)
+            else:
+                batch = batch_to_device(batch, self.device)
+                feats = self.backbone.features(batch["image"])
+            loss = self.loss_fn(self._forward(feats, train=True), batch)
             self.optimizer.zero_grad(set_to_none=True)
             loss.backward()
             self.optimizer.step()
@@ -137,7 +200,7 @@ class ProbeTrainer:
     @torch.no_grad()
     def predict(self, batch: dict) -> torch.Tensor:
         images = torch.as_tensor(batch["image"]).to(self.device)
-        return self._forward(images, train=False)
+        return self._forward(self.backbone.features(images), train=False)
 
     def validate(self, loader, metric_fn) -> dict:
         """Run ``metric_fn(pred, batch) -> dict of (B,) tensors`` over the

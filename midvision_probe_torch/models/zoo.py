@@ -6,7 +6,9 @@ BEiT-L/16, RADIO v2, ``test_tiny_vit``), the SAM image encoders, the three
 ConvNeXt-B entries, the 17 SSL ResNet-50 entries, ``load_variables``, the
 extractor builders (``build_vit_extractor``, ``build_sam_extractor``,
 ``build_convnext_extractor``, ``build_resnet_extractor``) and the
-reference-compatible constructors of ``configs/backbone``.
+reference-compatible constructors of ``configs/backbone``, the SD
+featurizers ``DIFT`` and ``Zero123`` (``models/sd/featurizer.py``) among
+them: all 53 backbone configs build.
 
 A released checkpoint under ``$MVP_CHECKPOINT_DIR`` (default
 ``checkpoints``) is loaded: ``torch.load`` on the CPU, the entry's
@@ -17,9 +19,9 @@ random-initialised from a seeded ``torch.Generator`` (the JAX package
 random-initialises too, with JAX's generator; the draws differ, the
 distributions match).
 
-Not ported yet: the SD featurizers (``dift``, ``zero123``; ``ROADMAP.md``
-section 1, item 5); their configs' targets do not exist here, which
-``config.instantiate`` reports.
+The SD featurizers load their own files (``sd21/*.bin``,
+``zero123/105000.ckpt``) and are standalone, as in the JAX package: they
+have no ``FeatureExtractor`` and no driver takes them.
 """
 
 from __future__ import annotations
@@ -372,9 +374,9 @@ def load_variables(entry: ZooEntry, cfg) -> tuple[dict | None, dict]:
         return None, {}
     if entry.arch not in ("vit", "sam", "convnext", "resnet"):
         raise NotImplementedError(
-            f"loading {entry.name} ({entry.arch}) is not ported to PyTorch yet: "
-            "no ported family takes this architecture (the SD featurizers are "
-            "ROADMAP section 1, item 5)")
+            f"no loader for {entry.name}'s architecture {entry.arch!r} (the zoo "
+            "loads vit, sam, convnext and resnet entries; the SD featurizers "
+            "load their own files)")
     ckpt = torch.load(path, map_location="cpu", weights_only=False)
     sd = unwrap_checkpoint(ckpt, entry.source)
     if entry.arch == "resnet":
@@ -852,3 +854,26 @@ def RADIO(version="radio_v2", output="dense", layer=-1,
     return build_vit_extractor(
         "radio_v2", output=output, layer=layer,
         return_multilayer=return_multilayer, add_norm=add_norm, **_clean(kw))
+
+
+def DIFT(model_id="stabilityai/stable-diffusion-2-1", time_step=1, layer=1, output="dense",
+         return_multilayer=False, add_norm=False, device=None, **kw):
+    """Reference ``stablediffusion.py`` / ``dift_sd.py``: the one-step noised
+    SD-2.1 UNet's up-block features (``models/sd/``). Weights:
+    ``$MVP_CHECKPOINT_DIR/sd21/{unet,vae,text_encoder}.bin``. float32
+    whatever ``dtype`` a driver passes."""
+    from midvision_probe_torch.models.sd.featurizer import DIFT as _DIFT
+
+    return _DIFT(model_id=model_id, time_step=time_step, output=output, layer=layer,
+                 return_multilayer=return_multilayer, add_norm=add_norm, device=device)
+
+
+def Zero123(time_step=1, output="dense", layer=1, return_multilayer=False, add_norm=False,
+            device=None, **kw):
+    """Reference ``zero123.py``: the CLIP-image-conditioned LDM UNet's
+    guidance-combined up-block features. Weights:
+    ``$MVP_CHECKPOINT_DIR/zero123/105000.ckpt``."""
+    from midvision_probe_torch.models.sd.featurizer import Zero123 as _Z
+
+    return _Z(time_step=time_step, output=output, layer=layer,
+              return_multilayer=return_multilayer, add_norm=add_norm, device=device)

@@ -16,8 +16,9 @@ with ``render_images`` (the default) the first test batch's panels and the
 first 6 test batches' per-image PNG/JSON/TXT dumps under ``val_images/``;
 and the segment-area-vs-d1 scatter under ``plots/`` over the whole test
 set. Runs on cuda unless ``system.device`` says otherwise.
-
-Not ported yet: the feature cache.
+``system.cache_features`` reuses each training batch's bf16 features
+across epochs, under ``$MVP_FEATURE_CACHE_DEVICE_GB`` on the device and
+``$MVP_FEATURE_CACHE_GB`` on the host (``engine/probe_fit.py``).
 """
 
 from __future__ import annotations
@@ -31,6 +32,7 @@ from midvision_probe_torch.engine.checkpoint import restore_checkpoint
 from midvision_probe_torch.engine.driver_common import (
     build_backbone,
     build_loader,
+    cache_shuffle_kwargs,
     emit_csv,
     fit,
     init_from_loader,
@@ -55,8 +57,11 @@ def run(cfg):
     head_type = cfg.probe.get("head_type", "dpt")
     backbone = build_backbone(cfg, needs_multilayer=head_type != "linear")
 
+    # the feature cache fixes each batch's composition and permutes the
+    # batches' order per epoch (cache_shuffle_kwargs)
     train_loader = build_loader(cfg.dataset, "trainval", cfg.batch_size,
-                                seed=cfg.system.get("random_seed", 8))
+                                seed=cfg.system.get("random_seed", 8),
+                                **cache_shuffle_kwargs(cfg))
     test_loader = build_loader(cfg.dataset, "test", cfg.batch_size)
     max_depth = getattr(train_loader.dataset, "max_depth", 10.0)
 

@@ -15,8 +15,9 @@ the 80/20 split of trainval by ``RandomState(42)`` (the reference's
 (``:407``), the 0.5 binarization, and per-sample metric rows averaged over
 the validation set, written to ``final_results_summary_<dataset>.csv``.
 Single process, so the JAX driver's shard arguments are the identity. Runs
-on cuda unless ``system.device`` says otherwise. The feature cache is not
-ported (``system.cache_features`` raises).
+on cuda unless ``system.device`` says otherwise. ``system.cache_features``
+reuses each training batch's bf16 features across epochs
+(``engine/probe_fit.py``).
 """
 
 from __future__ import annotations
@@ -31,6 +32,7 @@ from midvision_probe_torch.engine.checkpoint import restore_checkpoint
 from midvision_probe_torch.engine.driver_common import (
     build_backbone,
     build_loader,
+    cache_shuffle_kwargs,
     emit_csv,
     fit,
     init_from_loader,
@@ -70,9 +72,11 @@ def run(cfg):
     n = len(full.dataset)
     perm = np.random.RandomState(42).permutation(n)
     n_train = int(0.8 * n)
+    # the feature cache fixes each batch's composition and permutes the
+    # batches' order per epoch (cache_shuffle_kwargs)
     train_loader = Loader(_Subset(full.dataset, perm[:n_train]), cfg.batch_size,
-                          shuffle=True, drop_last=True,
-                          seed=cfg.system.get("random_seed", 8))
+                          drop_last=True, seed=cfg.system.get("random_seed", 8),
+                          **(cache_shuffle_kwargs(cfg) or {"shuffle": True}))
     val_loader = Loader(_Subset(full.dataset, perm[n_train:]), cfg.batch_size)
 
     probe = instantiate(cfg.probe, feat_dim=backbone.feat_dim, **probe_dtype_kwargs(cfg))

@@ -17,9 +17,9 @@ the metrics are the angular recalls of ``evaluate_surface_norm`` (11.25,
 artifacts of ``utils/reporting.py``: with ``render_images`` (the default)
 the first test batch's normal maps under ``val_images/``, and the
 segment-area-vs-d1 scatter under ``plots/`` over the whole test set. Runs
-on cuda unless ``system.device`` says otherwise.
-
-Not ported yet, as in the port's ``train_depth``: the feature cache.
+on cuda unless ``system.device`` says otherwise. ``system.cache_features``
+reuses each training batch's bf16 features across epochs
+(``engine/probe_fit.py``).
 """
 
 from __future__ import annotations
@@ -33,6 +33,7 @@ from midvision_probe_torch.engine.checkpoint import restore_checkpoint
 from midvision_probe_torch.engine.driver_common import (
     build_backbone,
     build_loader,
+    cache_shuffle_kwargs,
     emit_csv,
     fit,
     init_from_loader,
@@ -53,8 +54,11 @@ def run(cfg):
     head_type = cfg.probe.get("head_type", "dpt")
     backbone = build_backbone(cfg, needs_multilayer=head_type != "linear")
 
+    # the feature cache fixes each batch's composition and permutes the
+    # batches' order per epoch (cache_shuffle_kwargs)
     train_loader = build_loader(cfg.dataset, "trainval", cfg.batch_size,
-                                seed=cfg.system.get("random_seed", 8))
+                                seed=cfg.system.get("random_seed", 8),
+                                **cache_shuffle_kwargs(cfg))
     test_loader = build_loader(cfg.dataset, "test", cfg.batch_size)
 
     uncertainty_aware = bool(cfg.probe.get("uncertainty_aware", False))

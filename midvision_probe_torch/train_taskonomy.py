@@ -16,8 +16,8 @@ channel 0, else the masked L1 per image; their means go to
 ``taskonomy_results_<task>_final.csv``. Without an HF Taskonomy directory
 at the configured path the dataset is synthetic (``dataset.num_instances``,
 ``dataset.image_size``). Runs on cuda unless ``system.device`` says
-otherwise. The feature cache is not ported (``system.cache_features``
-raises).
+otherwise. ``system.cache_features`` reuses each training batch's bf16
+features across epochs (``engine/probe_fit.py``).
 """
 
 from __future__ import annotations
@@ -31,6 +31,7 @@ from midvision_probe_torch.engine.checkpoint import restore_checkpoint
 from midvision_probe_torch.engine.driver_common import (
     build_backbone,
     build_loader,
+    cache_shuffle_kwargs,
     emit_csv,
     fit,
     init_from_loader,
@@ -54,8 +55,11 @@ def run(cfg):
     head_type = cfg.probe.get("head_type", "dpt")
     backbone = build_backbone(cfg, needs_multilayer=head_type != "linear")
 
+    # the feature cache fixes each batch's composition and permutes the
+    # batches' order per epoch (cache_shuffle_kwargs)
     train_loader = build_loader(cfg.dataset, "train", cfg.batch_size,
-                                seed=cfg.system.get("random_seed", 8))
+                                seed=cfg.system.get("random_seed", 8),
+                                **cache_shuffle_kwargs(cfg))
     test_loader = build_loader(cfg.dataset, "test", cfg.batch_size)
 
     out_ch = train_loader.dataset[0]["target"].shape[-1]

@@ -294,13 +294,13 @@ def test_zoo_raises_on_a_file_whose_keys_do_not_match(tmp_path, monkeypatch, dro
 
 
 def test_zoo_refuses_the_converters_it_lacks(tmp_path, monkeypatch):
-    """An architecture no ported family takes (the SD featurizers' U-Net)
-    raises, naming the roadmap item; SAM and ConvNeXt load since their
-    families were ported."""
+    """An architecture the zoo has no loader for (the SD featurizers' U-Net,
+    which the featurizers load themselves) raises, naming it; SAM and
+    ConvNeXt load since their families were ported."""
     monkeypatch.setenv("MVP_CHECKPOINT_DIR", str(tmp_path))
     entry = dataclasses.replace(t_zoo.ZOO["dino_vitb16"], arch="sd_unet")
     torch.save({}, os.path.join(tmp_path, entry.filename))
-    with pytest.raises(NotImplementedError, match="sd_unet.*section 1, item 5"):
+    with pytest.raises(NotImplementedError, match="no loader for .*'sd_unet'.*load their own"):
         t_zoo.load_variables(entry, t_vit.ViTConfig())
     variables, extras = t_zoo.load_variables(t_zoo.ZOO["crocov2_vitb16"], t_vit.ViTConfig())
     assert variables is None and extras == {}  # no file: random init, as before

@@ -146,19 +146,23 @@ def test_backbone_config_names_the_same_entry_in_both_packages(monkeypatch, conf
                                     "sam_base", "convnext_in22k", "simclr_resnet50",
                                     "dift", "zero123"])
 def test_unported_families_raise(monkeypatch, config):
-    """The SD featurizers still raise, pointing at ROADMAP.md; the
-    LayerScale, register and relative-position-bias ViTs, SAM, ConvNeXt
-    (each at a tiny width) and ResNet-50 build and give features of their
-    config's shape."""
+    """Every family of the last slices builds: the LayerScale, register and
+    relative-position-bias ViTs, SAM, ConvNeXt and the SD featurizers (DIFT
+    and Zero123, random-initialised), each at a tiny width, and ResNet-50
+    give features of their config's shape."""
     from midvision_probe_torch.models import convnext as t_convnext
     from midvision_probe_torch.models import vit_sam as t_sam
+    from midvision_probe_torch.models.sd import featurizer as t_sd
 
     compose = t_compose("depth_training", [f"backbone={config}"])
-    if config in ("dift", "zero123"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            t_instantiate(compose.backbone, device="cpu")
-        return
     monkeypatch.setenv("MVP_CHECKPOINT_DIR", "/nonexistent")
+    monkeypatch.setattr(t_sd, "UNetConfig", functools.partial(
+        t_sd.UNetConfig, block_out_channels=(8, 8, 16, 16), layers_per_block=1,
+        cross_attention_dim=12, head_dim=4, norm_groups=4))
+    monkeypatch.setattr(t_sd, "VAEEncoderConfig", functools.partial(
+        t_sd.VAEEncoderConfig, block_out_channels=(8, 16), layers_per_block=1, norm_groups=4))
+    monkeypatch.setattr(t_sd, "CLIPTextConfig", functools.partial(
+        t_sd.CLIPTextConfig, hidden_size=12, num_layers=1, num_heads=2))
     name = compose.backbone["checkpoint_name"]
     if name in t_zoo.ZOO and t_zoo.ZOO[name].arch == "vit":
         monkeypatch.setitem(t_zoo.ZOO, name, dataclasses.replace(
@@ -172,3 +176,5 @@ def test_unported_families_raise(monkeypatch, config):
     with torch.no_grad():
         out = ext(torch.zeros(1, size, size, 3))
     assert out.ndim == 4 and bool(torch.isfinite(out).all())
+    if ext.arch == "diffusion":  # the /16 grid of tap 1 (config layer 1)
+        assert ext.layer == "1" and tuple(out.shape[:3]) == (1, size // 16, size // 16)

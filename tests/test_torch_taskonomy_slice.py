@@ -159,13 +159,16 @@ def test_train_taskonomy_other_tasks_match_jax_columns(tmp_path, task, keys):
 
 def test_train_taskonomy_is_eval_restores_and_cache_raises(tmp_path):
     """A second run with is_eval=True restores the saved probe and
-    reproduces the trained run's metrics exactly; the feature cache is not
-    ported and raises."""
+    reproduces the trained run's metrics exactly; with the feature cache
+    (``system.cache_features``) the driver trains its two steps on the
+    cached bf16 features and writes finite metrics with the same keys."""
     argv = ARGV + ["+system.device=cpu", f"output_dir={tmp_path}"]
     trained = t_driver.entry(argv)
     restored = t_driver.entry(argv + ["is_eval=True"])
     assert restored.pop("train_losses") == []
     assert len(trained.pop("train_losses")) == 2
     assert restored == trained
-    with pytest.raises(NotImplementedError, match="cache_features"):
-        t_driver.entry(argv + ["system.cache_features=True"])
+    cached = t_driver.entry(argv + ["system.cache_features=True",
+                                    f"output_dir={tmp_path / 'cached'}"])
+    assert len(cached.pop("train_losses")) == 2
+    assert set(cached) == set(trained) and all(np.isfinite(v) for v in cached.values())
