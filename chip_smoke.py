@@ -221,7 +221,18 @@ JSON line per phase and fails on the first failing phase:
    under the default budgets, the host tier alone and none: backbone
    forwards, wall time, the tiers' bytes and peak memory per epoch, K1 12
    per backbone forward.
-10e. ``extract_kqv``: ``FeatureExtractor.extract_kqv`` on dino_vitb16 at
+10e. ``path_depth_ddp``: the depth trainer on dino_b16 (480x640, the DPT
+   probe, 32 items in batches of 8, three epochs) with the sweep's three
+   bf16 settings (the feature cache, a bf16 backbone, a bf16 probe), cuDNN
+   deterministic, run plainly and as a one-rank NCCL process group (a
+   ``python -m torch.distributed.run --nproc_per_node=1`` subprocess of
+   this script, ``--ddp-worker``): the backend, world size and rank, the
+   all-reduces per step, each run's wall and K1's launches by route; the
+   two CSV rows within 1e-4 relative.
+10f. ``profiling``: ``utils/profiling.py`` on the dino_vitb16 forward
+   (bf16, batch 8, 480x640): ``time_fn``, ``device_memory_stats()`` and a
+   ``trace()`` around one forward (the Chrome trace's kernel events).
+10g. ``extract_kqv``: ``FeatureExtractor.extract_kqv`` on dino_vitb16 at
    480x640, bf16, batch 8, ``k`` and ``kqv`` against a plain recompute of
    block 11's projection, K1 12 a call on ``wgmma``.
 11. ``bench_attn``: the attention bench through its entry point
@@ -2995,6 +3006,206 @@ def phase_path_depth_cached(torch, smi: str) -> dict:
     return total
 
 
+# the sweep's fast-suite settings (launch_script/sweep.py): the feature
+# cache, a bf16 backbone and a bf16 probe
+DDP_ARGV = ["backbone=dino_b16", "dataset=synthetic", "dataset.image_size=[480,640]",
+            f"dataset.num_instances={CACHED_ITEMS}", "probe=depth_dpt",
+            f"batch_size={CACHED_BATCH}", "optimizer=one_epoch",
+            f"optimizer.n_epochs={CACHED_EPOCHS}", "+system.backbone_dtype=bfloat16",
+            "system.cache_features=true", "system.probe_dtype=bfloat16",
+            "+render_images=False"]
+
+
+def deterministic_cudnn(torch) -> None:
+    """cuDNN's deterministic algorithms, so the plain and the group run of
+    ``path_depth_ddp`` can agree to the last bit."""
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+
+
+def depth_run(torch, out_dir: str) -> dict:
+    """``train_depth`` through its ``entry`` with ``DDP_ARGV``: its row,
+    losses, wall, launch counts and the all-reduces it made."""
+    from midvision_probe_torch import train_depth
+    from midvision_probe_torch.parallel import multihost
+
+    before = multihost.counts["all_reduce"]
+    reset_counts()
+    t0 = time.perf_counter()
+    row = train_depth.entry(DDP_ARGV + [f"output_dir={out_dir}"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    losses = row.pop("train_losses")
+    return {"wall_s": wall, "launches": read_counts(), "train_losses": losses,
+            "steps": len(losses), "all_reduces": multihost.counts["all_reduce"] - before,
+            "row": row}
+
+
+def ddp_worker(out_json: str, out_dir: str) -> int:
+    """``--ddp-worker``: one rank under ``torch.distributed.run``, whose
+    environment the driver reads to join the NCCL group: the run of
+    ``depth_run`` and the group's backend, world size and rank, written to
+    ``out_json``."""
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, HERE)
+    deterministic_cudnn(torch)
+    res = depth_run(torch, out_dir)
+    res.update(backend=dist.get_backend(), world_size=dist.get_world_size(),
+               rank=dist.get_rank(), local_rank=int(os.environ["LOCAL_RANK"]),
+               device=str(torch.device("cuda", torch.cuda.current_device())))
+    with open(out_json, "w") as f:
+        json.dump(res, f)
+    dist.destroy_process_group()
+    return 0
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def csv_row(out_dir: str) -> dict:
+    import csv
+
+    (name,) = [f for f in os.listdir(out_dir) if f.endswith(".csv")]
+    with open(os.path.join(out_dir, name), newline="") as f:
+        (row,) = list(csv.DictReader(f))
+    return row
+
+
+def phase_path_depth_ddp(torch, smi: str) -> dict:
+    """``train_depth`` on dino_b16 at 480x640 with the DPT probe and the
+    sweep's three bf16 settings (``DDP_ARGV``; the items, batch and epochs
+    of ``path_depth_cached``), run twice with cuDNN deterministic: plainly
+    in this process, and as a one-rank NCCL process group, a subprocess
+    started by ``python -m torch.distributed.run --nproc_per_node=1``. Per
+    run: the wall, K1's launches by route, the all-reduces per step; the
+    group run's backend, world size and rank. Gates: the two CSV rows
+    within 1e-4 relative, finite losses, the group's backend ``nccl``, its
+    world size 1, all-reduces in its steps, K1 12 per backbone forward on
+    wgmma in both. Returns the two runs' launch counts together."""
+    saved = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+    deterministic_cudnn(torch)
+    tmp = tempfile.mkdtemp(prefix="mvp_chip_smoke_ddp_")
+    try:
+        plain_dir, group_dir = os.path.join(tmp, "plain"), os.path.join(tmp, "group")
+        plain = depth_run(torch, plain_dir)
+        plain_row = csv_row(plain_dir)
+        torch.cuda.empty_cache()
+        out_json = os.path.join(tmp, "group.json")
+        cmd = [sys.executable, "-m", "torch.distributed.run", "--nnodes=1",
+               "--nproc_per_node=1", "--master_addr=127.0.0.1", f"--master_port={free_port()}",
+               os.path.join(HERE, "chip_smoke.py"), "--ddp-worker", out_json, group_dir]
+        t0 = time.perf_counter()
+        proc = subprocess.Popen(cmd, cwd=HERE, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                text=True, start_new_session=True)
+        try:
+            log = proc.communicate(timeout=600)[0]
+        finally:
+            if proc.poll() is None:  # timed out: stop torchrun and its worker
+                os.killpg(proc.pid, 9)
+                proc.wait()
+        launcher_wall = time.perf_counter() - t0
+        if proc.returncode != 0:
+            print(log[-6000:], file=sys.stderr, flush=True)
+            raise SystemExit(f"path_depth_ddp: the torch.distributed.run group run failed "
+                             f"(exit {proc.returncode})")
+        with open(out_json) as f:
+            group = json.load(f)
+        group_row = csv_row(group_dir)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = saved
+    rel = {}
+    for k, v in plain_row.items():
+        try:
+            a, b = float(v), float(group_row[k])
+        except ValueError:
+            continue
+        rel[k] = abs(a - b) / max(abs(a), abs(b), 1e-30)
+    max_rel_key = max(rel, key=rel.get)
+    runs = {"plain": plain, "group": group}
+    for run in runs.values():
+        run.pop("row")
+        run["all_reduces_per_step"] = run["all_reduces"] / max(run["steps"], 1)
+    checks = {"csv_within_1e-4": rel[max_rel_key] <= 1e-4,
+              "csv_columns_equal": set(plain_row) == set(group_row),
+              "losses_finite": all(math.isfinite(x) for r in runs.values()
+                                   for x in r["train_losses"])
+              and plain["steps"] == group["steps"] == (CACHED_ITEMS // CACHED_BATCH)
+              * CACHED_EPOCHS,
+              "group_backend_nccl": group["backend"] == "nccl",
+              "group_world_size_1": group["world_size"] == 1 and group["rank"] == 0,
+              "group_all_reduces": group["all_reduces_per_step"] > 0,
+              "plain_no_all_reduces": plain["all_reduces"] == 0,
+              "attention_per_forward": all(per_forward_ok(r["launches"], DINO_PER_FORWARD)
+                                           for r in runs.values())}
+    res = {"phase": "path_depth_ddp", "argv": DDP_ARGV, "runs": runs,
+           "launcher_wall_s": launcher_wall, "csv_max_rel_diff": rel[max_rel_key],
+           "csv_max_rel_diff_column": max_rel_key, "checks": checks, "nvidia_smi": smi,
+           "gpu_state": gpu_state()}
+    emit(res)
+    torch.cuda.empty_cache()
+    if not all(checks.values()):
+        raise SystemExit(f"path_depth_ddp check failed: {checks}")
+    return {k: plain["launches"][k] + group["launches"][k] for k in plain["launches"]}
+
+
+def phase_profiling(torch, smi: str) -> dict:
+    """``utils/profiling.py`` on the dino_b16 forward (bf16, 4 taps, batch 8
+    at 480x640): ``time_fn``, ``device_memory_stats()`` and a ``trace()``
+    around one forward. Gates: the Chrome trace file exists and holds
+    kernel events, the memory stats are non-empty, K1 12 per forward.
+    Returns the launch counts."""
+    from midvision_probe_torch.models.zoo import build_vit_extractor
+    from midvision_probe_torch.utils import profiling
+
+    backbone = build_vit_extractor("dino_vitb16", return_multilayer=True,
+                                   dtype=torch.bfloat16, device="cuda")
+    images = torch.randn(8, 480, 640, 3, device="cuda")
+    trace_dir = tempfile.mkdtemp(prefix="mvp_chip_smoke_trace_")
+    try:
+        reset_counts()
+        with torch.no_grad():
+            timing = profiling.time_fn(backbone.features, images, warmup=2, iters=10)
+            with profiling.trace(trace_dir) as log_dir:
+                backbone.features(images)
+                torch.cuda.synchronize()
+        counts = read_counts()
+        stats = profiling.device_memory_stats()
+        trace_file = os.path.join(log_dir, "trace.json")
+        exists = os.path.isfile(trace_file)
+        events = []
+        if exists:
+            with open(trace_file) as f:
+                events = json.load(f).get("traceEvents", [])
+        kernels = [e for e in events if e.get("cat") == "kernel"]
+        trace = {"file_bytes": os.path.getsize(trace_file) if exists else 0,
+                 "events": len(events), "kernel_events": len(kernels),
+                 "kernel_ms": sum(e.get("dur", 0) for e in kernels) / 1e3}
+    finally:
+        shutil.rmtree(trace_dir, ignore_errors=True)
+    card = stats.get("cuda:0") or {}
+    checks = {"trace_written": exists and trace["kernel_events"] > 0,
+              "memory_stats": bool(card) and card.get("bytes_in_use", 0) > 0
+              and card.get("peak_bytes_in_use", 0) >= card.get("bytes_in_use", 0),
+              "attention_per_forward": per_forward_ok(counts, DINO_PER_FORWARD)}
+    emit({"phase": "profiling", "model": "dino_vitb16", "batch": 8, "image_hw": [480, 640],
+          "dtype": "bfloat16", "time_fn": timing, "device_memory_stats": stats,
+          "trace": trace, "launches": counts, "checks": checks, "nvidia_smi": smi,
+          "gpu_state": gpu_state()})
+    del backbone, images
+    torch.cuda.empty_cache()
+    if not all(checks.values()):
+        raise SystemExit(f"profiling check failed: {checks}")
+    return counts
+
+
 def vit_taps(grid, width) -> list:
     """The four (h, w, C) tap shapes of a ViT forward."""
     return [(*grid, width)] * 4
@@ -3248,6 +3459,8 @@ def main() -> int:
     by_path["forward_zero123"] = phase_forward_zero123(torch, smi,
                                                        attn_checks["zero123_clip_k1_fp32"])
     by_path["path_depth_cached"] = phase_path_depth_cached(torch, smi)
+    by_path["path_depth_ddp"] = phase_path_depth_ddp(torch, smi)
+    by_path["profiling"] = phase_profiling(torch, smi)
     by_path["extract_kqv"] = phase_extract_kqv(torch)
     by_path["bench_attn"] = phase_bench_attn(torch)
     by_path["path_fused_mlp"] = phase_path_fused_mlp(torch)
@@ -3313,4 +3526,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--ddp-worker"]:
+        sys.exit(ddp_worker(*sys.argv[2:4]))
     sys.exit(main())

@@ -8,8 +8,11 @@ reading the same YAML files under ``configs/``.
 The YAML files name the JAX package's classes in their ``_target_``
 strings. ``instantiate`` rewrites that package prefix onto this package, so
 ``<jax package>.models.zoo.DINO`` builds ``midvision_probe_torch.models.zoo.DINO``.
-A target without a counterpart in the port raises a clear error instead of
-reaching back into the JAX package. The mapping is local to this module:
+The reference's own YAMLs name ``evals.X`` (``evals.models.dino.DINO``);
+those resolve to ``midvision_probe_torch.compat.X``, which holds the port's
+classes under the reference's paths. A target without a counterpart in the
+port raises a clear error instead of reaching back into the JAX package.
+The mapping is local to this module:
 no process-global alias table is touched.
 """
 
@@ -29,6 +32,10 @@ import yaml
 # `_target_` strings in configs/*.yaml, rewritten onto this package
 _JAX_TARGET_PREFIX = "midvision_probe_tpu."
 _PORT_PREFIX = "midvision_probe_torch."
+# the reference's `_target_` prefix (`evals.models.dino.DINO`), rewritten
+# onto `compat/`, which holds the port's classes under those paths
+_REFERENCE_PREFIX = "evals."
+_COMPAT = "midvision_probe_torch.compat"
 JAX_PACKAGE = _JAX_TARGET_PREFIX.rstrip(".")  # for reports that cite its files
 
 
@@ -224,6 +231,9 @@ def _locate(target: str) -> Any:
     ported = target
     if target.startswith(_JAX_TARGET_PREFIX):
         ported = _PORT_PREFIX + target[len(_JAX_TARGET_PREFIX):]
+    elif target.startswith(_REFERENCE_PREFIX):  # the reference's own YAMLs
+        importlib.import_module(_COMPAT)
+        ported = f"{_COMPAT}.{target[len(_REFERENCE_PREFIX):]}"
     module_name, _, attr = ported.rpartition(".")
     if not module_name.startswith(_PORT_PREFIX):
         raise ImportError(

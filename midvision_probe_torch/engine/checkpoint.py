@@ -1,7 +1,8 @@
 """Per-epoch checkpoint and exact resume (counterpart of the JAX package's
 orbax ``engine/checkpoint.py``): the full trainer state (tap-norm + probe
 parameters and BatchNorm statistics, optimizer and scheduler state, step)
-goes through ``torch.save``; the two newest epochs are kept."""
+goes through ``torch.save``; the two newest epochs are kept. Rank 0
+writes them; every rank restores."""
 
 from __future__ import annotations
 
@@ -9,6 +10,8 @@ import os
 import re
 
 import torch
+
+from midvision_probe_torch.parallel import multihost
 
 _NAME = re.compile(r"^epoch_(\d+)\.pt$")
 _KEEP = 2
@@ -22,13 +25,20 @@ def _epochs(ckpt_dir: str) -> list[int]:
 
 
 def save_checkpoint(ckpt_dir: str, state: dict, epoch: int) -> str:
-    os.makedirs(ckpt_dir, exist_ok=True)
+    """Write epoch ``epoch``'s state and prune to the two newest. Under a
+    process group every rank calls it, as every rank calls the JAX save:
+    rank 0 writes and prunes (the ranks hold the same state), and the
+    others wait at a barrier until it is done, so no rank races another's
+    pruning or reads a half-written file."""
     path = os.path.join(ckpt_dir, f"epoch_{epoch}.pt")
-    tmp = f"{path}.tmp{os.getpid()}"
-    torch.save({"state": state, "epoch": epoch}, tmp)
-    os.replace(tmp, path)
-    for old in _epochs(ckpt_dir)[:-_KEEP]:
-        os.remove(os.path.join(ckpt_dir, f"epoch_{old}.pt"))
+    if multihost.is_main_process():
+        os.makedirs(ckpt_dir, exist_ok=True)
+        tmp = f"{path}.tmp{os.getpid()}"
+        torch.save({"state": state, "epoch": epoch}, tmp)
+        os.replace(tmp, path)
+        for old in _epochs(ckpt_dir)[:-_KEEP]:
+            os.remove(os.path.join(ckpt_dir, f"epoch_{old}.pt"))
+    multihost.barrier()
     return path
 
 

@@ -1,6 +1,9 @@
 """Shared driver plumbing for the port's probe trainers and correspondence
-evaluators (counterpart of the JAX package's ``engine/driver_common.py``),
-single process."""
+evaluators (counterpart of the JAX package's ``engine/driver_common.py``).
+
+Under ``torchrun`` each rank joins the process group when the driver first
+asks for its device or a loader (``multihost.initialize``), reads its shard
+of every loader, and rank 0 alone writes the CSV and talks to wandb."""
 
 from __future__ import annotations
 
@@ -8,16 +11,29 @@ import os
 from datetime import datetime
 
 from midvision_probe_torch.config import Config, instantiate
-from midvision_probe_torch.datasets import build_loader
+from midvision_probe_torch.datasets import build_loader as _build_loader
 from midvision_probe_torch.engine.checkpoint import restore_checkpoint, save_checkpoint
 from midvision_probe_torch.engine.probe_fit import ProbeTrainer
+from midvision_probe_torch.parallel import multihost
 from midvision_probe_torch.utils.device import resolve_device
 from midvision_probe_torch.utils.logging import CSVWriter, maybe_wandb, setup_logger
 
 
 def config_device(cfg: Config):
-    """``system.device`` (default cuda; no silent CPU fallback)."""
-    return resolve_device(cfg.get_path("system.device", None))
+    """``system.device`` (default the rank's card; no silent CPU fallback),
+    after joining the process group under ``torchrun`` (NCCL on cards,
+    gloo with ``+system.device=cpu``)."""
+    device = cfg.get_path("system.device", None)
+    multihost.initialize(device=device)
+    return resolve_device(device)
+
+
+def build_loader(dataset_cfg, split, batch_size, **kwargs):
+    """The dataset loader with this rank's shard (``DistributedSampler``):
+    joins the process group first, as the JAX ``build_loader`` does."""
+    multihost.initialize()
+    return _build_loader(dataset_cfg, split, batch_size, **multihost.process_shard_args(),
+                         **kwargs)
 
 
 def build_backbone(cfg: Config, needs_multilayer: bool):
@@ -56,7 +72,7 @@ def cache_shuffle_kwargs(cfg: Config) -> dict:
 
 
 def probe_dtype_kwargs(cfg: Config) -> dict:
-    """``system.probe_dtype``: the probe's autocast dtype (params stay f32)."""
+    """``system.probe_dtype``: the probe's compute dtype (params stay f32)."""
     name = cfg.get_path("system.probe_dtype", None)
     return {"dtype": name} if name else {}
 
@@ -75,7 +91,9 @@ def setup_experiment(cfg: Config, task: str, backbone, probe_tag: str):
     exp_name = experiment_name(cfg, task, backbone, probe_tag)
     exp_dir = os.path.join(cfg.get("output_dir", "result"), exp_name)
     os.makedirs(exp_dir, exist_ok=True)
-    return exp_name, exp_dir, setup_logger(exp_dir), maybe_wandb(cfg)
+    # wandb on rank 0 only; the other ranks get the no-op stub
+    wandb = maybe_wandb(cfg if multihost.is_main_process() else None)
+    return exp_name, exp_dir, setup_logger(exp_dir), wandb
 
 
 def make_trainer(cfg: Config, backbone, probe, loss_fn, steps_per_epoch: int):
@@ -88,6 +106,7 @@ def make_trainer(cfg: Config, backbone, probe, loss_fn, steps_per_epoch: int):
         n_steps=max(int(n_epochs * steps_per_epoch), 1),
         warmup_steps=max(cfg.optimizer.warmup_epochs * steps_per_epoch, 1e-6),
         add_norm=bool(cfg.backbone.get("add_norm", False)),
+        num_devices=cfg.system.get("num_devices", -1),
         seed=cfg.system.get("random_seed", 8),
         device=config_device(cfg),
         cache_features=bool(cfg.get_path("system.cache_features", False)),
@@ -138,14 +157,17 @@ def emit_csv(cfg: Config, path: str, exp_name: str, backbone, row: dict) -> dict
         "note": cfg.get("note", ""),
     }
     meta.update(row)
-    CSVWriter(path).append(meta)
+    if multihost.is_main_process():  # every rank holds the gathered metrics
+        CSVWriter(path).append(meta)
     return meta
 
 
 def append_correspondence_csv(cfg: Config, file_name: str, backbone,
                               dataset_name: str, row: dict) -> None:
     """One row of a correspondence driver's results CSV (the JAX drivers'
-    columns)."""
+    columns), written by rank 0."""
+    if not multihost.is_main_process():
+        return
     os.makedirs(cfg.output_dir, exist_ok=True)
     CSVWriter(os.path.join(cfg.output_dir, file_name)).append({
         "Time": datetime.now().strftime("%d%m%Y-%H%M"),

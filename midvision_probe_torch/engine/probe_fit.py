@@ -1,11 +1,24 @@
 """The probe-training engine (counterpart of the JAX package's
-``engine/probe_fit.py``), single device.
+``engine/probe_fit.py``): one card per rank.
 
 Each step runs the frozen backbone under ``torch.no_grad()`` (the
 counterpart of ``jax.lax.stop_gradient`` on the tapped features), the
 optional per-tap BatchNorms and the probe, the task loss, backward and an
 AdamW step with the cosine-warmup schedule. Features enter the probe in
-float32; ``system.probe_dtype`` autocasts the probe.
+the dtype they come in (the backbone's, or bf16 from the feature cache);
+each of the probe's modules casts them to its own compute dtype, float32
+or ``system.probe_dtype`` (``models/probes.py``), as flax does.
+
+Under a process group (``torchrun``, ``parallel/multihost.py``) each rank
+feeds its loader shard, and the step is the JAX step on the global batch
+(the ranks' batches concatenated in rank order): the loss's sums and
+counts and the BatchNorms' batch statistics are all-reduced inside the
+forward (``multihost.global_batch``), so every rank computes the global
+loss and the global running statistics, and the gradients of the probe
+and the tap-norms are summed over the ranks before the AdamW step. A plain
+average of per-rank gradients would not be that step whenever the ranks
+hold different numbers of valid pixels. Rank 0's initial parameters are
+broadcast to every rank.
 
 ``cache_features`` (``system.cache_features``) extracts each training
 batch's features once and reuses them in later epochs, keyed by the
@@ -33,7 +46,9 @@ import torch.nn as nn
 
 from midvision_probe_torch.models.feature_extractor import FeatureExtractor
 from midvision_probe_torch.models.probes import TapNorms, _channels, init_probe_
-from midvision_probe_torch.utils.device import resolve_device, resolve_dtype
+from midvision_probe_torch.parallel import multihost
+from midvision_probe_torch.parallel.mesh import check_num_devices, replicate, shard_batch
+from midvision_probe_torch.utils.device import resolve_device
 from midvision_probe_torch.utils.optim import make_adamw
 
 
@@ -41,12 +56,6 @@ _LOG_EVERY = 50  # train steps between loss log lines
 _GIB = 1024**3
 
 log = logging.getLogger(__name__)
-
-
-def batch_to_device(batch: dict, device: torch.device) -> dict:
-    """numpy arrays of a loader batch -> tensors on ``device``."""
-    return {k: torch.as_tensor(v).to(device, non_blocking=True)
-            for k, v in batch.items() if isinstance(v, (np.ndarray, torch.Tensor))}
 
 
 @dataclasses.dataclass
@@ -59,8 +68,10 @@ class ProbeTrainer:
         loss_fn: ``(pred, batch) -> scalar`` (NHWC pred at probe resolution).
         probe_lr / n_steps / warmup_steps: AdamW + cosine-with-warmup recipe.
         add_norm: train per-tap BatchNorms (reference ``add_norm``).
+        num_devices: ``system.num_devices``: -1 (every rank) or the world
+            size (``parallel.mesh.check_num_devices``).
         seed: seeds the probe's random init.
-        device: default cuda; raises without a card unless given.
+        device: default the rank's card; raises without one unless given.
         cache_features: reuse each batch's bf16 features across epochs.
     """
 
@@ -71,12 +82,14 @@ class ProbeTrainer:
     n_steps: int = 1000
     warmup_steps: float = 150.0
     add_norm: bool = False
+    num_devices: int = -1
     seed: int = 8
     device: Any = None
     cache_features: bool = False
 
     def __post_init__(self):
         self.device = resolve_device(self.device)
+        check_num_devices(self.num_devices)
         # one entry per tap: a width, or a ResNet's (C, hw) pair
         dims = self.backbone.feat_dim
         dims = dims if isinstance(dims, list) else [dims]
@@ -85,8 +98,6 @@ class ProbeTrainer:
         self.modules = nn.ModuleDict({"probe": self.probe})
         if self.tap_norms is not None:
             self.modules["tap"] = self.tap_norms
-        dtype = getattr(self.probe, "dtype", None)
-        self.probe_dtype = resolve_dtype(dtype) if dtype else None
         self.optimizer = None
         self.scheduler = None
         self.step = 0
@@ -101,11 +112,12 @@ class ProbeTrainer:
     # ---------------------------------------------------------------- init
     def init(self) -> None:
         """Seeded random init of tap-norms + probe (shapes come from the
-        backbone's feature spec), and a fresh optimizer."""
+        backbone's feature spec), rank 0's broadcast to every rank, and a
+        fresh optimizer."""
         gen = torch.Generator().manual_seed(self.seed)
         for m in self.modules.values():
             init_probe_(m, gen)
-        self.modules.to(self.device)
+        replicate(self.modules.to(self.device))
         self.optimizer, self.scheduler = make_adamw(
             self.modules.parameters(), self.probe_lr, self.n_steps, self.warmup_steps)
         self.step = 0
@@ -124,14 +136,12 @@ class ProbeTrainer:
 
     # ------------------------------------------------------------- forward
     def _forward(self, feats: list[torch.Tensor], train: bool) -> torch.Tensor:
-        feats = [f.float() for f in feats]
+        """The prediction in the dtype the head returns (bf16 from a
+        sigmoid head under ``probe_dtype=bfloat16``, as in the JAX head)."""
         self.modules.train(train)
         if self.tap_norms is not None:
             feats = self.tap_norms(feats)
-        with torch.autocast(self.device.type, dtype=self.probe_dtype or torch.float32,
-                            enabled=self.probe_dtype is not None):
-            pred = self.probe(feats)
-        return pred.float()
+        return self.probe(feats)
 
     # ---------------------------------------------------------------- step
     def _cached_features(self, bid, batch: dict, logger=None) -> tuple[list, dict]:
@@ -142,7 +152,7 @@ class ProbeTrainer:
         if isinstance(cached, tuple):  # device tier: features and targets
             return cached
         image = batch.pop("image")
-        batch = batch_to_device(batch, self.device)
+        batch = shard_batch(batch, self.device)
         if cached is not None:  # host tier: features only
             return [f.to(self.device, non_blocking=True) for f in cached], batch
         feats = [f.to(torch.bfloat16) for f in self.backbone.features(torch.as_tensor(image))]
@@ -169,19 +179,31 @@ class ProbeTrainer:
                 "sample-level reshuffling would serve stale features. Use "
                 "shuffle_batch_order=True for an epoch-seeded permutation of the batch "
                 "order, which the cache takes.")
+        grouped = multihost.in_process_group()
         losses = []
         t0 = time.time()
         for i, batch in enumerate(loader):
             # the batch's identity, stable when the loader permutes the order
             bid = batch.pop("_batch_id", i)
+            # a shard's wrapped repeats train, as the reference's
+            # DistributedSampler's duplicates do; only validate drops them
+            batch.pop("_valid", None)
+            if grouped and len(batch["image"]) != getattr(loader, "batch_size", None):
+                raise ValueError(
+                    "multi-process training needs full batches (drop_last train "
+                    f"loaders): got {len(batch['image'])} rows for a batch size of "
+                    f"{getattr(loader, 'batch_size', None)}; the ranks' batches together "
+                    "make the global batch of a step")
             if self.cache_features:
                 feats, batch = self._cached_features(bid, batch, logger)
             else:
-                batch = batch_to_device(batch, self.device)
+                batch = shard_batch(batch, self.device)
                 feats = self.backbone.features(batch["image"])
-            loss = self.loss_fn(self._forward(feats, train=True), batch)
             self.optimizer.zero_grad(set_to_none=True)
-            loss.backward()
+            with multihost.global_batch():
+                loss = self.loss_fn(self._forward(feats, train=True), batch)
+                loss.backward()
+            multihost.all_reduce_grads(self.modules.parameters())
             self.optimizer.step()
             self.scheduler.step()
             self.step += 1
@@ -204,13 +226,28 @@ class ProbeTrainer:
 
     def validate(self, loader, metric_fn) -> dict:
         """Run ``metric_fn(pred, batch) -> dict of (B,) tensors`` over the
-        loader and return concatenated numpy metrics."""
+        loader and return concatenated numpy metrics.
+
+        Rows the loader marks as a shard's wrapped repeats (``_valid``) are
+        dropped, so each sample counts once; under a process group every
+        rank then returns the whole dataset's metrics, its own shard's
+        gathered with the others' in rank order (``gather_metrics``)."""
         acc: dict[str, list] = {}
         for batch in loader:
-            batch = batch_to_device(batch, self.device)
+            valid = batch.pop("_valid", None)
+            batch = shard_batch(batch, self.device)
             pred = self.predict(batch)
             with torch.no_grad():
                 metrics = metric_fn(pred, batch)
             for k, v in metrics.items():
-                acc.setdefault(k, []).append(v.reshape(-1).cpu().numpy())
-        return {k: np.concatenate(v) for k, v in acc.items()}
+                v = v.reshape(-1)
+                v = (v.float() if v.dtype == torch.bfloat16 else v).cpu().numpy()
+                if valid is not None:
+                    if v.shape[0] != valid.shape[0]:
+                        raise ValueError(
+                            f"metric {k!r} has {v.shape[0]} rows but the batch has "
+                            f"{valid.shape[0]} samples; validate expects per-sample (B,) "
+                            "metrics so a shard's repeats can be dropped")
+                    v = v[valid]
+                acc.setdefault(k, []).append(v)
+        return multihost.gather_metrics({k: np.concatenate(v) for k, v in acc.items()})

@@ -13,7 +13,10 @@ SigLIP; reference ``:105-131``), and the choices are scored against the
 human vote by accuracy, F1, precision and recall. The three images of a
 batch go through the frozen backbone as one stacked (3B) forward, in
 float32 as the JAX driver runs it (it reads no ``system.backbone_dtype``).
-Runs on cuda unless ``system.device`` says otherwise.
+Runs on cuda unless ``system.device`` says otherwise. Under ``torchrun``
+each rank scores its shard of the triplets, the (vote, choice) rows are
+gathered in rank order without the shards' wrapped repeats, and rank 0
+writes the CSV row.
 """
 
 from __future__ import annotations
@@ -28,6 +31,7 @@ from midvision_probe_torch.config import instantiate, main
 from midvision_probe_torch.datasets import build_loader
 from midvision_probe_torch.datasets.builder import Loader
 from midvision_probe_torch.engine.driver_common import config_device
+from midvision_probe_torch.parallel import multihost
 from midvision_probe_torch.utils.logging import CSVWriter, setup_logger
 
 
@@ -71,22 +75,29 @@ def run(cfg, dataset=None):
             return cls_tokens[-1].float()
         return maps[-1].mean(dim=(1, 2)).float()  # no cls token: GAP of the last map
 
+    shard = multihost.process_shard_args()
     if dataset is not None:
-        loader = Loader(dataset, cfg.batch_size)
+        loader = Loader(dataset, cfg.batch_size, **shard)
     else:
-        loader = build_loader(cfg.dataset, cfg.get("split", "test"), cfg.batch_size)
+        loader = build_loader(cfg.dataset, cfg.get("split", "test"), cfg.batch_size,
+                              **shard)
 
     gts, preds = [], []
     for batch in loader:
+        keep = batch.pop("_valid", np.ones(len(batch["p"]), bool))
         imgs = np.concatenate([batch["img_ref"], batch["img_left"], batch["img_right"]])
         feats = embed(torch.from_numpy(imgs))
         b = batch["img_ref"].shape[0]
-        preds.extend(choose_2afc(feats[:b], feats[b:2 * b], feats[2 * b:]).tolist())
-        gts.extend(np.asarray(batch["p"]).tolist())
+        preds.extend(choose_2afc(feats[:b], feats[b:2 * b], feats[2 * b:])[keep].tolist())
+        gts.extend(np.asarray(batch["p"])[keep].tolist())
 
-    metrics = compute_metrics(gts, preds)
+    gathered = multihost.gather_metrics({"gt": np.asarray(gts, np.float64),
+                                         "pred": np.asarray(preds, np.float64)})
+    metrics = compute_metrics(gathered["gt"].tolist(), gathered["pred"].tolist())
     logger.info("2AFC acc %.4f f1 %.4f p %.4f r %.4f", metrics["accuracy"],
                 metrics["f1_score"], metrics["precision"], metrics["recall"])
+    if not multihost.is_main_process():  # the CSV is rank 0's
+        return metrics
     os.makedirs(cfg.output_dir, exist_ok=True)
     CSVWriter(os.path.join(cfg.output_dir, "final_results_summary.csv")).append({
         "Time": datetime.now().strftime("%d%m%Y-%H%M"),

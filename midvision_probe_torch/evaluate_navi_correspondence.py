@@ -15,7 +15,9 @@ The path per pair batch: the frozen backbone's dense forward on both views
 features, the xyz grids at ``scale_factor``, bicubic feature upsampling,
 one batched 2-NN search (kernel K4 on a card), the ratio test and top-k,
 then 3D/2D errors. Runs on cuda unless ``system.device`` says otherwise.
-Single process: the multi-host sharding of the JAX driver is not ported.
+Under ``torchrun`` each rank evaluates its shard of the pairs; the error
+rows, without the shards' wrapped repeats, are gathered in rank order
+before the recalls, and rank 0 writes the CSV row.
 """
 
 from __future__ import annotations
@@ -36,6 +38,7 @@ from midvision_probe_torch.evaluators.geometric import (
     rotation_degrees,
 )
 from midvision_probe_torch.evaluators.spair import make_feature_fn
+from midvision_probe_torch.parallel import multihost
 from midvision_probe_torch.utils.logging import setup_logger
 
 
@@ -47,11 +50,12 @@ def run(cfg):
     device = model.device
     feature_fn = make_feature_fn(model)
     loader = build_loader(cfg.dataset, "test", cfg.get("batch_pairs", 4),
-                          pair_dataset=True)
+                          pair_dataset=True, **multihost.process_shard_args())
 
     err_3d, err_2d, valid, rel_ang = [], [], [], []
     sf = cfg.scale_factor
     for batch in loader:
+        keep = batch.pop("_valid", np.ones(len(batch["image_0"]), bool))
         f0 = feature_fn(batch["image_0"])
         f1 = feature_fn(batch["image_1"])
         H, W = batch["xyz_grid_0"].shape[1:3]
@@ -64,13 +68,16 @@ def run(cfg):
             torch.as_tensor(batch["Rt_01"], device=device),
             torch.as_tensor(batch["intrinsics_1"], device=device),
             num_corr=cfg.num_corr)
-        err_3d.append(e3.cpu().numpy())
-        err_2d.append(e2.cpu().numpy())
-        valid.append(ok.cpu().numpy())
-        rel_ang.append(rotation_degrees(batch["Rt_01"]))
+        err_3d.append(e3.cpu().numpy()[keep])
+        err_2d.append(e2.cpu().numpy()[keep])
+        valid.append(ok.cpu().numpy()[keep])
+        rel_ang.append(rotation_degrees(batch["Rt_01"])[keep])
 
-    err_3d, err_2d = np.concatenate(err_3d), np.concatenate(err_2d)
-    valid, rel_ang = np.concatenate(valid), np.concatenate(rel_ang)
+    gathered = multihost.gather_metrics({
+        "err_3d": np.concatenate(err_3d), "err_2d": np.concatenate(err_2d),
+        "valid": np.concatenate(valid), "rel_ang": np.concatenate(rel_ang)})
+    err_3d, err_2d = gathered["err_3d"], gathered["err_2d"]
+    valid, rel_ang = gathered["valid"], gathered["rel_ang"]
     row = recall_row(err_3d, err_2d, valid, rel_ang, [0.01, 0.02, 0.05],
                      [5, 25, 50], logger)
     append_correspondence_csv(cfg, "navi_correspondence_final.csv", model,

@@ -14,6 +14,14 @@ Multiscale use bilinear ``align_corners=False``.
 Module and parameter names mirror the flax tree (``conv_0``,
 ``ref_3.resConfUnit2.conv1``, ``out_conv_0``, ``tap_norm_0``) so
 ``convert.from_jax`` maps the JAX package's probe variables one to one.
+
+``dtype`` (``system.probe_dtype``) follows flax's rule module by module:
+parameters stay float32; each conv casts its input, kernel and bias to
+``dtype`` and adds the bias in ``dtype``; a bilinear resize computes in
+float32 and rounds back to its input's dtype; elementwise ops and the
+depth reduction run in the dtype they are given; a BatchNorm takes its
+statistics in float32 and returns ``dtype``. A tap keeps its incoming
+dtype (a bf16 backbone's or the feature cache's) until the first conv.
 """
 
 from __future__ import annotations
@@ -25,18 +33,56 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from midvision_probe_torch.ops.image import resize
 from midvision_probe_torch.ops.subpixel import NearestUpConv
+from midvision_probe_torch.parallel import multihost
+from midvision_probe_torch.utils.device import resolve_dtype
 
 
-def _conv(cin: int, cout: int, k: int, bias: bool = True) -> nn.Conv2d:
-    return nn.Conv2d(cin, cout, k, padding=k // 2, bias=bias)
+class _Conv(nn.Conv2d):
+    """``nn.Conv2d`` computing in ``dtype`` as flax's ``nn.Conv(dtype=...)``
+    does: input, kernel and bias cast to ``dtype``, and below float32 the
+    bias added after the convolution, in ``dtype`` (a fused bias would
+    round once where flax rounds twice)."""
+
+    def __init__(self, cin: int, cout: int, k: int, bias: bool = True,
+                 dtype=torch.float32):
+        super().__init__(cin, cout, k, padding=k // 2, bias=bias)
+        self.dtype = dtype
+
+    def forward(self, x):
+        d = self.dtype
+        x, w = x.to(d), self.weight.to(d)
+        b = None if self.bias is None else self.bias.to(d)
+        if d == torch.float32 or b is None:
+            return F.conv2d(x, w, b, padding=self.padding)
+        return F.conv2d(x, w, None, padding=self.padding) + b[:, None, None]
+
+
+def _bilinear(x: torch.Tensor, size, align_corners: bool = False) -> torch.Tensor:
+    """NCHW bilinear resize (torch ``F.interpolate`` semantics) computed in
+    float32 and returned in the input's dtype, as the JAX ``resize``."""
+    out = F.interpolate(x.float(), size=tuple(size), mode="bilinear",
+                        align_corners=align_corners)
+    return out.to(x.dtype)
 
 
 def _up(x: torch.Tensor, factor: int, mode: str,
         align_corners: bool | None = None) -> torch.Tensor:
-    """NCHW upsample by an integer factor (torch ``F.interpolate`` semantics)."""
+    """NCHW upsample by an integer factor (torch ``F.interpolate``
+    semantics; bilinear through ``_bilinear``)."""
     size = (x.shape[2] * factor, x.shape[3] * factor)
+    if mode == "bilinear":
+        return _bilinear(x, size, bool(align_corners))
     return F.interpolate(x, size=size, mode=mode, align_corners=align_corners)
+
+
+def _sigmoid(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.sigmoid`` as XLA expands it below float32:
+    ``1 / (1 + exp(-x))``, each op rounded to the input's dtype."""
+    if x.dtype == torch.float32:
+        return torch.sigmoid(x)
+    return 1 / (1 + torch.exp(-x))
 
 
 def _nchw(x: torch.Tensor) -> torch.Tensor:
@@ -50,11 +96,13 @@ def _nhwc(x: torch.Tensor) -> torch.Tensor:
 class _FlaxBatchNorm(nn.Module):
     """BatchNorm over an NHWC map with flax ``nn.BatchNorm`` semantics:
     running stats decay by ``momentum`` (0.9) toward the BIASED batch
-    variance (torch's BatchNorm uses the unbiased one), stats in f32."""
+    variance (torch's BatchNorm uses the unbiased one), stats and the
+    normalisation in f32, the result in ``dtype``."""
 
-    def __init__(self, channels: int, momentum: float = 0.9, eps: float = 1e-5):
+    def __init__(self, channels: int, momentum: float = 0.9, eps: float = 1e-5,
+                 dtype=torch.float32):
         super().__init__()
-        self.momentum, self.eps = momentum, eps
+        self.momentum, self.eps, self.dtype = momentum, eps, dtype
         self.weight = nn.Parameter(torch.ones(channels))
         self.bias = nn.Parameter(torch.zeros(channels))
         self.register_buffer("running_mean", torch.zeros(channels))
@@ -63,9 +111,15 @@ class _FlaxBatchNorm(nn.Module):
     def forward(self, x):
         xf = x.float()
         if self.training:
+            # batch statistics over the global batch: one all-reduce of the
+            # sums under a process group's training step, else local
             dims = tuple(range(xf.ndim - 1))
-            mean = xf.mean(dim=dims)
-            var = ((xf * xf).mean(dim=dims) - mean * mean).clamp_min(0.0)
+            count = xf.new_full((1,), xf.numel() // xf.shape[-1])
+            sums = multihost.batch_stat_sum(
+                torch.cat([xf.sum(dim=dims), (xf * xf).sum(dim=dims), count]))
+            c = xf.shape[-1]
+            mean = sums[:c] / sums[-1]
+            var = (sums[c:2 * c] / sums[-1] - mean * mean).clamp_min(0.0)
             with torch.no_grad():
                 m = self.momentum
                 self.running_mean.mul_(m).add_(mean.detach(), alpha=1 - m)
@@ -73,7 +127,7 @@ class _FlaxBatchNorm(nn.Module):
         else:
             mean, var = self.running_mean, self.running_var
         y = (xf - mean) * (self.weight * torch.rsqrt(var + self.eps)) + self.bias
-        return y.to(x.dtype)
+        return y.to(self.dtype)
 
 
 class TapNorms(nn.Module):
@@ -99,21 +153,22 @@ def _channels(feat_dim) -> list[int]:
 class Linear(nn.Module):
     """Concat multilayer maps -> 4x bilinear upsample -> 1 conv
     (``probes.py:417-432``). Hetero-grid taps are first resized to the last
-    tap's grid; a 1x1 conv runs before the (commuting) upsample."""
+    tap's grid, each in its own dtype (``ops.image.resize`` rounds back to
+    it, as the JAX resize does); a 1x1 conv runs before the (commuting)
+    upsample."""
 
-    def __init__(self, feat_dim, output_dim: int, kernel_size: int = 1):
+    def __init__(self, feat_dim, output_dim: int, kernel_size: int = 1,
+                 dtype=torch.float32):
         super().__init__()
         self.kernel_size = kernel_size
-        self.conv = _conv(sum(_channels(feat_dim)), output_dim, kernel_size)
+        self.conv = _Conv(sum(_channels(feat_dim)), output_dim, kernel_size, dtype=dtype)
 
     def forward(self, feats):
         if isinstance(feats, (list, tuple)):
-            xs = [_nchw(f) for f in feats]
-            hw = xs[-1].shape[2:]
-            xs = [x if x.shape[2:] == hw else
-                  F.interpolate(x, size=hw, mode="bilinear", align_corners=False)
-                  for x in xs]
-            x = torch.cat(xs, dim=1)
+            hw = feats[-1].shape[1:3]
+            feats = [f if f.shape[1:3] == hw else resize(f, size=hw, mode="bilinear")
+                     for f in feats]
+            x = _nchw(torch.cat(feats, dim=-1))
         else:
             x = _nchw(feats)
         if self.kernel_size == 1:
@@ -128,24 +183,23 @@ class MultiscaleHead(nn.Module):
     upsampling (``probes.py:435-458``)."""
 
     def __init__(self, feat_dim, output_dim: int, hidden_dim: int = 512,
-                 kernel_size: int = 1):
+                 kernel_size: int = 1, dtype=torch.float32):
         super().__init__()
         k, hd = kernel_size, hidden_dim
         chans = _channels(feat_dim)
         for i, c in enumerate(chans):
-            self.add_module(f"convs_{i}", _conv(c, hd, k))
+            self.add_module(f"convs_{i}", _Conv(c, hd, k, dtype=dtype))
         self.num_convs = len(chans)
-        self.conv_mid_0 = _conv(hd * len(chans), hd, k)
-        self.conv_mid_1 = _conv(hd, hd, k)
-        self.conv_mid_2 = _conv(hd, hd, k)
-        self.conv_out_0 = _conv(hd, hd, k)
-        self.conv_out_1 = _conv(hd, output_dim, k)
+        self.conv_mid_0 = _Conv(hd * len(chans), hd, k, dtype=dtype)
+        self.conv_mid_1 = _Conv(hd, hd, k, dtype=dtype)
+        self.conv_mid_2 = _Conv(hd, hd, k, dtype=dtype)
+        self.conv_out_0 = _Conv(hd, hd, k, dtype=dtype)
+        self.conv_out_1 = _Conv(hd, output_dim, k, dtype=dtype)
 
     def forward(self, feats):
         xs = [getattr(self, f"convs_{i}")(_nchw(f)) for i, f in enumerate(feats)]
         hw = xs[-1].shape[2:]
-        xs = [F.interpolate(x, size=hw, mode="bilinear", align_corners=False)
-              for x in xs]
+        xs = [_bilinear(x, hw) for x in xs]
         x = F.relu(torch.cat(xs, dim=1))
         x = _up(x, 2, "bilinear", align_corners=False)
         x = F.relu(self.conv_mid_0(x))
@@ -166,7 +220,8 @@ class ResidualConvUnit(nn.Module):
     folded phase conv (3x3 only)."""
 
     def __init__(self, features: int, kernel_size: int = 3,
-                 is_transformer: bool = False, input_up: int = 1):
+                 is_transformer: bool = False, input_up: int = 1,
+                 dtype=torch.float32):
         super().__init__()
         self.is_transformer, self.input_up = is_transformer, input_up
         f, k = features, kernel_size
@@ -175,8 +230,9 @@ class ResidualConvUnit(nn.Module):
                 raise ValueError("the CNN branch takes full-resolution inputs")
             k = 3
         self.fold = is_transformer and input_up > 1 and k == 3
-        self.conv1 = NearestUpConv(f, f, input_up) if self.fold else _conv(f, f, k)
-        self.conv2 = _conv(f, f, k)
+        self.conv1 = (NearestUpConv(f, f, input_up, dtype=dtype) if self.fold
+                      else _Conv(f, f, k, dtype=dtype))
+        self.conv2 = _Conv(f, f, k, dtype=dtype)
 
     def forward(self, x):
         if self.is_transformer:
@@ -199,17 +255,18 @@ class FeatureFusionBlock(nn.Module):
     ``skip_x`` is always full resolution."""
 
     def __init__(self, features: int, kernel_size: int = 3, with_skip: bool = True,
-                 is_transformer: bool = False, input_up: int = 1):
+                 is_transformer: bool = False, input_up: int = 1,
+                 dtype=torch.float32):
         super().__init__()
         self.with_skip, self.is_transformer = with_skip, is_transformer
         if with_skip:
             self.resConfUnit1 = ResidualConvUnit(features, kernel_size,
-                                                 is_transformer, input_up)
+                                                 is_transformer, input_up, dtype)
             self.resConfUnit2 = ResidualConvUnit(features, kernel_size,
-                                                 is_transformer)
+                                                 is_transformer, dtype=dtype)
         else:
             self.resConfUnit2 = ResidualConvUnit(features, kernel_size,
-                                                 is_transformer, input_up)
+                                                 is_transformer, input_up, dtype)
 
     def forward(self, x, skip_x=None):
         if skip_x is not None and self.with_skip:
@@ -232,7 +289,8 @@ class DPT(nn.Module):
     low-channel result instead."""
 
     def __init__(self, feat_dim, output_dim: int, hidden_dim: int = 512,
-                 kernel_size: int = 3, final_resize: bool = True):
+                 kernel_size: int = 3, final_resize: bool = True,
+                 dtype=torch.float32):
         super().__init__()
         self.resnet_mode = _resnet_mode(feat_dim)
         self.final_resize = final_resize
@@ -241,15 +299,16 @@ class DPT(nn.Module):
             raise ValueError(f"DPT needs 4 taps, got {len(chans)}")
         hd, rn = hidden_dim, self.resnet_mode
         for i, c in enumerate(chans):
-            self.add_module(f"conv_{i}", _conv(c, hd, 3, bias=False) if rn
-                            else _conv(c, hd, 1))
+            self.add_module(f"conv_{i}", _Conv(c, hd, 3, bias=False, dtype=dtype) if rn
+                            else _Conv(c, hd, 1, dtype=dtype))
         up = 1 if rn else 2
         for i in range(4):
             self.add_module(f"ref_{i}", FeatureFusionBlock(
                 hd, kernel_size, with_skip=i != 3, is_transformer=not rn,
-                input_up=up))
-        self.out_conv_0 = _conv(hd, hd, 3) if rn else NearestUpConv(hd, hd, 4)
-        self.out_conv_1 = _conv(hd, output_dim, 3)
+                input_up=up, dtype=dtype))
+        self.out_conv_0 = (_Conv(hd, hd, 3, dtype=dtype) if rn
+                           else NearestUpConv(hd, hd, 4, dtype=dtype))
+        self.out_conv_1 = _Conv(hd, output_dim, 3, dtype=dtype)
 
     def forward_nchw(self, feats: Sequence[torch.Tensor]) -> torch.Tensor:
         """NHWC tap maps -> NCHW decoder output."""
@@ -273,14 +332,15 @@ def _resnet_mode(feat_dim) -> bool:
 
 
 def make_decoder(head_type: str, feat_dim, output_dim: int, hidden_dim: int,
-                 kernel_size: int, final_resize: bool = True) -> nn.Module:
+                 kernel_size: int, final_resize: bool = True,
+                 dtype=torch.float32) -> nn.Module:
     if head_type == "linear":
-        return Linear(feat_dim, output_dim, kernel_size)
+        return Linear(feat_dim, output_dim, kernel_size, dtype)
     if head_type == "multiscale":
-        return MultiscaleHead(feat_dim, output_dim, hidden_dim, kernel_size)
+        return MultiscaleHead(feat_dim, output_dim, hidden_dim, kernel_size, dtype)
     if head_type == "dpt":
         return DPT(feat_dim, output_dim, hidden_dim, kernel_size,
-                   final_resize=final_resize)
+                   final_resize=final_resize, dtype=dtype)
     raise ValueError(f"Unknown head type: {head_type}")
 
 
@@ -290,8 +350,9 @@ class DepthHead(nn.Module):
     Returns (B, H, W, 1). For DPT the per-pixel depth reduction runs before
     the decoder's trailing nearest 2x (they commute exactly), so the
     256-channel map is never upsampled. ``dtype`` (``system.probe_dtype``)
-    is the compute dtype the trainer autocasts the probe to; parameters
-    stay float32."""
+    is the compute dtype of every module (module docstring); the bindepth
+    reduction runs in it up to the expectation over the float32 bins, which
+    returns float32, and sigdepth returns ``dtype``, as in the JAX head."""
 
     def __init__(self, feat_dim: Any, head_type: str = "multiscale",
                  min_depth: float = 0.001, max_depth: float = 10.0,
@@ -307,7 +368,8 @@ class DepthHead(nn.Module):
         output_dim = 256 if prediction_type == "bindepth" else 1
         self.defer = head_type == "dpt"
         self.decoder = make_decoder(head_type, feat_dim, output_dim, hidden_dim,
-                                    kernel_size, final_resize=not self.defer)
+                                    kernel_size, final_resize=not self.defer,
+                                    dtype=resolve_dtype(dtype))
         self.register_buffer(
             "bins", torch.linspace(min_depth, max_depth, 256), persistent=False)
 
@@ -320,14 +382,16 @@ class DepthHead(nn.Module):
             x = self.decoder.forward_nchw(feats)
         else:
             x = _nchw(self.decoder(feats))
-        x = x.float()
+        # a Python constant is rounded to x's dtype first, as JAX's weakly
+        # typed scalars are
         if self.prediction_type == "bindepth":
-            prob = F.relu(x) + 0.1
+            prob = F.relu(x) + x.new_tensor(0.1)
             prob = prob / prob.sum(dim=1, keepdim=True)
-            depth = torch.einsum("bkhw,k->bhw", prob, self.bins)[:, None]
+            depth = torch.einsum("bkhw,k->bhw", prob.float(), self.bins)[:, None]
         else:
-            depth = torch.sigmoid(x)
-            depth = self.min_depth + depth * (self.max_depth - self.min_depth)
+            depth = _sigmoid(x)
+            depth = (x.new_tensor(self.min_depth)
+                     + depth * x.new_tensor(self.max_depth - self.min_depth))
         if self.defer:
             depth = _up(depth, 2, "nearest")
         return _nhwc(depth)
@@ -346,7 +410,7 @@ class SurfaceNormalHead(nn.Module):
         self.uncertainty_aware = uncertainty_aware
         self.dtype = dtype
         self.decoder = make_decoder(head_type, feat_dim, 4 if uncertainty_aware else 3,
-                                    hidden_dim, kernel_size)
+                                    hidden_dim, kernel_size, dtype=resolve_dtype(dtype))
 
     @property
     def name_tag(self) -> str:
@@ -375,14 +439,14 @@ class _SigmoidHead(nn.Module):
         self.pred_type = pred_type
         self.dtype = dtype
         self.decoder = make_decoder(head_type, feat_dim, output_dim, hidden_dim,
-                                    kernel_size)
+                                    kernel_size, dtype=resolve_dtype(dtype))
         if pred_type == "sigmoid":
-            self.batch_norm = _FlaxBatchNorm(output_dim)
+            self.batch_norm = _FlaxBatchNorm(output_dim, dtype=resolve_dtype(dtype))
 
     def forward(self, feats):
         x = self.decoder(feats)
         if self.pred_type == "sigmoid":
-            return torch.sigmoid(self.batch_norm(x))
+            return _sigmoid(self.batch_norm(x))
         if self.pred_type == "tanh":
             return torch.tanh(x)
         return x

@@ -39,14 +39,19 @@ _PAD = {"L": (1, 0), "S": (0, 0), "R": (0, 1)}
 
 
 def conv3x3_after_nearest_up(x: torch.Tensor, weight: torch.Tensor,
-                             bias: torch.Tensor | None, up: int) -> torch.Tensor:
+                             bias: torch.Tensor | None, up: int,
+                             dtype: torch.dtype | None = None) -> torch.Tensor:
     """``conv3x3(nearest_up(x, up), weight, padding=1) + bias`` computed at
     base resolution. x (B, Cin, H, W); weight (Cout, Cin, 3, 3); returns
-    (B, Cout, up*H, up*W). Phase kernels are summed in the weight's dtype,
-    then cast to the input's."""
+    (B, Cout, up*H, up*W). ``dtype`` (default: the input's) is the compute
+    dtype, as in the JAX function: the input is cast to it, the phase
+    kernels are summed in the weight's dtype and then cast to it, and the
+    bias is added in it."""
     if up < 2 or tuple(weight.shape[2:]) != (3, 3):
         raise ValueError(f"needs up >= 2 and a 3x3 kernel, got {up}, "
                          f"{tuple(weight.shape)}")
+    if dtype is not None:
+        x = x.to(dtype)
     B, _, H, W = x.shape
     out = {}
     for rname, rk in zip("LSR", _collapse(weight, 2)):
@@ -69,14 +74,16 @@ def conv3x3_after_nearest_up(x: torch.Tensor, weight: torch.Tensor,
 
 class NearestUpConv(nn.Module):
     """Drop-in for ``nearest_up(x, up)`` followed by ``nn.Conv2d(cin, cout,
-    3, padding=1)``: same parameters (``weight``, ``bias``), exact math."""
+    3, padding=1)``: same parameters (``weight``, ``bias``), exact math,
+    computed in ``dtype`` (the JAX module's ``dtype``, default float32)."""
 
-    def __init__(self, in_channels: int, out_channels: int, up: int):
+    def __init__(self, in_channels: int, out_channels: int, up: int,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.up = up
+        self.up, self.dtype = up, dtype
         self.weight = nn.Parameter(torch.empty(out_channels, in_channels, 3, 3))
         self.bias = nn.Parameter(torch.zeros(out_channels))
         nn.init.kaiming_uniform_(self.weight, a=math.sqrt(5))
 
     def forward(self, x):
-        return conv3x3_after_nearest_up(x, self.weight, self.bias, self.up)
+        return conv3x3_after_nearest_up(x, self.weight, self.bias, self.up, self.dtype)

@@ -17,8 +17,11 @@ the points, one batched 2-NN search (kernel K4 on a card), the ratio test
 and top-k, then 3D/2D errors. Every ``render_every``-th pair (default
 10; 0 renders none) gets the qualitative renders of its real matches and
 their error counts under ``instance_{idx}/`` (``utils/reporting.py``).
-Runs on cuda unless ``system.device`` says otherwise. Single process: the
-multi-host sharding of the JAX driver is not ported.
+Runs on cuda unless ``system.device`` says otherwise. Under ``torchrun``
+each rank evaluates (and renders, at its own ``render_every`` cadence) its
+shard of the pairs; the error rows, without the shards' wrapped repeats,
+are gathered in rank order before the recalls, and rank 0 writes the CSV
+row.
 """
 
 from __future__ import annotations
@@ -42,6 +45,7 @@ from midvision_probe_torch.evaluators.geometric import (
     scannet_batch_errors,
 )
 from midvision_probe_torch.evaluators.spair import make_feature_fn
+from midvision_probe_torch.parallel import multihost
 from midvision_probe_torch.utils.logging import setup_logger
 from midvision_probe_torch.utils.reporting import (
     save_correspondence_json,
@@ -64,7 +68,7 @@ def run(cfg):
 
         dataset = ScanNetPairsDataset(root=cfg.get("scannet_root",
                                                    "data/scannet_test_1500"))
-    loader = Loader(dataset, cfg.get("batch_pairs", 4))
+    loader = Loader(dataset, cfg.get("batch_pairs", 4), **multihost.process_shard_args())
 
     sf = cfg.scale_factor
     render_every = int(cfg.get("render_every", 10))
@@ -75,6 +79,7 @@ def run(cfg):
     err_3d, err_2d, valid, rel_ang = [], [], [], []
     seen = 0
     for batch in loader:
+        keep = batch.pop("_valid", np.ones(len(batch["rgb_0"]), bool))
         f0 = feature_fn(batch["rgb_0"])
         f1 = feature_fn(batch["rgb_1"])
         hw = (int(batch["depth_0"].shape[1] * sf), int(batch["depth_0"].shape[2] * sf))
@@ -89,15 +94,15 @@ def run(cfg):
             num_corr=cfg.num_corr)
         e3, e2, ok = e3.cpu().numpy(), e2.cpu().numpy(), ok.cpu().numpy()
         ang = rotation_degrees(Rt_01)
-        err_3d.append(e3)
-        err_2d.append(e2)
-        valid.append(ok)
-        rel_ang.append(ang)
+        err_3d.append(e3[keep])
+        err_2d.append(e2[keep])
+        valid.append(ok[keep])
+        rel_ang.append(ang[keep])
 
         # every render_every-th pair, counted across batches: its real
         # matches only, at the views' own resolution
-        for b in range(len(ok)):
-            idx = seen + b
+        for j, b in enumerate(np.flatnonzero(keep)):
+            idx = seen + j
             if render_every <= 0 or idx % render_every:
                 continue
             inst_dir = os.path.join(render_dir, f"instance_{idx}")
@@ -107,10 +112,13 @@ def run(cfg):
                 uv0[b].cpu().numpy()[sel] / sf, uv1[b].cpu().numpy()[sel] / sf,
                 e2[b][sel], inst_dir)
             save_correspondence_json(e2[b][sel], e3[b][sel], ang[b], inst_dir)
-        seen += len(ok)
+        seen += int(keep.sum())
 
-    err_3d, err_2d = np.concatenate(err_3d), np.concatenate(err_2d)
-    valid, rel_ang = np.concatenate(valid), np.concatenate(rel_ang)
+    gathered = multihost.gather_metrics({
+        "err_3d": np.concatenate(err_3d), "err_2d": np.concatenate(err_2d),
+        "valid": np.concatenate(valid), "rel_ang": np.concatenate(rel_ang)})
+    err_3d, err_2d = gathered["err_3d"], gathered["err_2d"]
+    valid, rel_ang = gathered["valid"], gathered["rel_ang"]
     row = recall_row(err_3d, err_2d, valid, rel_ang,
                      [0.01, 0.02, 0.05, 0.1, 0.2, 0.3, 0.4, 0.5],
                      [1, 2, 5, 15, 25, 35, 50], logger)

@@ -19,6 +19,12 @@ set. Runs on cuda unless ``system.device`` says otherwise.
 ``system.cache_features`` reuses each training batch's bf16 features
 across epochs, under ``$MVP_FEATURE_CACHE_DEVICE_GB`` on the device and
 ``$MVP_FEATURE_CACHE_GB`` on the host (``engine/probe_fit.py``).
+
+Under ``torchrun`` (``torchrun --nproc_per_node=N -m
+midvision_probe_torch.train_depth ...``) each rank trains on its shard of
+the batches, the step being the one of the global batch
+(``engine/probe_fit.py``); the metrics and the segment rows are gathered
+over the ranks, and rank 0 writes the CSV row and the scatter.
 """
 
 from __future__ import annotations
@@ -41,6 +47,7 @@ from midvision_probe_torch.engine.driver_common import (
     setup_experiment,
 )
 from midvision_probe_torch.ops.image import resize
+from midvision_probe_torch.parallel import multihost
 from midvision_probe_torch.utils.losses import depth_loss
 from midvision_probe_torch.utils.metrics import evaluate_depth, segment_metrics_depth
 from midvision_probe_torch.utils.reporting import (
@@ -48,6 +55,8 @@ from midvision_probe_torch.utils.reporting import (
     plot_segment_area_vs_d1,
     save_images_to_png,
 )
+
+SEGMENT_KEYS = ("segment_id", "image_idx", "area", "d1_ratio")
 
 
 def run(cfg):
@@ -126,17 +135,26 @@ def run(cfg):
                                task="depth", is_navi=is_navi)
     seg_rows = []
     for i, batch in enumerate(test_loader):
+        # a shard's wrapped repeats are dropped, as validate drops them
+        valid = batch.pop("_valid", None)
         has_seg = "segmentation" in batch
         if not has_seg and not (render_images and i < 6):
             break
-        pred_r = predict_resized(batch).cpu().numpy()
+        pred_r = predict_resized(batch).float().cpu().numpy()
+        if valid is not None:
+            batch = {k: (v[valid] if isinstance(v, np.ndarray) else v)
+                     for k, v in batch.items()}
+            pred_r = pred_r[valid]
         if has_seg:
             seg_rows += segment_metrics_depth(pred_r, batch["depth"], batch["segmentation"])
         if render_images and i < 6:
             save_images_to_png(pred_r, batch["depth"], batch.get("segmentation"),
                                batch_idx=i, task="depth", save_dir=val_dir,
                                is_navi=is_navi)
-    if seg_rows:
+    # every rank's segments, in rank order; the scatter is rank 0's (the
+    # per-image dumps above stay per rank, each of its own shard)
+    seg_rows = multihost.gather_rows(seg_rows, SEGMENT_KEYS)
+    if seg_rows and multihost.is_main_process():
         plot = plot_segment_area_vs_d1(seg_rows, output_dir=os.path.join(exp_dir, "plots"))
         logger.info("segment-area scatter: %s (%d segments)", plot, len(seg_rows))
 

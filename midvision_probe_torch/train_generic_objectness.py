@@ -14,8 +14,10 @@ the 80/20 split of trainval by ``RandomState(42)`` (the reference's
 ``:503-512``), the bilinear resize of the prediction to the mask's size
 (``:407``), the 0.5 binarization, and per-sample metric rows averaged over
 the validation set, written to ``final_results_summary_<dataset>.csv``.
-Single process, so the JAX driver's shard arguments are the identity. Runs
-on cuda unless ``system.device`` says otherwise. ``system.cache_features``
+Under ``torchrun`` both splits are sharded over the ranks, the step is the
+global batch's (the head's BatchNorm statistics included), the per-sample
+rows are gathered in rank order and rank 0 writes the CSV row. Runs on
+cuda unless ``system.device`` says otherwise. ``system.cache_features``
 reuses each training batch's bf16 features across epochs
 (``engine/probe_fit.py``).
 """
@@ -41,6 +43,7 @@ from midvision_probe_torch.engine.driver_common import (
     setup_experiment,
 )
 from midvision_probe_torch.ops.image import resize
+from midvision_probe_torch.parallel import multihost
 from midvision_probe_torch.utils.losses import binary_cross_entropy
 from midvision_probe_torch.utils.objectness import evaluate_binary_masks
 
@@ -74,10 +77,12 @@ def run(cfg):
     n_train = int(0.8 * n)
     # the feature cache fixes each batch's composition and permutes the
     # batches' order per epoch (cache_shuffle_kwargs)
+    # the random-split subsets take this rank's shard directly
+    shard = multihost.process_shard_args()
     train_loader = Loader(_Subset(full.dataset, perm[:n_train]), cfg.batch_size,
-                          drop_last=True, seed=cfg.system.get("random_seed", 8),
+                          drop_last=True, seed=cfg.system.get("random_seed", 8), **shard,
                           **(cache_shuffle_kwargs(cfg) or {"shuffle": True}))
-    val_loader = Loader(_Subset(full.dataset, perm[n_train:]), cfg.batch_size)
+    val_loader = Loader(_Subset(full.dataset, perm[n_train:]), cfg.batch_size, **shard)
 
     probe = instantiate(cfg.probe, feat_dim=backbone.feat_dim, **probe_dtype_kwargs(cfg))
     exp_name, exp_dir, logger, wandb = setup_experiment(
@@ -100,13 +105,21 @@ def run(cfg):
             raise FileNotFoundError(f"no checkpoint under {ckpt}")
         trainer.load_state_dict(restored[0])
 
-    # per-sample rows, then their mean (a short last batch weighs by its size)
+    # per-sample rows, gathered over the ranks in rank order, then their
+    # mean (a short last batch weighs by its size)
     rows = []
     for batch in val_loader:
+        valid = batch.pop("_valid", None)  # a shard's wrapped repeats
         mask = batch["mask"]
         pred = resize(trainer.predict(batch), mask.shape[1:3], mode="bilinear")
-        m = evaluate_binary_masks(pred.cpu().numpy(), mask, reduce=False)
+        pred = pred.float().cpu().numpy()
+        if valid is not None:
+            pred, mask = pred[valid], mask[valid]
+            if not len(mask):
+                continue
+        m = evaluate_binary_masks(pred, mask, reduce=False)
         rows.extend({k: m[k][j] for k in METRIC_KEYS} for j in range(len(m["F-measure"])))
+    rows = multihost.gather_rows(rows, METRIC_KEYS)
     row = {k: float(np.mean([r[k] for r in rows])) for k in METRIC_KEYS}
     logger.info("objectness F %.4f IoU %.4f Acc %.4f CorLoc %.4f",
                 row["F-measure"], row["IoU"], row["Accuracy"], row["CorLoc"])

@@ -19,7 +19,10 @@ the first test batch's normal maps under ``val_images/``, and the
 segment-area-vs-d1 scatter under ``plots/`` over the whole test set. Runs
 on cuda unless ``system.device`` says otherwise. ``system.cache_features``
 reuses each training batch's bf16 features across epochs
-(``engine/probe_fit.py``).
+(``engine/probe_fit.py``). Under ``torchrun`` each rank trains on its
+shard, the step being the global batch's; the metrics and the segment
+rows are gathered over the ranks, and rank 0 writes the CSV row and the
+scatter.
 """
 
 from __future__ import annotations
@@ -42,6 +45,7 @@ from midvision_probe_torch.engine.driver_common import (
     setup_experiment,
 )
 from midvision_probe_torch.ops.image import resize
+from midvision_probe_torch.parallel import multihost
 from midvision_probe_torch.utils.losses import angular_loss
 from midvision_probe_torch.utils.metrics import evaluate_surface_norm, segment_metrics_snorm
 from midvision_probe_torch.utils.reporting import log_first_batch_images, plot_segment_area_vs_d1
@@ -111,13 +115,18 @@ def run(cfg):
     # per-segment d1 over the full validation set
     seg_rows = []
     for batch in test_loader:
+        valid = batch.pop("_valid", None)  # a shard's wrapped repeats
         if "segmentation" not in batch:
             break
-        target = batch["snorm"]
-        pred_r = predict_resized(trainer.predict(batch), target)
-        seg_rows += segment_metrics_snorm(pred_r.cpu().numpy(), target,
-                                          batch["segmentation"])
-    if seg_rows:
+        target, seg = batch["snorm"], batch["segmentation"]
+        pred_r = predict_resized(trainer.predict(batch), target).float().cpu().numpy()
+        if valid is not None:
+            pred_r, target, seg = pred_r[valid], target[valid], seg[valid]
+        seg_rows += segment_metrics_snorm(pred_r, target, seg)
+    # every rank's segments, in rank order; the scatter is rank 0's
+    seg_rows = multihost.gather_rows(seg_rows, ("segment_id", "image_idx", "area",
+                                                "d1_ratio"))
+    if seg_rows and multihost.is_main_process():
         plot = plot_segment_area_vs_d1(seg_rows, output_dir=os.path.join(exp_dir, "plots"))
         logger.info("segment-area scatter: %s (%d segments)", plot, len(seg_rows))
 

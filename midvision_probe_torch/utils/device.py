@@ -8,14 +8,21 @@ to the CPU on its own.
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 
 
 def resolve_device(device=None) -> torch.device:
+    """``device``, or by default the card: ``cuda`` in one process and,
+    under a process group, the card the rank is bound to
+    (``torch.cuda.current_device()``, which ``multihost.initialize`` sets
+    to ``cuda:{LOCAL_RANK}``)."""
     if device is None:
         if not torch.cuda.is_available():
             raise RuntimeError(
                 "CUDA is not available: the port runs on a GPU by default; "
                 "pass device='cpu' (or +system.device=cpu) to run on the CPU")
+        if dist.is_available() and dist.is_initialized():
+            return torch.device("cuda", torch.cuda.current_device())
         return torch.device("cuda")
     return torch.device(device)
 

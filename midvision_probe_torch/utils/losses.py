@@ -9,7 +9,16 @@ indexing, as in the JAX package. Kept from there:
   strided, which is the intended multi-scale spatial loss;
 * the NaN guards at depth holes: both the target and the prediction are
   replaced by 1 where the target is invalid before the log, so a negative
-  prediction at a hole cannot produce NaN (NaN * 0 is NaN).
+  prediction at a hole cannot produce NaN (NaN * 0 is NaN);
+* the dtypes: a bf16 prediction stays bf16 until it meets a float32
+  target, and a Python constant added to it is rounded to bf16 first, as
+  JAX's weakly typed scalars are.
+
+Every sum or count over the batch goes through ``multihost.batch_sum``:
+inside a multi-process training step (``multihost.global_batch``) it sums
+over the ranks, so each loss is the JAX loss of the global batch, its
+normalisations by global valid-pixel counts included; elsewhere it is the
+identity. Several sums of one loss travel in one all-reduce.
 """
 
 from __future__ import annotations
@@ -19,18 +28,26 @@ import math
 import torch
 import torch.nn.functional as F
 
+from midvision_probe_torch.parallel.multihost import batch_sum
+
+
+def _sums(*terms: torch.Tensor) -> tuple[torch.Tensor, ...]:
+    """Batch sums of float32 scalars, over the ranks in a global step."""
+    return tuple(batch_sum(torch.stack(terms)).unbind())
+
 
 def _masked_mean(x, mask):
     """Mean of ``x`` over the pixels where ``mask`` is 1 (no fewer than one
     in the denominator)."""
-    return (x * mask).sum() / mask.sum().clamp_min(1.0)
+    total, n = _sums((x * mask).sum(), mask.sum())
+    return total / n.clamp_min(1.0)
 
 
 def _cosine_similarity(a, b, dim=-1, eps=1e-8):
     """``torch.cosine_similarity`` as the JAX package writes it: each norm
     clamped to ``eps`` on its own."""
-    na = torch.linalg.vector_norm(a, dim=dim)
-    nb = torch.linalg.vector_norm(b, dim=dim)
+    na = torch.sqrt((a * a).sum(dim))  # jnp.linalg.norm's order, in the input's dtype
+    nb = torch.sqrt((b * b).sum(dim))
     return (a * b).sum(dim) / (na.clamp_min(eps) * nb.clamp_min(eps))
 
 
@@ -39,10 +56,11 @@ def sig_loss(depth_pr, depth_gt, sigma=0.85, eps=0.001):
     valid = (depth_gt > 0).float()
     gt_safe = torch.where(depth_gt > 0, depth_gt, torch.ones_like(depth_gt))
     pr_safe = torch.where(depth_gt > 0, depth_pr, torch.ones_like(depth_pr))
-    g = (torch.log(pr_safe + eps) - torch.log(gt_safe + eps)) * valid
-    n = valid.sum().clamp_min(1)
-    mean_g2 = (g**2).sum() / n
-    mean_g = g.sum() / n
+    g = (torch.log(pr_safe + pr_safe.new_tensor(eps)) - torch.log(gt_safe + eps)) * valid
+    n, sum_g2, sum_g = _sums(valid.sum(), (g**2).sum(), g.sum())
+    n = n.clamp_min(1)
+    mean_g2 = sum_g2 / n
+    mean_g = sum_g / n
     return torch.sqrt(mean_g2 - sigma * mean_g**2)
 
 
@@ -56,15 +74,17 @@ def gradient_loss(depth_pr, depth_gt, eps=0.001):
         pr = depth_pr[:, ::s, ::s]
         gt = depth_gt[:, ::s, ::s]
         valid = (gt > 0).float()
-        n = valid.sum().clamp_min(1)
         gt_safe = torch.where(gt > 0, gt, torch.ones_like(gt))
         pr_safe = torch.where(gt > 0, pr, torch.ones_like(pr))
-        diff = (torch.log(pr_safe + eps) - torch.log(gt_safe + eps)) * valid
+        diff = (torch.log(pr_safe + pr_safe.new_tensor(eps))
+                - torch.log(gt_safe + eps)) * valid
         v_grad = (diff[:, :-2, :] - diff[:, 2:, :]).abs()
         v_valid = valid[:, :-2, :] * valid[:, 2:, :]
         h_grad = (diff[:, :, :-2] - diff[:, :, 2:]).abs()
         h_valid = valid[:, :, :-2] * valid[:, :, 2:]
-        total = total + ((h_grad * h_valid).sum() + (v_grad * v_valid).sum()) / n
+        n, grad_sum = _sums(valid.sum(),
+                            (h_grad * h_valid).sum() + (v_grad * v_valid).sum())
+        total = total + grad_sum / n.clamp_min(1)
     return total
 
 
@@ -86,8 +106,10 @@ def angular_loss(snorm_pr, snorm_gt, mask, uncertainty_aware=False, eps=1e-4):
     ang = torch.arccos(torch.clamp(_cosine_similarity(snorm_pr[..., :3], snorm_gt),
                                    -1 + eps, 1 - eps))
     if uncertainty_aware:
-        kappa = F.elu(snorm_pr[..., 3]) + 1.01
-        kappa_reg = torch.log1p(torch.exp(-kappa * math.pi)) - torch.log(kappa**2 + 1)
+        kappa = F.elu(snorm_pr[..., 3])
+        kappa = kappa + kappa.new_tensor(1.01)
+        kappa_reg = (torch.log1p(torch.exp(-kappa * kappa.new_tensor(math.pi)))
+                     - torch.log(kappa**2 + 1))
         ang = kappa_reg + kappa * ang
     return _masked_mean(ang, m)
 
@@ -102,7 +124,9 @@ def binary_cross_entropy(pred, target, eps=1e-7):
     """torch ``nn.BCELoss`` on ``pred`` clipped to [eps, 1 - eps] (the
     objectness trainer, ``train_generic_objectness.py:575``)."""
     pred = pred.clamp(eps, 1 - eps)
-    return -(target * torch.log(pred) + (1 - target) * torch.log1p(-pred)).mean()
+    ll = target * torch.log(pred) + (1 - target) * torch.log1p(-pred)
+    total, n = _sums(ll.sum(), ll.new_tensor(float(ll.numel())))
+    return -(total / n)
 
 
 def masked_l1_loss(preds, target, mask_valid=None):
@@ -113,7 +137,10 @@ def masked_l1_loss(preds, target, mask_valid=None):
     if preds.shape[-1] != mask_valid.shape[-1]:
         mask_valid = mask_valid.repeat_interleave(preds.shape[-1], dim=-1)
     m = mask_valid.to(preds.dtype)
-    return ((preds - target).abs() * m).sum() / m.sum().clamp_min(1)
+    err = (preds - target).abs() * m
+    # each sum as JAX has it: accumulated in float32, rounded to its dtype
+    total, n = _sums(err.sum(dtype=torch.float32), m.sum(dtype=torch.float32))
+    return total.to(err.dtype) / n.to(m.dtype).clamp_min(1)
 
 
 def _gaussian_window(window_size: int, sigma: float) -> torch.Tensor:

@@ -148,3 +148,55 @@ def test_attention_bench_raises_without_a_device_on_a_cpu_only_host(monkeypatch,
         bench_attn.main(["--batch", "1", "--n-valid", "10", "--heads", "1",
                          "--variants", "base"])
     assert capsys.readouterr().out == ""  # nothing ran on the CPU
+
+
+NEW_MODULES = ["midvision_probe_torch.parallel", "midvision_probe_torch.parallel.mesh",
+               "midvision_probe_torch.parallel.multihost",
+               "midvision_probe_torch.parallel.pipeline",
+               "midvision_probe_torch.utils.profiling", "midvision_probe_torch.compat"]
+
+
+def test_parallel_profiling_and_compat_import_neither_jax_nor_the_jax_package():
+    """The multi-process, profiling and ``evals.*`` modules, each imported
+    alone in a fresh interpreter."""
+    code = (
+        "import importlib, sys\n"
+        f"sys.path.insert(0, {str(ROOT)!r})\n"
+        f"for m in {NEW_MODULES!r}:\n"
+        "    importlib.import_module(m)\n"
+        f"bad = sorted(m for m in sys.modules if m.split('.')[0] in"
+        f" ('jax', 'flax', 'optax', {JAX_PKG!r}))\n"
+        "print('BAD', bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", code], cwd=str(ROOT), env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_a_driver_under_a_one_rank_torchrun_env_raises_on_a_cpu_only_host(
+        monkeypatch, tmp_path):
+    """``torchrun --nproc_per_node=1`` on a host without a card and without
+    ``+system.device=cpu``: the driver raises before it joins a group; it
+    never falls back to gloo on the CPU."""
+    import torch.distributed as dist
+
+    from midvision_probe_torch import train_depth
+    from midvision_probe_torch.parallel import multihost
+
+    for name, value in (("MASTER_ADDR", "localhost"), ("MASTER_PORT", "29531"),
+                        ("WORLD_SIZE", "1"), ("RANK", "0"), ("LOCAL_RANK", "0")):
+        monkeypatch.setenv(name, value)
+    monkeypatch.setattr(multihost, "_initialized", False)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+    def no_group(*args, **kwargs):
+        raise AssertionError("joined a process group on the CPU")
+
+    monkeypatch.setattr(dist, "init_process_group", no_group)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        train_depth.entry(["backbone=test_tiny", "dataset=synthetic", "probe=depth_linear",
+                           "+render_images=False", f"output_dir={tmp_path}"])
+    assert not dist.is_initialized()
+    assert not list(tmp_path.iterdir())  # nothing ran on the CPU
