@@ -235,6 +235,29 @@ JSON line per phase and fails on the first failing phase:
 10g. ``extract_kqv``: ``FeatureExtractor.extract_kqv`` on dino_vitb16 at
    480x640, bf16, batch 8, ``k`` and ``kqv`` against a plain recompute of
    block 11's projection, K1 12 a call on ``wgmma``.
+10h. ``path_suite``: the port's full-suite runner
+   (``midvision_probe_torch.launch.suite_run``) on dino_b16 over the six
+   default tasks at the plan's own sizes and the two-phase ``depth_dpt192``
+   preset cell, 7 driver processes sharing a fresh synthetic-set disk tier,
+   then ``launch.aggregate_results`` over the CSV archive: every cell's rc
+   and wall, each task's total, one CSV row a cell, a ranking table a task,
+   the disk tier's files read back by the cells after depth (none
+   rewritten) and its saving; the depth and NAVI cells replayed in this
+   process with the launch counts reset (K1 on ``wgmma`` and on
+   ``tf32x3``, K4), each replay's CSV row equal to its cell's.
+10i. ``instance_masks``: ``midvision_probe_torch.data_processing.
+   extract_instance_masks`` over 4 fabricated VOC frames with the
+   fabricated ``dino_vitb16.pth`` at ``--fixed-size 480 --num-masks 3``:
+   one npz an image with 1-3 masks at the image's size, ``index.csv``, K1
+   12 an image on ``tf32x3``, the host seconds by stage and the CRF's
+   share.
+10j. ``checkpoint_drill``: the weights-landing drill
+   (``midvision_probe_torch.data_processing.convert_checkpoints --all``)
+   over fabricated full-size DINO B/16, CLIP B/16, SAM-B and ConvNeXt-B
+   files: 4 present and none failed, each golden held at 2e-3 to its
+   independent CPU replica (``data_processing/torch_replicas.py``; SAM's is
+   ``transformers``' model, reported as having no oracle on a host without
+   it), dino_vitb16's reading, K1 12 a forward of the ViTs on ``tf32x3``.
 11. ``bench_attn``: the attention bench through its entry point
    (``midvision_probe_torch.bench_attn.main``) with every variant (``base``
    K1, ``wide4``/``stagger4``/``wide12`` K7, ``int8`` K8, ``splash`` K9):
@@ -257,6 +280,7 @@ attention check records the route that ran and fails if it is not the one
 from __future__ import annotations
 
 import contextlib
+import glob
 import importlib.util
 import json
 import math
@@ -3206,6 +3230,371 @@ def phase_profiling(torch, smi: str) -> dict:
     return counts
 
 
+# ---------------------------------------------------------------- the suite
+# simclr_resnet50 beside it took the new phases to ~420 s on the card (PR
+# 17's first call), over the ~300 s they may add: the suite runs every
+# task on one backbone
+SUITE_MODELS = ("dino_b16",)
+SUITE_TASKS = ("depth", "snorm", "navi", "scannet", "spair", "percepture")
+# the two cells replayed in this process with the launch counts reset
+SUITE_REPLAYS = (("depth", "dino_b16", "train_depth"),
+                 ("navi", "dino_b16", "evaluate_navi_correspondence"))
+
+
+@contextlib.contextmanager
+def fresh_process_flags(torch):
+    """torch's default backend flags (those of a fresh driver process) for
+    an in-process replay of a suite cell, restored on exit."""
+    saved = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32,
+             torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+    (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32,
+     torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark) = (False, True,
+                                                                           False, False)
+    try:
+        yield
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32,
+         torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark) = saved
+
+
+def disk_tier_state(root: str) -> dict:
+    """Each file of the synthetic sets' disk tier by (inode, mtime): a miss
+    stores its item again through ``os.replace``, a new inode."""
+    if not os.path.isdir(root):
+        return {}
+    return {f: (os.stat(os.path.join(root, f)).st_ino,
+                os.stat(os.path.join(root, f)).st_mtime_ns) for f in os.listdir(root)}
+
+
+def task_csv_rows(out_root: str, task: str) -> list:
+    """The rows of the task's CSVs in the suite's output tree (SPair: its
+    ``all`` rows, one a cell)."""
+    import csv
+
+    rows = []
+    for path in sorted(glob.glob(os.path.join(out_root, task, "*.csv"))):
+        with open(path, newline="") as f:
+            rows += list(csv.DictReader(f))
+    if rows and "Class" in rows[0]:
+        rows = [r for r in rows if r["Class"] == "all"]
+    return rows
+
+
+def row_of(rows: list, model_key: str) -> dict | None:
+    """The row whose checkpoint column names the suite's ``model_key``
+    (``dino_b16`` -> ``dino_vitb16``)."""
+    from midvision_probe_torch.launch.aggregate_results import _model_of, _names_match
+
+    found = [r for r in rows if _names_match(_model_of(r) or "", model_key)]
+    return found[-1] if found else None
+
+
+def table_backbones(markdown: str, task: str) -> list:
+    """The backbone column of the ranking table ``## <task> (...)``."""
+    lines = markdown.splitlines()
+    start = next((i for i, ln in enumerate(lines) if ln.startswith(f"## {task} (")), None)
+    if start is None:
+        return []
+    names = []
+    for ln in lines[start + 4:]:
+        if not ln.startswith("| "):
+            break
+        names.append(ln.split("|")[1].strip())
+    return names
+
+
+def phase_path_suite(torch, smi: str) -> dict:
+    """The port's full-suite runner (``launch/suite_run.py``) on the card:
+    ``--models dino_b16`` x the six default tasks at the plan's own sizes
+    (first ``--tasks depth``, then the other five through the runner's
+    resume), then ``--tasks depth_dpt192`` (the two-phase preset cell: train
+    at 192², reload the checkpoint, evaluate at 480²), 7 driver processes
+    with a fresh ``$MVP_SYNTH_DISK_CACHE``; then
+    ``launch/aggregate_results.py`` over the CSV archive. The depth and NAVI
+    cells are replayed in this process with the launch counts reset, and
+    each replay's CSV row is held to its cell's. Gates: every cell rc 0, one
+    CSV row a cell, a ranking table for each task listing the backbone, the
+    snorm cell reading every item the depth cell wrote (no disk-tier file
+    rewritten by the later cells), the NAVI replay's row equal to its
+    cell's to the last digit (every column but the time stamp), the depth
+    replay's within 1e-3 relative (its bit equality reported: the cause of
+    a difference is at the gate) and K1 (and K4 for NAVI) launched.
+    Returns the replays' launch counts by path."""
+    from midvision_probe_torch import evaluate_navi_correspondence, train_depth
+    from midvision_probe_torch.datasets.synthetic import SyntheticDepth
+    from midvision_probe_torch.launch import aggregate_results, suite_run
+
+    root = tempfile.mkdtemp(prefix="mvp_chip_smoke_suite_")
+    synth = os.path.join(root, "synth_cache")
+    log_dir, out_root = os.path.join(root, "logs"), os.path.join(root, "out")
+    common = ["--log-dir", log_dir, "--out", os.path.join(log_dir, "suite_run.md"),
+              "--suite-out", out_root]
+    runs, tier = [], {}
+    counts_by_path, replays = {}, {}
+    try:
+        with env_vars(MVP_SYNTH_DISK_CACHE=synth, MVP_CHECKPOINT_DIR=None):
+            for argv in (["--tasks", "depth", "--models", *SUITE_MODELS],
+                         ["--models", *SUITE_MODELS],
+                         ["--tasks", "depth_dpt192", "--models", *SUITE_MODELS]):
+                before = disk_tier_state(synth)
+                t0 = time.perf_counter()
+                rc = suite_run.main(argv + common)
+                runs.append({"argv": argv, "rc": rc, "wall_s": time.perf_counter() - t0})
+                after = disk_tier_state(synth)
+                tier[" ".join(argv)] = {
+                    "files_before": len(before), "files_after": len(after),
+                    "unchanged": sum(1 for f, v in before.items() if after.get(f) == v),
+                    "rewritten": sum(1 for f, v in before.items()
+                                     if f in after and after[f] != v)}
+            with open(os.path.join(log_dir, "suite_rows.json")) as f:
+                rows = json.load(f)
+            agg_md = os.path.join(root, "results_tables.md")
+            agg_rc = aggregate_results.main(["--csv-dir", os.path.join(log_dir, "csv"),
+                                             "--out", agg_md])
+            with open(agg_md) as f:
+                tables = f.read()
+            csv_rows = {t: task_csv_rows(out_root, t) for t in SUITE_TASKS + ("depth_dpt192",)}
+            # the disk tier's saving: generating one 480x480 item against
+            # reading it back (this host's CPU)
+            items = SyntheticDepth(64, (480, 480), seed=0)
+            t0 = time.perf_counter()
+            for i in range(4):
+                items._generate(i)
+            gen_s = (time.perf_counter() - t0) / 4
+            t0 = time.perf_counter()
+            for i in range(4):
+                items._disk_load(i)
+            load_s = (time.perf_counter() - t0) / 4
+            # the replays: the same driver, overrides and device in this process
+            plan = suite_run.task_plan(os.path.join(out_root, "spair_tree"))
+            drivers = {"train_depth": train_depth,
+                       "evaluate_navi_correspondence": evaluate_navi_correspondence}
+            for task, model, driver in SUITE_REPLAYS:
+                out_dir = os.path.join(root, f"replay_{task}")
+                argv = ([f"backbone={model}", f"output_dir={out_dir}"] + plan[task][1]
+                        + ["+system.device=cuda"])
+                with fresh_process_flags(torch):
+                    reset_counts()
+                    t0 = time.perf_counter()
+                    drivers[driver].entry(argv)
+                    torch.cuda.synchronize()
+                    wall = time.perf_counter() - t0
+                    counts = read_counts()
+                replay_row = csv_row(out_dir)
+                cell_row = row_of(csv_rows[task], model) or {}
+                differ = {k: [v, cell_row.get(k)] for k, v in replay_row.items()
+                          if k != "Time" and cell_row.get(k) != v}
+                rel = {k: abs(float(a) - float(b)) / max(abs(float(a)), abs(float(b)), 1e-30)
+                       for k, (a, b) in differ.items() if b is not None and a.strip()
+                       and b.strip() and a.strip() != "nan"}
+                worst = max(rel, key=rel.get, default=None)
+                counts_by_path[f"path_suite_{task}_{model}"] = counts
+                replays[f"{task}/{model}"] = {
+                    "wall_s": wall, "launches": counts, "columns": len(replay_row),
+                    "bit_equal": not differ, "columns_differing": len(differ),
+                    "max_rel_diff": rel.get(worst, 0.0) if len(rel) == len(differ)
+                    else float("inf"), "max_rel_column": worst}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    cells = {f"{r['task']}/{r['model']}": {"rc": r["rc"], "wall_s": r["wall_s"]} for r in rows}
+    task_totals = {}
+    for r in rows:
+        task_totals[r["task"]] = task_totals.get(r["task"], 0.0) + r["wall_s"]
+    second = tier[" ".join(["--models", *SUITE_MODELS])]  # the cells after depth
+    listed = {t: table_backbones(tables, t) for t in SUITE_TASKS + ("depth_dpt192",)}
+
+    def lists(task, models):
+        from midvision_probe_torch.launch.aggregate_results import _names_match
+
+        return all(any(_names_match(n, m) for n in listed[task]) for m in models)
+
+    k1 = {p: c["k1"] for p, c in counts_by_path.items()}
+    checks = {
+        "runs_rc_0": all(r["rc"] == 0 for r in runs) and agg_rc == 0,
+        "cells_green": len(rows) == len(SUITE_MODELS) * len(SUITE_TASKS) + 1
+        and all(r["rc"] == 0 for r in rows),
+        "one_csv_row_a_cell": all(len(csv_rows[t]) == len(SUITE_MODELS) for t in SUITE_TASKS)
+        and len(csv_rows["depth_dpt192"]) == 1,
+        "tables_list_the_backbones": all(lists(t, SUITE_MODELS) for t in SUITE_TASKS)
+        and lists("depth_dpt192", SUITE_MODELS[:1]),
+        "disk_tier_read_back": second["files_before"] > 0 and second["rewritten"] == 0
+        and second["unchanged"] == second["files_before"],
+        # NAVI evaluates only: the replay gives the cell's row to the last
+        # digit. The depth cell trains its bf16 probe for 20 steps, and
+        # cuDNN's plan for the probe's convolutions is picked among those
+        # whose workspace fits the largest free block of the caching
+        # allocator at the call, so another process state can take another
+        # algorithm: ~1e-4 relative in the metrics (PR 17's chip calls: a
+        # cell, and the replay after a 30 GB block was freed, equal to the
+        # last digit; after empty_cache 1.1e-4 apart)
+        "navi_replay_bit_equal": replays[f"navi/{SUITE_REPLAYS[1][1]}"]["bit_equal"],
+        "depth_replay_within_1e-3": replays[f"depth/{SUITE_REPLAYS[0][1]}"]["max_rel_diff"]
+        <= 1e-3,
+        "replays_launch_k1": all(n > 0 for n in k1.values()),
+        "navi_replay_launches_k4": counts_by_path[
+            f"path_suite_navi_{SUITE_REPLAYS[1][1]}"]["k4"] > 0,
+    }
+    res = {"phase": "path_suite", "models": list(SUITE_MODELS), "tasks": list(SUITE_TASKS),
+           "runs": runs, "cells": cells, "task_totals_s": task_totals,
+           "suite_wall_s": sum(r["wall_s"] for r in runs),
+           "disk_tier": {"by_run": tier, "hits_after_depth": second["unchanged"],
+                         "generate_s_per_item": gen_s, "load_s_per_item": load_s,
+                         "saving_s_after_depth": second["unchanged"] * (gen_s - load_s)},
+           "csv_rows": {t: len(v) for t, v in csv_rows.items()},
+           "tables": listed, "replays": replays, "checks": checks,
+           "nvidia_smi": smi, "gpu_state": gpu_state()}
+    emit(res)
+    torch.cuda.empty_cache()
+    if not all(checks.values()):
+        raise SystemExit(f"path_suite check failed: {checks}")
+    return counts_by_path
+
+
+# --------------------------------------------------- instance-mask extraction
+INSTANCE_MASK_IMAGES = 4
+
+
+def phase_instance_masks(torch, smi: str) -> dict:
+    """The port's ``data_processing/extract_instance_masks.py`` through its
+    ``main`` over 4 fabricated VOC frames (``make_voc_tree``) with
+    dino_vitb16 loaded from the full-size fabricated ``dino_vitb16.pth``,
+    ``--fixed-size 480 --num-masks 3`` (float32: K1 at B = 1, N = 901 on
+    ``tf32x3``). Gates: rc 0, one npz an image with 1-3 bool masks at the
+    image's size and its ``combined`` map, ``index.csv`` with one row an
+    image whose counts match the npz, no random init, K1 12 an image on
+    ``tf32x3``. Reports the host seconds by stage and the CRF's share of
+    the wall. Returns the launch counts."""
+    import csv
+
+    import numpy as np
+    from PIL import Image
+
+    from midvision_probe_torch.data_processing import extract_instance_masks
+    from midvision_probe_torch.models import zoo
+
+    root = tempfile.mkdtemp(prefix="mvp_chip_smoke_masks_")
+    try:
+        voc = os.path.join(root, "VOC2007")
+        make_voc_tree(voc, INSTANCE_MASK_IMAGES, seed=37)
+        ckpt_dir = os.path.join(root, "checkpoints")
+        os.makedirs(ckpt_dir)
+        torch.save(dino_vitb16_container(torch),
+                   os.path.join(ckpt_dir, zoo.ZOO["dino_vitb16"].filename))
+        images, out = os.path.join(voc, "JPEGImages"), os.path.join(root, "masks")
+        argv = ["--images", images, "--out", out, "--backbone", "dino_vitb16",
+                "--fixed-size", "480", "--num-masks", "3"]
+        with checkpoints_in(ckpt_dir) as random_inits, maskcut_stages_timed() as stages:
+            reset_counts()
+            t0 = time.perf_counter()
+            rc = extract_instance_masks.main(argv)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = read_counts()
+        with open(os.path.join(out, "index.csv"), newline="") as f:
+            index = list(csv.DictReader(f))
+        per_image = []
+        for row in index:
+            with np.load(row["npz"]) as z:
+                masks, combined = z["masks"], z["combined"]
+            h, w = Image.open(row["image"]).size[::-1]
+            per_image.append({"image": os.path.basename(row["image"]),
+                              "masks": int(masks.shape[0]), "dtype": str(masks.dtype),
+                              "shape_ok": masks.shape[1:] == (h, w) and combined.shape == (h, w),
+                              "index_agrees": int(row["num_masks"]) == masks.shape[0]
+                              and int(row["mask_area_px"]) == int(masks.sum())})
+        npz = [f for f in os.listdir(out) if f.endswith(".npz")]
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    stages["rest"] = wall - sum(stages.values())
+    checks = {
+        "rc_0": rc == 0,
+        "one_npz_an_image": len(npz) == INSTANCE_MASK_IMAGES,
+        "index_rows": len(index) == INSTANCE_MASK_IMAGES,
+        "masks_per_image": all(1 <= p["masks"] <= 3 and p["dtype"] == "bool"
+                               and p["shape_ok"] and p["index_agrees"] for p in per_image),
+        "weights_loaded": not random_inits,
+        "one_forward_an_image": counts["forwards"] == INSTANCE_MASK_IMAGES,
+        "attention_per_forward": per_forward_ok(counts, VIT_B_F32_PER_FORWARD),
+    }
+    emit({"phase": "instance_masks", "argv": [a for a in argv if root not in a],
+          "images": INSTANCE_MASK_IMAGES, "per_image": per_image, "launches": counts,
+          "wall_s": wall, "host_s": stages, "crf_share": stages["crf"] / wall,
+          "checks": checks, "nvidia_smi": smi, "gpu_state": gpu_state()})
+    if not all(checks.values()):
+        raise SystemExit(f"instance_masks check failed: {checks}")
+    return counts
+
+
+# ------------------------------------------------------ weights-landing drill
+DRILL_GOLDEN_ATOL = 2e-3  # the JAX drill's (export_golden.verify)
+
+
+def phase_checkpoint_drill(torch, smi: str) -> dict:
+    """The port's weights-landing drill (``data_processing/
+    convert_checkpoints.py --all``) over four full-size fabricated files in
+    a temporary ``$MVP_CHECKPOINT_DIR``: DINO ViT-B/16 (raw timm naming),
+    OpenAI CLIP ViT-B/16 (open_clip), SAM ViT-B (segment_anything) and
+    ConvNeXt-B (the open_clip container's trunk in timm naming, as
+    ``convnext_base_in22k.pth`` holds it, the layout the JAX drill keeps a
+    golden for). Each is converted, smoke-tested on the card and
+    golden-verified against its independent torch replica on the CPU
+    (``data_processing/export_golden.py``) at the JAX drill's atol, 2e-3;
+    SAM's oracle is a ``transformers`` model, reported as having none on a
+    host without it. Gates: 4 present, none failed (OK, or OK-SMOKE for a
+    model without an oracle here), dino_vitb16 golden-verified within 2e-3
+    on every tap, K1 12 a forward of the two ViTs (one smoke and one verify
+    forward each) on ``tf32x3``. Returns the launch counts."""
+    from midvision_probe_torch.data_processing import convert_checkpoints
+    from midvision_probe_torch.models import zoo
+
+    root = tempfile.mkdtemp(prefix="mvp_chip_smoke_drill_")
+    try:
+        laion = convnext_laion_container(torch)
+        trunk = "visual.trunk."
+        files = {"dino_vitb16": dino_vitb16_container(torch),
+                 "clip_vitb16": clip_vitb16_container(torch),
+                 "sam_vit_b": sam_vitb_container(torch),
+                 "cnxt_b_in22k": {k[len(trunk):]: v for k, v in laion.items()
+                                  if k.startswith(trunk)}}
+        del laion
+        t0 = time.perf_counter()
+        for name, sd in files.items():
+            torch.save(sd, os.path.join(root, zoo.ZOO[name].filename))
+        write_s = time.perf_counter() - t0
+        del files
+        with checkpoints_in(root) as random_inits:
+            reset_counts()
+            t0 = time.perf_counter()
+            res = convert_checkpoints.drill_rows()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = read_counts()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    status = {name: (s, d) for name, s, d in res["rows"] if s != "MISSING"}
+    readings = res["readings"]
+    dino = readings.get("dino_vitb16", [])
+    vit_forwards = 4  # dino and clip: one smoke and one verify forward each
+    checks = {
+        "four_present": sorted(status) == sorted(["dino_vitb16", "clip_vitb16", "sam_vit_b",
+                                                  "cnxt_b_in22k"]),
+        "none_failed": res["rc"] == 0 and all(s.startswith("OK") for s, _ in status.values()),
+        "dino_golden_within_atol": len(dino) == 4 and max(dino) <= DRILL_GOLDEN_ATOL,
+        "goldens_verified": {"dino_vitb16", "clip_vitb16", "cnxt_b_in22k"} <= set(readings),
+        "no_random_init": not random_inits,
+        "k1_per_vit_forward": counts["k1"] == 12 * vit_forwards
+        and counts["route_tf32x3"] == 12 * vit_forwards,
+    }
+    emit({"phase": "checkpoint_drill", "status": status, "golden_readings": readings,
+          "golden_atol": DRILL_GOLDEN_ATOL, "dino_max_err": max(dino) if dino else None,
+          "launches": counts, "write_s": write_s, "wall_s": wall, "checks": checks,
+          "nvidia_smi": smi, "gpu_state": gpu_state()})
+    torch.cuda.empty_cache()
+    if not all(checks.values()):
+        raise SystemExit(f"checkpoint_drill check failed: {checks}")
+    return counts
+
+
 def vit_taps(grid, width) -> list:
     """The four (h, w, C) tap shapes of a ViT forward."""
     return [(*grid, width)] * 4
@@ -3461,6 +3850,10 @@ def main() -> int:
     by_path["path_depth_cached"] = phase_path_depth_cached(torch, smi)
     by_path["path_depth_ddp"] = phase_path_depth_ddp(torch, smi)
     by_path["profiling"] = phase_profiling(torch, smi)
+    by_path.update(phase_path_suite(torch, smi))
+    by_path["instance_masks"] = phase_instance_masks(torch, smi)
+    torch.cuda.empty_cache()
+    by_path["checkpoint_drill"] = phase_checkpoint_drill(torch, smi)
     by_path["extract_kqv"] = phase_extract_kqv(torch)
     by_path["bench_attn"] = phase_bench_attn(torch)
     by_path["path_fused_mlp"] = phase_path_fused_mlp(torch)

@@ -12,8 +12,9 @@ The reference's own YAMLs name ``evals.X`` (``evals.models.dino.DINO``);
 those resolve to ``midvision_probe_torch.compat.X``, which holds the port's
 classes under the reference's paths. A target without a counterpart in the
 port raises a clear error instead of reaching back into the JAX package.
-The mapping is local to this module:
-no process-global alias table is touched.
+The mapping is local to this module, as is the alias table of
+``register_target_alias`` (the JAX package's API: an alias is looked up
+before the prefixes are rewritten).
 """
 
 from __future__ import annotations
@@ -72,6 +73,15 @@ def _wrap(obj: Any) -> Any:
     if isinstance(obj, list):
         return [_wrap(v) for v in obj]
     return obj
+
+
+def to_dict(cfg: Any) -> Any:
+    """Plain-dict view (for serialization/checkpointing)."""
+    if isinstance(cfg, Mapping):
+        return {k: to_dict(v) for k, v in cfg.items()}
+    if isinstance(cfg, list):
+        return [to_dict(v) for v in cfg]
+    return cfg
 
 
 def default_config_dir() -> str:
@@ -227,7 +237,16 @@ def _deep_merge(dst: dict, src: Mapping) -> dict:
     return dst
 
 
+_TARGET_ALIASES: dict[str, str] = {}
+
+
+def register_target_alias(old: str, new: str) -> None:
+    """Resolve the ``_target_`` ``old`` as ``new`` from now on."""
+    _TARGET_ALIASES[old] = new
+
+
 def _locate(target: str) -> Any:
+    target = _TARGET_ALIASES.get(target, target)
     ported = target
     if target.startswith(_JAX_TARGET_PREFIX):
         ported = _PORT_PREFIX + target[len(_JAX_TARGET_PREFIX):]

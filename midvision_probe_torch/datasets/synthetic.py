@@ -45,12 +45,57 @@ class SyntheticDepth:
         hit = self._memo.get(index)
         if hit is not None:
             return dict(hit)  # shallow copy: consumers may pop keys
-        item = self._generate(index)
+        item = self._disk_load(index)
+        if item is None:
+            item = self._generate(index)
+            self._disk_store(index, item)
         size = sum(v.nbytes for v in item.values())
         if self._memo_bytes + size <= self._memo_budget:
             self._memo[index] = item
             self._memo_bytes += size
         return dict(item)
+
+    # Cross-process item cache (opt-in, $MVP_SYNTH_DISK_CACHE=<dir>): a
+    # sweep runs every cell as its own process, so the in-RAM memo would
+    # regenerate the identical dataset per cell; the launchers
+    # (launch/sweep.py) point this at a shared directory so generation
+    # happens once per suite. The file key and the npz layout are the JAX
+    # package's, so either package reads what the other wrote. Keyed by the
+    # full generation signature: any parameter change misses cleanly.
+    _DISK_VERSION = 1  # bump when _generate's math changes
+
+    def _disk_key(self, index: int) -> str | None:
+        root = os.environ.get("MVP_SYNTH_DISK_CACHE")
+        if not root:
+            return None
+        h, w = self.image_size
+        return os.path.join(
+            root, f"{type(self).__name__}_v{self._DISK_VERSION}_s{self.seed}"
+                  f"_{h}x{w}_md{self.max_depth:g}_i{index}.npz")
+
+    def _disk_load(self, index: int):
+        path = self._disk_key(index)
+        if not path or not os.path.exists(path):
+            return None
+        try:
+            with np.load(path) as z:
+                return {k: z[k] for k in z.files}
+        except Exception:  # noqa: BLE001 — a damaged file: regenerate the item
+            return None
+
+    def _disk_store(self, index: int, item: dict) -> None:
+        path = self._disk_key(index)
+        if not path:
+            return
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        # np.savez appends ".npz" to a name without it, so the temporary
+        # name carries the suffix, or os.replace would miss the file
+        tmp = f"{path}.tmp{os.getpid()}.npz"
+        try:
+            np.savez(tmp, **item)
+            os.replace(tmp, path)  # atomic against concurrent cells
+        except OSError:
+            pass  # a full or read-only directory: correct, only slower
 
     def _generate(self, index):
         h, w = self.image_size

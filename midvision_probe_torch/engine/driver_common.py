@@ -9,6 +9,9 @@ from __future__ import annotations
 
 import os
 from datetime import datetime
+from typing import Any
+
+import numpy as np
 
 from midvision_probe_torch.config import Config, instantiate
 from midvision_probe_torch.datasets import build_loader as _build_loader
@@ -143,6 +146,19 @@ def fit(cfg: Config, trainer: ProbeTrainer, train_loader, logger, wandb,
         logger.info("epoch %d/%d | train loss %.4f", ep + 1, n_epochs, loss)
         save_checkpoint(ckpt_dir, trainer.state_dict(), ep + 1)
     return trainer
+
+
+def flatten_metrics(global_metrics: dict, by_level: dict, prefix: str = "") -> dict:
+    """One CSV row from an evaluation's global metrics and its per-level
+    (stuff/things) ones: each value's mean, the level's metrics as
+    ``<level>_<metric>``."""
+    row: dict[str, Any] = {}
+    for k, v in global_metrics.items():
+        row[f"{prefix}{k}"] = float(np.mean(v))
+    for lk, lv in by_level.items():
+        for k, v in lv.items():
+            row[f"{prefix}{lk}_{k}"] = float(np.mean(v))
+    return row
 
 
 def emit_csv(cfg: Config, path: str, exp_name: str, backbone, row: dict) -> dict:

@@ -19,6 +19,9 @@ import torch.nn as nn
 
 from midvision_probe_torch.ops.image import resize
 
+# the output modes of the feature contract
+OUTPUTS = ("cls", "gap", "dense", "dense-cls")
+
 
 def tokens_to_output(output_type: str, dense_tokens: torch.Tensor,
                      cls_token: torch.Tensor | None,

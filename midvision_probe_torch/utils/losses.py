@@ -51,6 +51,20 @@ def _cosine_similarity(a, b, dim=-1, eps=1e-8):
     return (a * b).sum(dim) / (na.clamp_min(eps) * nb.clamp_min(eps))
 
 
+def depth_si_loss(depth_pr, depth_gt, alpha=10.0, lambda_scale=0.85, eps=1e-5):
+    """Eigen et al.'s scale-invariant loss, the square root per image then
+    the mean (reference ``losses.py:33-51``). Inputs (B, H, W, 1) or
+    (B, H, W). Per image, so it takes no sum over the ranks."""
+    if depth_pr.ndim == 4:
+        depth_pr, depth_gt = depth_pr[..., 0], depth_gt[..., 0]
+    valid = (depth_gt > 0).float()
+    num_valid = valid.sum(dim=(-1, -2)).clamp_min(1)
+    diff = (torch.log(depth_pr.clamp_min(eps)) - torch.log(depth_gt.clamp_min(eps))) * valid
+    diff_mean = (diff**2).sum(dim=(-2, -1)) / num_valid
+    diff_var = diff.sum(dim=(-2, -1)) ** 2 / num_valid**2
+    return alpha * torch.sqrt(diff_mean - lambda_scale * diff_var).mean()
+
+
 def sig_loss(depth_pr, depth_gt, sigma=0.85, eps=0.001):
     """AdaBins-style SigLoss over all valid pixels of the batch."""
     valid = (depth_gt > 0).float()

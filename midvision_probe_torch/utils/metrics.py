@@ -265,6 +265,55 @@ def segment_metrics_snorm(snorm_pr, snorm_gt, segmentation_map, thresh0=11.25):
     return out
 
 
+def mask_iou(mask1, mask2):
+    """Image-averaged IoU of 0.5-binarized (..., H, W) masks (reference
+    ``evals/utils/metric.py:5-9``). As in the JAX package, an image whose
+    masks both binarize to empty scores 0, not the reference's 0/0 NaN."""
+    m1, m2 = torch.as_tensor(mask1) > 0.5, torch.as_tensor(mask2) > 0.5
+    inter = (m1 & m2).sum(dim=(-1, -2))
+    union = (m1 | m2).sum(dim=(-1, -2))
+    return (inter / union.clamp_min(1)).mean()
+
+
+def mask_accuracy(mask1, mask2):
+    """Pixel accuracy of 0.5-binarized masks (``metric.py:12-14``)."""
+    return ((torch.as_tensor(mask1) > 0.5) == (torch.as_tensor(mask2) > 0.5)).float().mean()
+
+
+def precision_recall(mask_gt, mask):
+    """Per-image precision and recall of 0.5-binarized (..., H, W) masks
+    (``metric.py:17-29``); an empty denominator scores 1."""
+    gt, pr = torch.as_tensor(mask_gt) > 0.5, torch.as_tensor(mask) > 0.5
+    tp = (gt & pr).sum(dim=(-1, -2)).float()
+    mask_area = pr.sum(dim=(-1, -2)).float()
+    gt_area = gt.sum(dim=(-1, -2)).float()
+    one = torch.ones_like(tp)
+    precision = torch.where(mask_area == 0, one, tp / mask_area.clamp_min(1))
+    recall = torch.where(gt_area == 0, one, tp / gt_area.clamp_min(1))
+    return precision, recall
+
+
+def f_score(p, r, betta_sq=0.3):
+    """F-measure with beta^2 = 0.3 (``metric.py:32-35``); NaN scores 0."""
+    p, r = torch.as_tensor(p), torch.as_tensor(r)
+    return torch.nan_to_num(((1 + betta_sq) * p * r) / (betta_sq * p + r), nan=0.0)
+
+
+def error_auc(errors, thresholds):
+    """Correspondence error AUC per threshold (``correspondence.py:199-215``;
+    numpy in, floats out)."""
+    trapezoid = getattr(np, "trapezoid", None) or np.trapz  # numpy < 2 has trapz only
+    errors = [0.0] + sorted(float(e) for e in np.asarray(errors).reshape(-1))
+    recall = list(np.linspace(0, 1, len(errors)))
+    aucs = []
+    for thr in thresholds:
+        last_index = int(np.searchsorted(errors, thr))
+        y = recall[:last_index] + [recall[max(last_index - 1, 0)]]
+        x = errors[:last_index] + [thr]
+        aucs.append(float(trapezoid(y, x) / thr))
+    return aucs
+
+
 def compute_binned_performance(y, x, x_bins):
     """Mean of ``y`` per ``x`` bin ``[x_bins[i], x_bins[i+1])``; NaN for an
     empty bin (numpy in, floats out)."""

@@ -51,3 +51,8 @@ def make_adamw(params, base_lr: float, max_step: int, warmup_step: float,
         opt, lambda step: cosine_decay_linear_warmup_factor(
             step, max_step, warmup_step))
     return opt, sched
+
+
+def get_linear_scaled_lr(base_lr, batch_size, base_batch_size):
+    """Linear LR scaling rule (reference ``optim.py:105-121``)."""
+    return base_lr * batch_size / base_batch_size

@@ -200,3 +200,45 @@ def test_a_driver_under_a_one_rank_torchrun_env_raises_on_a_cpu_only_host(
                            "+render_images=False", f"output_dir={tmp_path}"])
     assert not dist.is_initialized()
     assert not list(tmp_path.iterdir())  # nothing ran on the CPU
+
+
+LAUNCH_AND_TOOLS = sorted(m for m in _port_modules() if m.startswith((
+    "midvision_probe_torch.launch", "midvision_probe_torch.data_processing")))
+# top-level names the repository's launch_script/ and data_processing/
+# scripts are imported under (they put their directories on sys.path)
+SCRIPT_MODULES = ("launch_script", "data_processing", "sweep", "suite_run",
+                  "aggregate_results", "export_golden", "torch_replicas",
+                  "convert_checkpoints", "extract_instance_masks")
+
+
+def test_launchers_and_data_tools_import_neither_jax_nor_the_jax_scripts():
+    """``launch/`` and ``data_processing/`` of the port, each imported in a
+    fresh interpreter: no jax, no JAX package and none of the repository's
+    own ``launch_script/`` or ``data_processing/`` modules; and their
+    sources neither name those directories in an import nor put anything
+    on ``sys.path``."""
+    assert len(LAUNCH_AND_TOOLS) == 9, LAUNCH_AND_TOOLS
+    code = (
+        "import importlib, sys\n"
+        f"sys.path.insert(0, {str(ROOT)!r})\n"
+        f"for m in {LAUNCH_AND_TOOLS!r}:\n"
+        "    importlib.import_module(m)\n"
+        f"bad = sorted(m for m in sys.modules if m.split('.')[0] in"
+        f" ('jax', 'flax', 'optax', {JAX_PKG!r}, *{SCRIPT_MODULES!r}))\n"
+        "print('BAD', bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", code], cwd=str(ROOT), env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    hits = []
+    for sub in ("launch", "data_processing"):
+        for path in sorted((PORT / sub).glob("*.py")):
+            for n, line in enumerate(path.read_text().splitlines(), 1):
+                code_part = line.split("#")[0]
+                if "sys.path" in code_part or any(
+                        code_part.lstrip().startswith((f"import {m}", f"from {m} "))
+                        for m in SCRIPT_MODULES):
+                    hits.append((path.name, n, line.strip()))
+    assert hits == []
