@@ -258,6 +258,22 @@ JSON line per phase and fails on the first failing phase:
    independent CPU replica (``data_processing/torch_replicas.py``; SAM's is
    ``transformers``' model, reported as having no oracle on a host without
    it), dino_vitb16's reading, K1 12 a forward of the ViTs on ``tf32x3``.
+10k. ``suite_timing``: ``launch.time_suite`` at its defaults (batch 32 at
+   480², dino_vitb16 and simclr_resnet50, the DPT probe in f32 and bf16 and
+   the linear one in bf16): each row's three times and losses, the suite
+   projection (held to ``project_suite`` recomputed from the rows), K1 on
+   ``wgmma``.
+10l. ``preset_ab``: ``launch.fast_preset_ab`` on dino_b16, 64 instances,
+   arms ``protocol-dpt``, ``dpt-192-hd256`` (its row read from the
+   ``_eval480`` directory) and ``fast-linear`` at ``--size 480``.
+10m. ``shuffle_ab``: ``launch.shuffle_ab`` at its defaults on seeds 0 and 1.
+10n. ``graft_entry``: ``graft_entry.entry()`` (K1 12 on ``wgmma``, four
+   finite maps), then ``dryrun_multichip(4, preset="vitb")``: four gloo
+   ranks sharing this card as a 2 x 2 (data, model) grid, each rank's loss
+   against the same step unsharded in this process (1e-4 relative), the
+   sharded K4 against the unsharded launch, the pipeline, K1 12 a rank at
+   6 heads on ``tf32x3``. Each of 10k-10n prints its wall on a
+   ``phase_wall`` line.
 11. ``bench_attn``: the attention bench through its entry point
    (``midvision_probe_torch.bench_attn.main``) with every variant (``base``
    K1, ``wide4``/``stagger4``/``wide12`` K7, ``int8`` K8, ``splash`` K9):
@@ -281,6 +297,7 @@ from __future__ import annotations
 
 import contextlib
 import glob
+import io
 import importlib.util
 import json
 import math
@@ -643,6 +660,11 @@ def phase_attention_checks(torch):
         # Zero123's conditioning: CLIP ViT-L/14 in f32 on a batch of 8 at
         # 224x224 (cls + 16x16)
         ("zero123_clip_k1_fp32", "K1", 8, 16, 257, 64, f32, True),
+        # the suite-timing tool's launch (batch 32 at 480x480: cls + 30x30)
+        # and a rank of the ViT-B dry run (one image at 480x480, its 6 of 12
+        # heads, f32)
+        ("suite_timing_k1_bf16", "K1", 32, 12, 901, 64, bf16, True),
+        ("dryrun_rank_k1_fp32", "K1", 1, 6, 901, 64, f32, True),
     ]
     results = []
     for name, kernel, B, H, N, d, dtype, timed in cases:
@@ -3595,6 +3617,319 @@ def phase_checkpoint_drill(torch, smi: str) -> dict:
     return counts
 
 
+# ------------------------------------------- suite timing, the A/Bs, the driver entry
+def k1_on_route(counts: dict, route: str) -> bool:
+    """K1 launched, every attention launch of the phase on ``route``."""
+    return counts["k1"] > 0 and counts[f"route_{route}"] == counts["k1"] and all(
+        counts[k] == 0 for k in ROUTE_KEYS if k != f"route_{route}")
+
+
+def phase_suite_timing(torch, smi: str) -> dict:
+    """The port's suite-timing tool (``launch/time_suite.py``) through its
+    ``main`` at the JAX script's defaults: batch 32 at 480², dino_vitb16
+    and simclr_resnet50, the DPT probe in f32 and bf16 and the linear probe
+    in bf16 (ResNet-50 without the f32 probe), the backbone in bf16. Prints
+    each row's extraction, probe-step and full-step times and losses, the
+    projection and the launches. Gates: the five rows, finite losses, every
+    time positive, the projection equal to ``project_suite`` recomputed
+    from the rows, the report naming the card, K1 12 a ViT forward, all on
+    ``wgmma``. Then three probe steps of dino_vitb16's bf16 DPT probe under
+    ``torch.profiler``: device ms a step by kernel and the busy share.
+    Returns the launch counts."""
+    from midvision_probe_torch.launch import time_suite
+
+    root = tempfile.mkdtemp(prefix="mvp_chip_smoke_timing_")
+    try:
+        reset_counts()
+        t0 = time.perf_counter()
+        res = time_suite.main(["--out", os.path.join(root, "suite_timing.md")])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+        with open(res["report"]) as f:
+            report = f.read()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    # where the probe step's time goes: three steps of dino_vitb16's bf16
+    # DPT probe on cached features under the profiler (after the counts)
+    steps = time_suite.build_steps("dino_vitb16", 32, (480, 480), "dpt", "bfloat16")
+    feats = steps.extract(steps.images)
+    steps.probe_step(feats, steps.depth)
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        for _ in range(3):
+            steps.probe_step(feats, steps.depth)
+        torch.cuda.synchronize()
+        prof_wall = time.perf_counter() - t0
+    by_kernel = sorted(
+        ((e.key, e.device_time_total / 1e3 / 3) for e in prof.key_averages()
+         if e.device_type == torch.autograd.DeviceType.CUDA), key=lambda kv: -kv[1])
+    step_ms = sum(t for _, t in by_kernel)
+    probe_profile = {"step_wall_ms": prof_wall * 1e3 / 3, "step_device_ms": step_ms,
+                     "device_busy_share": step_ms * 3 / (prof_wall * 1e3),
+                     "top_ms_per_step": [[k[:80], t] for k, t in by_kernel[:10]]}
+    del steps, feats
+    rows = res["rows"]
+    recomputed = time_suite.project_suite(
+        [(r["tag"], r["extract_s"], r["probe_s"], r["full_s"]) for r in rows], 32)
+    tags = [f"{m}/{h}" for m in ("dino_vitb16", "simclr_resnet50")
+            for h in ("dpt-f32", "dpt-bf16", "linear-bf16")
+            if not (m == "simclr_resnet50" and h == "dpt-f32")]
+    checks = {
+        "five_rows": [r["tag"] for r in rows] == tags,
+        "finite_losses": all(math.isfinite(r["probe_loss"]) and math.isfinite(r["full_loss"])
+                             for r in rows),
+        "times_positive": all(r[k] > 0 for r in rows for k in ("extract_s", "probe_s", "full_s")),
+        "projection_recomputed": recomputed == res["projection"],
+        "report_names_the_card": smi.splitlines()[0].split(",")[0] in report,
+        "k1_12_a_vit_forward_on_wgmma": k1_on_route(counts, "wgmma")
+        and counts["k1"] % 12 == 0 and counts["k2"] == counts["k3"] == 0,
+    }
+    proj = res["projection"]
+    emit({"phase": "suite_timing", "wall_s": wall, "rows": rows,
+          "projection_h": {k: proj[k] / 3600 for k in ("suite_cached", "suite_uncached",
+                                                       "suite_linear")},
+          "projection_s": proj, "cards": 4, "launches": counts,
+          "dpt_bf16_probe_step_profile": probe_profile, "checks": checks,
+          "nvidia_smi": smi, "gpu_state": gpu_state()})
+    torch.cuda.empty_cache()
+    if not all(checks.values()):
+        raise SystemExit(f"suite_timing check failed: {checks}")
+    return counts
+
+
+PRESET_AB_ARMS = ("protocol-dpt", "dpt-192-hd256", "fast-linear")
+
+
+def phase_preset_ab(torch, smi: str) -> dict:
+    """The port's suite-preset A/B (``launch/fast_preset_ab.py``) through
+    its ``main`` on dino_b16, 64 synthetic instances, ``--size 480``, arms
+    ``protocol-dpt``, ``dpt-192-hd256`` (trained at 192², its newest
+    checkpoint reloaded and evaluated at 480²) and ``fast-linear``, with
+    the sweep's cache and bf16 settings and each arm's step time from
+    ``time_suite.measure_backbone``. Gates: three rows with finite sa_d1,
+    si_d1 and sa_rmse and a positive step time; the reduced arm's row read
+    from its ``_eval480`` directory (the CSV row there equal to it); the
+    report written with the three rows; K1 on ``wgmma`` only. Returns the
+    launch counts."""
+    from midvision_probe_torch.launch import fast_preset_ab
+
+    root = tempfile.mkdtemp(prefix="mvp_chip_smoke_preset_ab_")
+    try:
+        with env_vars(MVP_SYNTH_DISK_CACHE=os.path.join(root, "synth"),
+                      MVP_CHECKPOINT_DIR=None):
+            reset_counts()
+            t0 = time.perf_counter()
+            rows = fast_preset_ab.main([
+                "--backbone", "dino_b16", "--instances", "64", "--size", "480",
+                "--arms", *PRESET_AB_ARMS, "--out", os.path.join(root, "ab.md"),
+                "--work-dir", root, "--rerun"])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = read_counts()
+        reduced = next((r for r in rows if r["preset"] == "dpt-192-hd256"), {})
+        eval_dir = os.path.join(root, "fast_ab_dpt-192-hd256_eval480")
+        eval_csv = csv_row(eval_dir) if os.path.isdir(eval_dir) else {}
+        with open(os.path.join(root, "ab.md")) as f:
+            report = f.read()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    keys = ("sa_d1", "si_d1", "sa_rmse")
+    checks = {
+        "three_rows": [r["preset"] for r in rows] == list(PRESET_AB_ARMS),
+        "finite_metrics": all(math.isfinite(r["metrics"][k]) for r in rows for k in keys),
+        "step_times_positive": all(r["step_s"] > 0 and r["extract_s"] > 0 for r in rows),
+        "reduced_arm_read_at_480": reduced.get("eval_dir") == eval_dir
+        and reduced.get("train_size") == 192 and bool(eval_csv)
+        and all(abs(float(eval_csv[k]) - reduced["metrics"][k])
+                <= 1e-6 * max(1.0, abs(reduced["metrics"][k])) for k in keys),
+        "report_rows": all(f"| {a} |" in report for a in PRESET_AB_ARMS),
+        "k1_on_wgmma": k1_on_route(counts, "wgmma"),
+    }
+    emit({"phase": "preset_ab", "wall_s": wall,
+          "rows": [{k: r[k] for k in ("preset", "train_size", "wall_s", "step_s", "extract_s",
+                                      "suite_h", "eval_dir")}
+                   | {k: r["metrics"][k] for k in ("sa_d1", "si_d1", "sa_rmse", "si_rmse")}
+                   for r in rows],
+          "launches": counts, "checks": checks, "nvidia_smi": smi, "gpu_state": gpu_state()})
+    torch.cuda.empty_cache()
+    if not all(checks.values()):
+        raise SystemExit(f"preset_ab check failed: {checks}")
+    return counts
+
+
+def phase_shuffle_ab(torch, smi: str) -> dict:
+    """The port's cache-shuffle A/B (``launch/shuffle_ab.py``) through its
+    ``main`` at its own defaults (test_tiny, 256 synthetic instances at
+    224², the linear probe, ``ten_epoch``, batch 32) on seeds 0 and 1.
+    Gates: two finite rows per arm, the table written with both arms and
+    the mean deltas; K1 on ``tf32x3`` (test_tiny runs in f32, head dim
+    16). Returns the launch counts."""
+    from midvision_probe_torch.launch import shuffle_ab
+
+    root = tempfile.mkdtemp(prefix="mvp_chip_smoke_shuffle_ab_")
+    try:
+        with env_vars(MVP_CHECKPOINT_DIR=None):
+            reset_counts()
+            t0 = time.perf_counter()
+            rows = shuffle_ab.main(["--seeds", "0", "1", "--out", os.path.join(root, "s.md"),
+                                    "--work-dir", root])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = read_counts()
+        with open(os.path.join(root, "s.md")) as f:
+            table = f.read()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    checks = {
+        "four_finite_rows": sorted(rows) == sorted(shuffle_ab.ARMS)
+        and all(len(v) == 2 for v in rows.values())
+        and all(math.isfinite(r[k]) for v in rows.values() for r in v
+                for k in ("sa_d1", "si_d1")),
+        "table_written": all(f"| {a} |" in table for a in shuffle_ab.ARMS)
+        and "mean delta (cache − full-shuffle)" in table,
+        "k1_on_tf32x3": k1_on_route(counts, "tf32x3"),
+    }
+    emit({"phase": "shuffle_ab", "wall_s": wall,
+          "rows": {a: [{k: r[k] for k in ("sa_d1", "si_d1", "sa_rmse")} for r in v]
+                   for a, v in rows.items()},
+          "table_tail": table.strip().splitlines()[-3], "launches": counts,
+          "checks": checks, "nvidia_smi": smi, "gpu_state": gpu_state()})
+    if not all(checks.values()):
+        raise SystemExit(f"shuffle_ab check failed: {checks}")
+    return counts
+
+
+def phase_graft_entry(torch, smi: str) -> dict:
+    """The port's driver entry (``graft_entry.py``): ``entry()`` on the card
+    (DINO B/16's dense 4-tap forward in bf16 at 480x640, batch 4; K1 12 on
+    ``wgmma``, four finite (4, 30, 40, 768) float32 maps), then
+    ``dryrun_multichip(4, preset="vitb")``: four ranks sharing this card
+    (gloo, every collective staged through the host) as a 2 x 2 (data,
+    model) grid, one step of dino_vitb16 in float32 at 480² with its heads
+    split over the model groups, and the same step unsharded in this
+    process on the same weights and global batch. Gates: the backend and
+    world size as printed; every rank's loss finite and equal; that loss
+    within 1e-4 relative of the unsharded one; every rank's gradients and
+    updated parameters held to the unsharded step's by
+    ``dryrun_update_errors``; the sharded K4 indices equal
+    to the unsharded launch and its distances within 1e-6; the pipeline
+    within 1e-4; K1 12 a rank on ``tf32x3`` at (1, 901, 3, 6, 64) and K4
+    launched on every rank. Returns the launch counts: the entry's and
+    the unsharded step's in this process, and the ranks' own."""
+    from midvision_probe_torch import graft_entry
+
+    reset_counts()
+    t0 = time.perf_counter()
+    fn, args = graft_entry.entry()
+    build_s = time.perf_counter() - t0
+    with torch.no_grad():
+        maps = fn(*args)
+    torch.cuda.synchronize()
+    entry_counts = read_counts()
+    entry_res = {"build_s": build_s, "shapes": [list(m.shape) for m in maps],
+                 "dtypes": sorted({str(m.dtype) for m in maps}),
+                 "finite": all(bool(torch.isfinite(m).all()) for m in maps),
+                 "ms": cuda_ms(torch, lambda: fn(*args), iters=5, warmup=1),
+                 "launches": entry_counts}
+    del fn, args, maps
+    torch.cuda.empty_cache()
+
+    with env_vars(MVP_CHECKPOINT_DIR=None):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            dry = graft_entry.dryrun_multichip(4, preset="vitb")
+        summary = buf.getvalue().strip()
+        print(summary, flush=True)
+        reset_counts()
+        ref = graft_entry.reference_step("vitb", 4)
+        torch.cuda.synchronize()
+        ref_counts = read_counts()
+    ranks = dry["ranks"]
+    param_diff = max(float((ranks[0]["params"][k] - v).abs().max())
+                     for k, v in ref["params"].items())
+    update = [dryrun_update_errors(r, ref, graft_entry.ADAMW_LR) for r in ranks]
+    rank_counts = {k: 0 for k in entry_counts}
+    for r in ranks:
+        rank_counts["k1"] += r["k1"]
+        rank_counts["k4"] += r["matching"]["launches_sharded"]
+        for route, n in r["routes"].items():
+            rank_counts[f"route_{route}"] += n
+    checks = {
+        "entry_four_finite_maps": entry_res["shapes"] == [[4, 30, 40, 768]] * 4
+        and entry_res["dtypes"] == ["torch.float32"] and entry_res["finite"],
+        "entry_k1_12_on_wgmma": entry_counts["k1"] == 12 and k1_on_route(entry_counts, "wgmma"),
+        "backend_and_world_size": dry["backend"] == "gloo" and dry["world_size"] == 4
+        and dry["mesh"] == {"data": 2, "model": 2}
+        and "backend=gloo world_size=4" in summary and "sharing 1 card" in summary,
+        "losses_finite_and_equal": all(math.isfinite(r["loss"]) for r in ranks)
+        and len({r["loss"] for r in ranks}) == 1,
+        "loss_within_1e-4_of_unsharded": abs(dry["loss"] - ref["loss"])
+        <= 1e-4 * abs(ref["loss"]),
+        "grads_and_update_match_unsharded": all(u["ok"] for u in update),
+        "sharded_knn2_equal": all(r["matching"]["idx_equal"]
+                                  and r["matching"]["max_dist_err"] <= 1e-6
+                                  and r["matching"]["launches_sharded"] == 1 for r in ranks),
+        "pipeline_within_1e-4": all(r["pipeline"]["max_err"] <= 1e-4 for r in ranks),
+        "k1_12_a_rank_at_6_heads_on_tf32x3": all(
+            r["k1"] == 12 and r["routes"]["tf32x3"] == 12
+            and tuple(r["k1_qkv_shape"]) == (1, 901, 3, 6, 64) for r in ranks),
+        "unsharded_k1_on_tf32x3": ref_counts["k1"] == 12 and k1_on_route(ref_counts, "tf32x3"),
+    }
+    emit({"phase": "graft_entry", "entry": entry_res, "summary": summary,
+          "dryrun": {"backend": dry["backend"], "world_size": dry["world_size"],
+                     "mesh": dry["mesh"], "mode": dry["mode"], "wall_s": dry["wall_s"],
+                     "loss": dry["loss"], "unsharded_loss": ref["loss"],
+                     "loss_rel_diff": abs(dry["loss"] - ref["loss"]) / abs(ref["loss"]),
+                     "params_max_abs_diff": param_diff,
+                     "update_vs_unsharded": [{k: v for k, v in u.items() if k != "ok"}
+                                             for u in update],
+                     "ranks": [{k: r[k] for k in ("rank", "loss", "k1", "routes",
+                                                  "k1_qkv_shape", "matching", "pipeline",
+                                                  "all_reduce")} for r in ranks]},
+          "checks": checks, "nvidia_smi": smi, "gpu_state": gpu_state()})
+    torch.cuda.empty_cache()
+    if not all(checks.values()):
+        raise SystemExit(f"graft_entry check failed: {checks}")
+    return {"graft_entry": entry_counts, "graft_dryrun_unsharded": ref_counts,
+            "graft_dryrun_ranks": rank_counts}
+
+
+DRY_SURE_GRAD = 0.05  # of a tensor's max|g|: above the step's rounding noise
+
+
+def dryrun_update_errors(rank: dict, ref: dict, lr: float) -> dict:
+    """A dry-run rank's gradients and updated parameters against the
+    unsharded step's (``tests/test_torch_graft_entry.py``'s rule): every
+    gradient within 5% of its tensor's max|g|, every parameter within
+    1e-5 where the unsharded |g| exceeds 5% of that max (AdamW's first
+    update is lr·sign(g) there), within a sign flip (2·lr + 1e-5)
+    elsewhere, and the BatchNorm statistics within 1e-5·max|ref|."""
+    grad_err = sure_err = other_err = stats_err = 0.0
+    flips, ok = 0, rank["grads"].keys() == ref["grads"].keys()
+    for name, want in ref["params"].items():
+        err = (rank["params"][name] - want).abs()
+        g = ref["grads"].get(name)
+        if g is None:
+            e = float(err.max())
+            stats_err = max(stats_err, e)
+            ok &= e <= 1e-5 * max(float(want.abs().max()), 1.0)
+            continue
+        gmax = float(g.abs().max())
+        ge = float((rank["grads"][name] - g).abs().max())
+        grad_err = max(grad_err, ge / max(gmax, 1e-30))
+        sure = g.abs() > DRY_SURE_GRAD * gmax
+        se = float(err[sure].max()) if bool(sure.any()) else 0.0
+        oe = float(err.max())
+        sure_err, other_err = max(sure_err, se), max(other_err, oe)
+        flips += int((err > 1e-5).sum())
+        ok &= gmax > 0 and ge <= DRY_SURE_GRAD * gmax and se <= 1e-5 and oe <= 2 * lr + 1e-5
+    return {"ok": bool(ok), "grad_err_of_max": grad_err, "sure_param_err": sure_err,
+            "param_err": other_err, "stats_err": stats_err, "flipped": flips}
+
+
 def vit_taps(grid, width) -> list:
     """The four (h, w, C) tap shapes of a ViT forward."""
     return [(*grid, width)] * 4
@@ -3854,6 +4189,15 @@ def main() -> int:
     by_path["instance_masks"] = phase_instance_masks(torch, smi)
     torch.cuda.empty_cache()
     by_path["checkpoint_drill"] = phase_checkpoint_drill(torch, smi)
+    torch.cuda.empty_cache()
+    for phase in (phase_suite_timing, phase_preset_ab, phase_shuffle_ab):
+        t0 = time.perf_counter()
+        by_path[phase.__name__[len("phase_"):]] = phase(torch, smi)
+        emit({"phase_wall": phase.__name__[len("phase_"):], "wall_s": time.perf_counter() - t0})
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    by_path.update(phase_graft_entry(torch, smi))
+    emit({"phase_wall": "graft_entry", "wall_s": time.perf_counter() - t0})
     by_path["extract_kqv"] = phase_extract_kqv(torch)
     by_path["bench_attn"] = phase_bench_attn(torch)
     by_path["path_fused_mlp"] = phase_path_fused_mlp(torch)
@@ -3874,7 +4218,9 @@ def main() -> int:
                                                     "taskonomy_dino_k1_bf16",
                                                     "dinov2_reg_k1_bf16", "deit3_k1_bf16",
                                                     "maskcut_dino_k1_fp32",
-                                                    "zero123_clip_k1_fp32")}),
+                                                    "zero123_clip_k1_fp32",
+                                                    "suite_timing_k1_bf16",
+                                                    "dryrun_rank_k1_fp32")}),
         kernel_entry("knn2", "knn2.cu", f"{ops}/matching.py:64", "k4", by_path,
                      knn2_checks["scannet_main"], "wgmma",
                      navi_render_shape={**case_numbers(knn2_checks["navi_render_masked"]),

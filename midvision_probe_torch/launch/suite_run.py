@@ -73,6 +73,17 @@ def _at_size(overrides: list, size: int) -> list:
             for o in overrides]
 
 
+def reload_at_size(overrides: list, train_dir: str, size: int) -> list | None:
+    """The second phase of a two-phase cell: ``overrides`` at ``size`` plus
+    the driver's eval-only path (``+is_eval`` and ``+ckpt_path``) on the
+    newest checkpoint the first phase wrote under ``train_dir`` (the probe is
+    fully convolutional, so it transfers across sizes); None without one."""
+    ckpts = sorted(glob.glob(os.path.join(train_dir, "*", "ckpt")))
+    if not ckpts:
+        return None
+    return _at_size(overrides, size) + ["+is_eval=True", f"+ckpt_path={ckpts[-1]}"]
+
+
 def task_plan(spair_root: str) -> dict:
     """The JAX suite's plan, cell for cell: the same tasks and overrides,
     each driver being the port's module."""
@@ -208,18 +219,21 @@ def probe_backend(timeout_s: int = 120) -> tuple[bool, str]:
     return True, ""
 
 
-def card_name(device: str) -> str:
+def card_name(device: str, short: bool = False) -> str:
     """The card as ``nvidia-smi`` names it, with its power limit, or the
-    CPU."""
+    CPU; ``short``: the model alone (``H100``, ``CPU``)."""
     if not device.startswith("cuda"):
-        return "the CPU"
+        return "CPU" if short else "the CPU"
     try:
         out = subprocess.run(
             ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
             capture_output=True, text=True, timeout=30).stdout.strip()
     except (OSError, subprocess.TimeoutExpired):
         out = ""
-    return out.splitlines()[0] if out else "a CUDA card (nvidia-smi did not answer)"
+    if not out:
+        return "a CUDA card (nvidia-smi did not answer)"
+    line = out.splitlines()[0]
+    return line.split(",")[0].removeprefix("NVIDIA ").split()[0] if short else line
 
 
 def run_one(task: str, driver: str, model: str, overrides: list,
@@ -256,15 +270,12 @@ def run_one(task: str, driver: str, model: str, overrides: list,
             train_dir = os.path.join(out_dir, f"train_{model}")
             ret = _phase(overrides, train_dir, log)
             if ret == 0:
-                ckpts = sorted(glob.glob(os.path.join(train_dir, "*", "ckpt")))
-                if not ckpts:
+                eval_overrides = reload_at_size(overrides, train_dir, eval_size)
+                if eval_overrides is None:
                     log.write(f"\n[suite] no checkpoint under {train_dir}\n")
                     ret = 1
                 else:
-                    ret = _phase(
-                        _at_size(overrides, eval_size)
-                        + ["+is_eval=True", f"+ckpt_path={ckpts[-1]}"],
-                        out_dir, log)
+                    ret = _phase(eval_overrides, out_dir, log)
     return {"task": task, "model": model, "rc": ret,
             "wall_s": round(time.time() - t0, 1), "ts": round(t0, 1)}
 

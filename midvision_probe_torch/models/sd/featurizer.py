@@ -34,7 +34,6 @@ device. The forward runs with TF32 off for matmuls and cuDNN convolutions
 
 from __future__ import annotations
 
-import contextlib
 import logging
 import math
 import os
@@ -65,7 +64,7 @@ from midvision_probe_torch.models.sd.vae import VAEEncoder, VAEEncoderConfig
 from midvision_probe_torch.models.vit import ViT, ViTConfig, _lecun_normal_
 from midvision_probe_torch.models.zoo import OPENAI_CLIP_MEAN, OPENAI_CLIP_STD, checkpoint_dir
 from midvision_probe_torch.ops.image import resize
-from midvision_probe_torch.utils.device import resolve_device, resolve_dtype
+from midvision_probe_torch.utils.device import full_f32, resolve_device, resolve_dtype
 
 log = logging.getLogger(__name__)
 
@@ -76,18 +75,6 @@ def ddpm_alphas_cumprod(num_steps=1000, beta_start=0.00085, beta_end=0.012) -> n
     """scaled_linear betas (SD scheduler config), float64."""
     betas = np.linspace(beta_start**0.5, beta_end**0.5, num_steps) ** 2
     return np.cumprod(1.0 - betas)
-
-
-@contextlib.contextmanager
-def full_f32():
-    """TF32 off for matmuls and cuDNN convolutions; the flags restored."""
-    flags = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    try:
-        yield
-    finally:
-        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = flags
 
 
 @torch.no_grad()

@@ -7,18 +7,22 @@ package's ``parallel/multihost.py``).
   is a no-op, decided from the arguments and the environment alone: no
   CUDA query and no backend call comes before ``init_process_group``
   (on a host of several cards an early CUDA call can bind the wrong one).
-  NCCL when the rank's device is a card, gloo when it is the CPU.
+  NCCL when the rank's device is a card, gloo when it is the CPU; or the
+  backend asked for (gloo for ranks that share one card).
 * ``process_shard_args()``: the loader's ``num_shards``/``shard_index``,
   the ``DistributedSampler`` equivalent.
 * ``gather_metrics`` / ``gather_rows``: every rank's rows in rank order,
   on every rank; the identity in one process.
 * The global batch of a training step: inside ``global_batch()``,
   ``batch_sum`` (a loss's sums and counts) and ``batch_stat_sum`` (a
-  BatchNorm's sums) all-reduce over the ranks, so the step computes what
-  one process computes on the concatenated batch. ``all_reduce_grads``
-  then sums the per-rank gradients.
+  BatchNorm's sums) all-reduce over the ranks (or over the group given,
+  a data-parallel group of a larger grid), so the step computes what one
+  process computes on the concatenated batch. ``all_reduce_grads`` then
+  sums the per-rank gradients.
 
-Every all-reduce is counted in ``counts["all_reduce"]``.
+Every all-reduce is counted in ``counts["all_reduce"]``. A tensor that does
+not live on ``comm_device()`` (a card's tensor under gloo) is staged
+through it.
 """
 
 from __future__ import annotations
@@ -37,6 +41,7 @@ log = logging.getLogger(__name__)
 
 _initialized = False
 _global_batch = False  # set inside global_batch()
+_group = None  # the group of the global batch (None: every rank)
 counts = {"all_reduce": 0}
 
 
@@ -47,13 +52,15 @@ def _env_int(name: str) -> int | None:
 
 def initialize(init_method: str | None = None, world_size: int | None = None,
                rank: int | None = None, local_rank: int | None = None,
-               device=None) -> None:
+               device=None, backend: str | None = None) -> None:
     """Join the process group exactly once.
 
     Resolution order: explicit arguments > the ``torchrun`` environment >
     single-process no-op. ``device`` is the rank's device (default
     ``cuda:{LOCAL_RANK}``); without a card and without a device this
-    raises rather than falling back to gloo on the CPU."""
+    raises rather than falling back to gloo on the CPU. ``backend``
+    (default NCCL on a card, gloo on the CPU): gloo on a card stages every
+    collective through the host, for ranks that share a card."""
     global _initialized
     if _initialized or (dist.is_available() and dist.is_initialized()):
         _initialized = True
@@ -70,11 +77,12 @@ def initialize(init_method: str | None = None, world_size: int | None = None,
     dev = resolve_device(device)  # without a device and a card: raise
     if device is None:  # the rank's card
         dev = torch.device("cuda", local if local is not None else (rank or 0))
+    backend = backend or ("nccl" if dev.type == "cuda" else "gloo")
     kwargs = {}
     if dev.type == "cuda":
         torch.cuda.set_device(dev)
-        kwargs["device_id"] = dev
-    backend = "nccl" if dev.type == "cuda" else "gloo"
+        if backend == "nccl":
+            kwargs["device_id"] = dev
     dist.init_process_group(backend, init_method=init_method, world_size=world_size,
                             rank=rank, **kwargs)
     _initialized = True
@@ -118,10 +126,17 @@ def comm_device() -> torch.device:
     return torch.device("cpu")
 
 
-def _all_reduce(t: torch.Tensor) -> torch.Tensor:
+def all_reduce(t: torch.Tensor, group=None) -> torch.Tensor:
+    """Sum ``t`` in place over ``group`` (default: every rank), staged
+    through ``comm_device()`` when ``t`` lives elsewhere."""
     counts["all_reduce"] += 1
-    dist.all_reduce(t)
-    return t
+    comm = comm_device()
+    if t.device == comm:
+        dist.all_reduce(t, group=group)
+        return t
+    staged = t.to(comm)
+    dist.all_reduce(staged, group=group)
+    return t.copy_(staged)
 
 
 class _SumReplicated(torch.autograd.Function):
@@ -131,7 +146,7 @@ class _SumReplicated(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, t):
-        return _all_reduce(t.clone())
+        return all_reduce(t.clone(), _group)
 
     @staticmethod
     def backward(ctx, grad):
@@ -141,27 +156,31 @@ class _SumReplicated(torch.autograd.Function):
 class _SumToRanks(torch.autograd.Function):
     """All-reduce whose result feeds each rank's own rows (a BatchNorm's
     statistics): every rank's rows depend on every rank's inputs, so the
-    backward sums the incoming gradients over the ranks."""
+    backward sums the incoming gradients over the ranks of the forward's
+    group, wherever the backward runs."""
 
     @staticmethod
     def forward(ctx, t):
-        return _all_reduce(t.clone())
+        ctx.group = _group
+        return all_reduce(t.clone(), _group)
 
     @staticmethod
     def backward(ctx, grad):
-        return _all_reduce(grad.clone())
+        return all_reduce(grad.clone(), ctx.group)
 
 
 @contextlib.contextmanager
-def global_batch():
-    """Make ``batch_sum`` and ``batch_stat_sum`` sum over the process
-    group (a no-op outside one): the training step's global batch."""
-    global _global_batch
-    prev, _global_batch = _global_batch, in_process_group()
+def global_batch(group=None):
+    """Make ``batch_sum`` and ``batch_stat_sum`` sum over ``group`` (default:
+    every rank; a no-op outside a process group): the training step's
+    global batch."""
+    global _global_batch, _group
+    prev = _global_batch, _group
+    _global_batch, _group = in_process_group(), group
     try:
         yield
     finally:
-        _global_batch = prev
+        _global_batch, _group = prev
 
 
 def batch_sum(t: torch.Tensor) -> torch.Tensor:
@@ -176,15 +195,15 @@ def batch_stat_sum(t: torch.Tensor) -> torch.Tensor:
     return _SumToRanks.apply(t) if _global_batch else t
 
 
-def all_reduce_grads(params) -> None:
-    """Sum the gradients of ``params`` over the ranks (one all-reduce of
-    one flat buffer); a no-op outside a process group."""
+def all_reduce_grads(params, group=None) -> None:
+    """Sum the gradients of ``params`` over ``group`` (default: every rank;
+    one all-reduce of one flat buffer); a no-op outside a process group."""
     if not in_process_group():
         return
     grads = [p.grad for p in params if p.grad is not None]
     if not grads:
         return
-    flat = _all_reduce(torch.cat([g.reshape(-1) for g in grads]))
+    flat = all_reduce(torch.cat([g.reshape(-1) for g in grads]), group)
     for g, part in zip(grads, flat.split([g.numel() for g in grads])):
         g.copy_(part.view_as(g))
 

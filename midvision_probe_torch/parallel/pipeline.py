@@ -10,13 +10,16 @@ interleaving) over ``n_micro + n_stages - 1`` ticks. No driver uses it.
 
 Every rank holds the whole input batch, as in the JAX runner, and every
 rank returns the last stage's output for the whole batch (the JAX runner's
-``psum``; here a broadcast from the last rank).
+``psum``; here a broadcast from the last rank). Activations travel through
+``multihost.comm_device()``: the card under NCCL, the host under gloo.
 """
 
 from __future__ import annotations
 
 import torch
 import torch.distributed as dist
+
+from midvision_probe_torch.parallel.multihost import comm_device
 
 
 def _global_rank(group, group_rank: int) -> int:
@@ -59,6 +62,7 @@ def pipeline_apply(stage_fn, stage_params, x: torch.Tensor, n_micro: int | None 
         raise ValueError(f"batch {B} is not divisible into {n_micro} microbatches")
     xs = x.reshape(n_micro, B // n_micro, *x.shape[1:])
     outs = torch.zeros_like(xs)
+    comm = comm_device()
     sends = []
     for t in range(n_micro + n_stages - 1):
         m = t - sid
@@ -67,15 +71,17 @@ def pipeline_apply(stage_fn, stage_params, x: torch.Tensor, n_micro: int | None 
         if sid == 0:
             cur = xs[m]
         else:
-            cur = torch.empty_like(xs[m])
+            cur = torch.empty_like(xs[m], device=comm)
             dist.recv(cur, _global_rank(group, sid - 1), group=group)
+            cur = cur.to(x.device)
         y = stage_fn(stage_params, cur)
         if sid == n_stages - 1:
             outs[m] = y
         else:
-            y = y.contiguous()
+            y = y.to(comm).contiguous()
             sends.append((dist.isend(y, _global_rank(group, sid + 1), group=group), y))
     for work, _ in sends:
         work.wait()
-    dist.broadcast(outs, _global_rank(group, n_stages - 1), group=group)
-    return outs.reshape(B, *x.shape[1:])
+    staged = outs.to(comm)
+    dist.broadcast(staged, _global_rank(group, n_stages - 1), group=group)
+    return staged.to(x.device).reshape(B, *x.shape[1:])

@@ -7,6 +7,8 @@ to the CPU on its own.
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 import torch.distributed as dist
 
@@ -37,3 +39,15 @@ def resolve_dtype(dtype=None) -> torch.dtype:
     if not isinstance(resolved, torch.dtype):
         raise ValueError(f"unknown dtype {dtype!r}")
     return resolved
+
+
+@contextlib.contextmanager
+def full_f32():
+    """TF32 off for matmuls and cuDNN convolutions; the flags restored."""
+    flags = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = flags

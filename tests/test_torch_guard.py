@@ -208,7 +208,8 @@ LAUNCH_AND_TOOLS = sorted(m for m in _port_modules() if m.startswith((
 # scripts are imported under (they put their directories on sys.path)
 SCRIPT_MODULES = ("launch_script", "data_processing", "sweep", "suite_run",
                   "aggregate_results", "export_golden", "torch_replicas",
-                  "convert_checkpoints", "extract_instance_masks")
+                  "convert_checkpoints", "extract_instance_masks", "time_suite",
+                  "fast_preset_ab", "shuffle_ab", "__graft_entry__")
 
 
 def test_launchers_and_data_tools_import_neither_jax_nor_the_jax_scripts():
@@ -217,7 +218,7 @@ def test_launchers_and_data_tools_import_neither_jax_nor_the_jax_scripts():
     own ``launch_script/`` or ``data_processing/`` modules; and their
     sources neither name those directories in an import nor put anything
     on ``sys.path``."""
-    assert len(LAUNCH_AND_TOOLS) == 9, LAUNCH_AND_TOOLS
+    assert len(LAUNCH_AND_TOOLS) == 12, LAUNCH_AND_TOOLS
     code = (
         "import importlib, sys\n"
         f"sys.path.insert(0, {str(ROOT)!r})\n"
@@ -242,3 +243,37 @@ def test_launchers_and_data_tools_import_neither_jax_nor_the_jax_scripts():
                         for m in SCRIPT_MODULES):
                     hits.append((path.name, n, line.strip()))
     assert hits == []
+
+
+def test_suite_timing_the_ab_launchers_and_the_dry_run_raise_without_a_device(
+        monkeypatch, tmp_path, capsys):
+    """``launch.time_suite``, ``launch.fast_preset_ab``, ``launch.shuffle_ab``
+    and ``graft_entry`` run on the card by default: on a host without one
+    and without ``--device cpu`` / ``device="cpu"`` each raises before its
+    first forward, and the dry run before it starts a rank."""
+    import subprocess as sp
+
+    from midvision_probe_torch import graft_entry
+    from midvision_probe_torch.launch import fast_preset_ab, shuffle_ab, time_suite
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+    def no_rank(*args, **kwargs):
+        raise AssertionError("started a rank on the CPU")
+
+    monkeypatch.setattr(sp, "Popen", no_rank)
+    for run in (lambda: time_suite.main(["--backbones", "test_tiny_vit", "--batch", "1",
+                                         "--out", str(tmp_path / "t.md")]),
+                lambda: time_suite.measure_backbone("test_tiny_vit", 1, (32, 32)),
+                lambda: fast_preset_ab.main(["--backbone", "test_tiny", "--arms", "dpt-160",
+                                             "--out", str(tmp_path / "a.md"),
+                                             "--work-dir", str(tmp_path)]),
+                lambda: shuffle_ab.main(["--seeds", "0", "--out", str(tmp_path / "s.md"),
+                                         "--work-dir", str(tmp_path)]),
+                lambda: graft_entry.entry(),
+                lambda: graft_entry.dryrun_multichip(4),
+                lambda: graft_entry.dryrun_multichip(4, preset="vitb")):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            run()
+    assert not list(tmp_path.iterdir())  # nothing ran on the CPU
+    assert "[ab]" not in capsys.readouterr().out
