@@ -258,21 +258,34 @@ JSON line per phase and fails on the first failing phase:
    independent CPU replica (``data_processing/torch_replicas.py``; SAM's is
    ``transformers``' model, reported as having no oracle on a host without
    it), dino_vitb16's reading, K1 12 a forward of the ViTs on ``tf32x3``.
-10k. ``suite_timing``: ``launch.time_suite`` at its defaults (batch 32 at
-   480², dino_vitb16 and simclr_resnet50, the DPT probe in f32 and bf16 and
-   the linear one in bf16): each row's three times and losses, the suite
-   projection (held to ``project_suite`` recomputed from the rows), K1 on
-   ``wgmma``.
-10l. ``preset_ab``: ``launch.fast_preset_ab`` on dino_b16, 64 instances,
+10k. ``suite_timing``: ``launch.time_suite``'s ``main`` in a process of its
+   own (``chip_smoke.py --counted OUT MODULE:FUNCTION``, which also writes
+   the launch counts and the return value to OUT) at its defaults (batch
+   32 at 480², dino_vitb16 and simclr_resnet50, the DPT probe in f32 and
+   bf16 and the linear one in bf16): each row's three times and losses,
+   the suite projection (held to ``project_suite`` recomputed from the
+   rows), K1 on ``wgmma``.
+10l. ``bench_matrix``: ``python -m midvision_probe_torch.launch.bench_matrix``
+   as a process of its own (``chip_smoke.py --counted OUT MODULE`` runs it
+   as ``-m`` does), in its check mode against the committed
+   ``launch/bench_matrix_expected.json``: rc 0, the six rows with their
+   expectations and ratios, the B/16 extraction within 10% of ``forward``
+   and both step rows within 10% of ``suite_timing``'s, K1 12 a ViT
+   forward on ``wgmma``.
+10m. ``preset_ab``: ``launch.fast_preset_ab`` on dino_b16, 64 instances,
    arms ``protocol-dpt``, ``dpt-192-hd256`` (its row read from the
    ``_eval480`` directory) and ``fast-linear`` at ``--size 480``.
-10m. ``shuffle_ab``: ``launch.shuffle_ab`` at its defaults on seeds 0 and 1.
-10n. ``graft_entry``: ``graft_entry.entry()`` (K1 12 on ``wgmma``, four
+10n. ``shuffle_ab``: ``launch.shuffle_ab`` at its defaults on seeds 0 and 1.
+10o. ``graft_entry``: ``graft_entry.entry()`` (K1 12 on ``wgmma``, four
    finite maps), then ``dryrun_multichip(4, preset="vitb")``: four gloo
    ranks sharing this card as a 2 x 2 (data, model) grid, each rank's loss
    against the same step unsharded in this process (1e-4 relative), the
    sharded K4 against the unsharded launch, the pipeline, K1 12 a rank at
-   6 heads on ``tf32x3``. Each of 10k-10n prints its wall on a
+   6 heads on ``tf32x3``.
+10p. ``bench``: ``python -m midvision_probe_torch.bench`` the same way:
+   exactly one JSON line with the four keys and the headline metric, its
+   value within 10% of the ``forward`` phase's DINO B/16 images/s, K1 12 a
+   forward on ``wgmma``. Each of 10k-10p prints its wall on a
    ``phase_wall`` line.
 11. ``bench_attn``: the attention bench through its entry point
    (``midvision_probe_torch.bench_attn.main``) with every variant (``base``
@@ -3617,6 +3630,67 @@ def phase_checkpoint_drill(torch, smi: str) -> dict:
     return counts
 
 
+# ------------------------------------------------ commands in processes of their own
+# readings of earlier phases that the two commands are held to:
+# "forward" {model: images/s per card}, "suite_timing" [rows]
+READINGS = {"forward": {}}
+
+
+def counted_run(out_json: str, target: str, *argv: str) -> int:
+    """``--counted OUT_JSON MODULE [ARGS...]``: ``python -m MODULE ARGS`` in
+    this process, run as ``-m`` runs it; ``--counted OUT_JSON
+    MODULE:FUNCTION [ARGS...]``: ``FUNCTION([ARGS...])`` of MODULE, its
+    return value kept as ``result``. Every launch count is set to 0 first;
+    the counts and the exit code are written to ``out_json`` when it ends
+    (stdout is the command's alone)."""
+    import runpy
+
+    sys.path.insert(0, HERE)
+    reset_counts()
+    module, _, function = target.partition(":")
+    sys.argv = [module, *argv]
+    rc, result = 1, None
+    try:
+        if function:
+            result = getattr(importlib.import_module(module), function)(list(argv))
+        else:
+            runpy.run_module(module, run_name="__main__", alter_sys=True)
+        rc = 0
+    except SystemExit as e:
+        rc = e.code if isinstance(e.code, int) else int(e.code is not None)
+    finally:
+        with open(out_json, "w") as f:
+            json.dump({"rc": rc, "launches": read_counts(), "result": result}, f)
+    return rc
+
+
+def run_command(target: str, argv, timeout_s: int, **env) -> dict:
+    """``python -m target argv`` (or ``target``'s ``module:function``) in a
+    process of its own from the checkout's root, as a user runs it, through
+    ``--counted``: its exit code, stdout, the tail of its stderr, its wall,
+    the launch counts it made and the function's return value."""
+    fd, out_json = tempfile.mkstemp(suffix=".json", prefix="mvp_chip_smoke_counts_")
+    os.close(fd)
+    cmd = [sys.executable, os.path.join(HERE, "chip_smoke.py"), "--counted", out_json,
+           target, *argv]
+    try:
+        with env_vars(**env):
+            t0 = time.perf_counter()
+            proc = subprocess.run(cmd, cwd=HERE, capture_output=True, text=True,
+                                  timeout=timeout_s)
+            wall = time.perf_counter() - t0
+        with open(out_json) as f:
+            counted = json.load(f)
+    finally:
+        os.remove(out_json)
+    return {"rc": proc.returncode, "stdout": proc.stdout, "stderr_tail": proc.stderr[-2000:],
+            "wall_s": wall, "launches": counted["launches"], "result": counted["result"]}
+
+
+def within(x: float, ref: float, frac: float) -> bool:
+    return math.isfinite(x) and abs(x / ref - 1) <= frac
+
+
 # ------------------------------------------- suite timing, the A/Bs, the driver entry
 def k1_on_route(counts: dict, route: str) -> bool:
     """K1 launched, every attention launch of the phase on ``route``."""
@@ -3626,7 +3700,8 @@ def k1_on_route(counts: dict, route: str) -> bool:
 
 def phase_suite_timing(torch, smi: str) -> dict:
     """The port's suite-timing tool (``launch/time_suite.py``) through its
-    ``main`` at the JAX script's defaults: batch 32 at 480², dino_vitb16
+    ``main`` in a process of its own (``run_command``) at the JAX script's
+    defaults: batch 32 at 480², dino_vitb16
     and simclr_resnet50, the DPT probe in f32 and bf16 and the linear probe
     in bf16 (ResNet-50 without the f32 probe), the backbone in bf16. Prints
     each row's extraction, probe-step and full-step times and losses, the
@@ -3640,12 +3715,13 @@ def phase_suite_timing(torch, smi: str) -> dict:
 
     root = tempfile.mkdtemp(prefix="mvp_chip_smoke_timing_")
     try:
-        reset_counts()
-        t0 = time.perf_counter()
-        res = time_suite.main(["--out", os.path.join(root, "suite_timing.md")])
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        counts = read_counts()
+        # a process of its own, as the command runs: this process's state
+        # (a profiler session ran) slows host-bound steps (PERF.md §6)
+        run = run_command("midvision_probe_torch.launch.time_suite:main",
+                          ["--out", os.path.join(root, "suite_timing.md")], 600)
+        if run["rc"] != 0:
+            raise SystemExit(f"suite_timing failed: {run['stderr_tail']}")
+        res, wall, counts = run["result"], run["wall_s"], run["launches"]
         with open(res["report"]) as f:
             report = f.read()
     finally:
@@ -3671,7 +3747,7 @@ def phase_suite_timing(torch, smi: str) -> dict:
                      "device_busy_share": step_ms * 3 / (prof_wall * 1e3),
                      "top_ms_per_step": [[k[:80], t] for k, t in by_kernel[:10]]}
     del steps, feats
-    rows = res["rows"]
+    rows = READINGS["suite_timing"] = res["rows"]
     recomputed = time_suite.project_suite(
         [(r["tag"], r["extract_s"], r["probe_s"], r["full_s"]) for r in rows], 32)
     tags = [f"{m}/{h}" for m in ("dino_vitb16", "simclr_resnet50")
@@ -3930,6 +4006,114 @@ def dryrun_update_errors(rank: dict, ref: dict, lr: float) -> dict:
             "param_err": other_err, "stats_err": stats_err, "flipped": flips}
 
 
+# ------------------------------------------------- the headline bench, the matrix
+BENCH_KEYS = {"metric", "value", "unit", "vs_baseline"}
+
+
+def phase_bench(torch, smi: str) -> dict:
+    """The port's headline bench (``python -m midvision_probe_torch.bench``)
+    as a process of its own at its defaults: DINO ViT-B/16, batch 64 at
+    480x640, 4 taps, bf16, after its one-launch card probe. Gates: rc 0;
+    exactly one line on stdout, a JSON object with the four keys, the
+    headline metric, ``imgs/sec/chip`` and ``vs_baseline`` = value/250;
+    the value finite and within 10% of the ``forward`` phase's DINO B/16
+    images/s in this run (the bench also casts the four maps to f32); K1 12
+    a forward on ``wgmma`` over its 21 forwards. Returns the launch counts."""
+    from midvision_probe_torch import bench
+
+    res = run_command("midvision_probe_torch.bench", [], 300,
+                      MVP_BENCH_BACKBONE=None, MVP_BENCH_BATCH=None)
+    lines = [ln for ln in res["stdout"].splitlines() if ln.strip()]
+    try:
+        line = json.loads(lines[0]) if len(lines) == 1 else None
+    except json.JSONDecodeError:
+        line = None
+    counts = res["launches"]
+    forward_rate = READINGS["forward"]["dino_vitb16"]
+    value = float(line["value"]) if isinstance(line, dict) and "value" in line else math.nan
+    checks = {
+        "rc_0": res["rc"] == 0,
+        "one_json_line": isinstance(line, dict) and set(line) == BENCH_KEYS,
+        "headline_metric": isinstance(line, dict) and line.get("metric") == bench.metric_name(
+            bench.HEADLINE) == "vitb16_dense_multilayer_imgs_per_sec_per_chip"
+        and line.get("unit") == "imgs/sec/chip",
+        "vs_baseline": isinstance(line, dict)
+        and line.get("vs_baseline") == round(value / bench.BASELINE_IMGS_PER_SEC, 3),
+        "within_10pct_of_forward": within(value, forward_rate, 0.10),
+        "k1_12_a_forward_on_wgmma": counts["forwards"] == 1 + bench.N_ITERS
+        and per_forward_ok(counts, DINO_PER_FORWARD),
+    }
+    emit({"phase": "bench", "line": line, "stdout_lines": len(lines),
+          "forward_imgs_per_s": forward_rate,
+          "ratio_to_forward": value / forward_rate, "wall_s": res["wall_s"],
+          "launches": counts, "stderr_tail": res["stderr_tail"][-500:], "checks": checks,
+          "nvidia_smi": smi, "gpu_state": gpu_state()})
+    if not all(checks.values()):
+        raise SystemExit(f"bench check failed: {checks}\n{res['stderr_tail']}")
+    return counts
+
+
+def suite_row(tag: str) -> dict:
+    return next(r for r in READINGS["suite_timing"] if r["tag"] == tag)
+
+
+def phase_bench_matrix(torch, smi: str) -> dict:
+    """The port's regression matrix (``python -m
+    midvision_probe_torch.launch.bench_matrix``) as a process of its own in
+    its check mode against the committed
+    ``launch/bench_matrix_expected.json``: the six rows, each printed with
+    its value, its expectation and their ratio. Gates: the expectations
+    file present with its ``_meta`` naming a card; rc 0 (no row regressed
+    beyond 15%); all six rows measured; ``vitb16_extract`` within 10% of
+    the ``forward`` phase's DINO B/16 images/s, ``vitb16_dpt_step`` and
+    ``vitb16_linear_step`` within 10% of ``suite_timing``'s dino_vitb16
+    ``dpt-bf16`` full step and ``linear-bf16`` probe step; K1 12 a ViT
+    forward, all on ``wgmma``, and no other kernel (SAM, ConvNeXt and
+    ResNet-50 run library ops). Returns the launch counts."""
+    from midvision_probe_torch.launch import bench_matrix
+
+    with open(bench_matrix.EXPECTED_PATH) as f:
+        expected = json.load(f)
+    root = tempfile.mkdtemp(prefix="mvp_chip_smoke_matrix_")
+    try:
+        out = os.path.join(root, "bench_matrix.json")
+        res = run_command("midvision_probe_torch.launch.bench_matrix", ["--out", out], 600)
+        with open(out) as f:
+            measured = json.load(f)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    keys = [*bench_matrix.EXTRACT_ROWS, *bench_matrix.STEP_ROWS]
+    rows = {k: {"value": measured[k]["value"], "unit": measured[k]["unit"],
+                "expected": expected[k]["value"],
+                "ratio": measured[k]["value"] / expected[k]["value"]}
+            for k in keys if k in measured and k in expected}
+    counts = res["launches"]
+    # the extraction rows of ResNet-50, SAM-B and ConvNeXt-B run no ViT forward
+    non_vit = 3 * (1 + bench_matrix.EXTRACT_ITERS)
+    refs = {"vitb16_extract": READINGS["forward"]["dino_vitb16"],
+            "vitb16_dpt_step": suite_row("dino_vitb16/dpt-bf16")["full_s"] * 1e3,
+            "vitb16_linear_step": suite_row("dino_vitb16/linear-bf16")["probe_s"] * 1e3}
+    checks = {
+        "expectations_from_a_card": "card" in expected.get("_meta", {})
+        and "CPU" not in expected["_meta"]["card"],
+        "rc_0": res["rc"] == 0 and "all rows within tolerance" in res["stdout"],
+        "six_rows": sorted(rows) == sorted(keys),
+        **{f"{k}_within_10pct": k in rows and within(rows[k]["value"], ref, 0.10)
+           for k, ref in refs.items()},
+        "k1_12_a_vit_forward_on_wgmma": k1_on_route(counts, "wgmma")
+        and counts["k1"] == 12 * (counts["forwards"] - non_vit)
+        and all(counts[k] == 0 for k in KERNELS if k != "k1"),
+    }
+    emit({"phase": "bench_matrix", "rows": rows, "cross_check_refs": refs,
+          "meta": measured.get("_meta"), "expected_meta": expected.get("_meta"),
+          "wall_s": res["wall_s"], "launches": counts, "stdout": res["stdout"][-1500:],
+          "stderr_tail": res["stderr_tail"][-500:], "checks": checks,
+          "nvidia_smi": smi, "gpu_state": gpu_state()})
+    if not all(checks.values()):
+        raise SystemExit(f"bench_matrix check failed: {checks}\n{res['stderr_tail']}")
+    return counts
+
+
 def vit_taps(grid, width) -> list:
     """The four (h, w, C) tap shapes of a ViT forward."""
     return [(*grid, width)] * 4
@@ -3970,6 +4154,7 @@ def phase_forward(torch, smi: str, model, batch, hw, dtype, per_forward, tap_sha
         ((e.key, e.device_time_total / 1e3) for e in prof.key_averages()
          if e.device_type == torch.autograd.DeviceType.CUDA), key=lambda kv: -kv[1])
     device_ms = sum(t for _, t in by_kernel)
+    READINGS["forward"].setdefault(model, batch / (ms / 1e3))
     emit({"phase": "forward", "model": model, "batch": batch, "image_hw": hw,
           "dtype": str(dtype), "taps": backbone.multilayers, "build_s": build_s,
           "forward_ms": ms, "imgs_per_s_per_card": batch / (ms / 1e3),
@@ -4190,7 +4375,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     by_path["checkpoint_drill"] = phase_checkpoint_drill(torch, smi)
     torch.cuda.empty_cache()
-    for phase in (phase_suite_timing, phase_preset_ab, phase_shuffle_ab):
+    # the matrix right after suite_timing: its step rows are held to that
+    # phase's, and a host-bound step's time drifts with the host over minutes
+    for phase in (phase_suite_timing, phase_bench_matrix, phase_preset_ab, phase_shuffle_ab):
         t0 = time.perf_counter()
         by_path[phase.__name__[len("phase_"):]] = phase(torch, smi)
         emit({"phase_wall": phase.__name__[len("phase_"):], "wall_s": time.perf_counter() - t0})
@@ -4198,6 +4385,9 @@ def main() -> int:
     t0 = time.perf_counter()
     by_path.update(phase_graft_entry(torch, smi))
     emit({"phase_wall": "graft_entry", "wall_s": time.perf_counter() - t0})
+    t0 = time.perf_counter()
+    by_path["bench"] = phase_bench(torch, smi)
+    emit({"phase_wall": "bench", "wall_s": time.perf_counter() - t0})
     by_path["extract_kqv"] = phase_extract_kqv(torch)
     by_path["bench_attn"] = phase_bench_attn(torch)
     by_path["path_fused_mlp"] = phase_path_fused_mlp(torch)
@@ -4267,4 +4457,6 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--ddp-worker"]:
         sys.exit(ddp_worker(*sys.argv[2:4]))
+    if sys.argv[1:2] == ["--counted"]:
+        sys.exit(counted_run(*sys.argv[2:]))
     sys.exit(main())

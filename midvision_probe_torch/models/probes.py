@@ -383,15 +383,15 @@ class DepthHead(nn.Module):
         else:
             x = _nchw(self.decoder(feats))
         # a Python constant is rounded to x's dtype first, as JAX's weakly
-        # typed scalars are
+        # typed scalars are (made on x's device: no copy from host memory)
         if self.prediction_type == "bindepth":
-            prob = F.relu(x) + x.new_tensor(0.1)
+            prob = F.relu(x) + x.new_full((), 0.1)
             prob = prob / prob.sum(dim=1, keepdim=True)
             depth = torch.einsum("bkhw,k->bhw", prob.float(), self.bins)[:, None]
         else:
             depth = _sigmoid(x)
-            depth = (x.new_tensor(self.min_depth)
-                     + depth * x.new_tensor(self.max_depth - self.min_depth))
+            depth = (x.new_full((), self.min_depth)
+                     + depth * x.new_full((), self.max_depth - self.min_depth))
         if self.defer:
             depth = _up(depth, 2, "nearest")
         return _nhwc(depth)

@@ -97,6 +97,22 @@ def _nearest_indices(in_size: int, out_size: int) -> np.ndarray:
                    0, in_size - 1).astype(np.int64)
 
 
+@functools.lru_cache(maxsize=256)
+def _resize_weights(in_size: int, out_size: int, mode: str, align_corners: bool,
+                    antialias: bool, device: torch.device) -> torch.Tensor:
+    """``_resize_matrix`` on ``device``, copied there once: a copy from host
+    memory at every call would hold the host until the card's queue
+    drains."""
+    return torch.as_tensor(_resize_matrix(in_size, out_size, mode, align_corners, antialias),
+                           device=device)
+
+
+@functools.lru_cache(maxsize=256)
+def _nearest_index_tensor(in_size: int, out_size: int, device: torch.device) -> torch.Tensor:
+    """``_nearest_indices`` on ``device``, copied there once."""
+    return torch.as_tensor(_nearest_indices(in_size, out_size), device=device)
+
+
 def resize(
     x: torch.Tensor,
     size: tuple[int, int] | None = None,
@@ -127,21 +143,17 @@ def resize(
     if (out_h, out_w) != (h, w):
         if mode == "nearest":
             if out_h != h:
-                idx = torch.as_tensor(_nearest_indices(h, out_h), device=x.device)
-                x = x.index_select(1, idx)
+                x = x.index_select(1, _nearest_index_tensor(h, out_h, x.device))
             if out_w != w:
-                idx = torch.as_tensor(_nearest_indices(w, out_w), device=x.device)
-                x = x.index_select(2, idx)
+                x = x.index_select(2, _nearest_index_tensor(w, out_w, x.device))
         else:
             dtype = x.dtype
             xf = x.float()
             if out_h != h:
-                Wh = torch.as_tensor(_resize_matrix(h, out_h, mode, align_corners,
-                                                    antialias), device=x.device)
+                Wh = _resize_weights(h, out_h, mode, align_corners, antialias, x.device)
                 xf = torch.einsum("oh,bhwc->bowc", Wh, xf)
             if out_w != w:
-                Ww = torch.as_tensor(_resize_matrix(w, out_w, mode, align_corners,
-                                                    antialias), device=x.device)
+                Ww = _resize_weights(w, out_w, mode, align_corners, antialias, x.device)
                 xf = torch.einsum("ow,bhwc->bhoc", Ww, xf)
             x = xf.to(dtype)
     return x[0] if squeeze else x

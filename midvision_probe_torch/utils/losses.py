@@ -12,7 +12,9 @@ indexing, as in the JAX package. Kept from there:
   prediction at a hole cannot produce NaN (NaN * 0 is NaN);
 * the dtypes: a bf16 prediction stays bf16 until it meets a float32
   target, and a Python constant added to it is rounded to bf16 first, as
-  JAX's weakly typed scalars are.
+  JAX's weakly typed scalars are. Such a constant is made on the
+  prediction's device (``new_full``): a copy from host memory would hold
+  the host until the card's queue drains.
 
 Every sum or count over the batch goes through ``multihost.batch_sum``:
 inside a multi-process training step (``multihost.global_batch``) it sums
@@ -70,7 +72,7 @@ def sig_loss(depth_pr, depth_gt, sigma=0.85, eps=0.001):
     valid = (depth_gt > 0).float()
     gt_safe = torch.where(depth_gt > 0, depth_gt, torch.ones_like(depth_gt))
     pr_safe = torch.where(depth_gt > 0, depth_pr, torch.ones_like(depth_pr))
-    g = (torch.log(pr_safe + pr_safe.new_tensor(eps)) - torch.log(gt_safe + eps)) * valid
+    g = (torch.log(pr_safe + pr_safe.new_full((), eps)) - torch.log(gt_safe + eps)) * valid
     n, sum_g2, sum_g = _sums(valid.sum(), (g**2).sum(), g.sum())
     n = n.clamp_min(1)
     mean_g2 = sum_g2 / n
@@ -90,7 +92,7 @@ def gradient_loss(depth_pr, depth_gt, eps=0.001):
         valid = (gt > 0).float()
         gt_safe = torch.where(gt > 0, gt, torch.ones_like(gt))
         pr_safe = torch.where(gt > 0, pr, torch.ones_like(pr))
-        diff = (torch.log(pr_safe + pr_safe.new_tensor(eps))
+        diff = (torch.log(pr_safe + pr_safe.new_full((), eps))
                 - torch.log(gt_safe + eps)) * valid
         v_grad = (diff[:, :-2, :] - diff[:, 2:, :]).abs()
         v_valid = valid[:, :-2, :] * valid[:, 2:, :]

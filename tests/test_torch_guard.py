@@ -203,22 +203,28 @@ def test_a_driver_under_a_one_rank_torchrun_env_raises_on_a_cpu_only_host(
 
 
 LAUNCH_AND_TOOLS = sorted(m for m in _port_modules() if m.startswith((
-    "midvision_probe_torch.launch", "midvision_probe_torch.data_processing")))
+    "midvision_probe_torch.launch", "midvision_probe_torch.data_processing"))) + [
+    "midvision_probe_torch.bench"]
 # top-level names the repository's launch_script/ and data_processing/
-# scripts are imported under (they put their directories on sys.path)
+# scripts and its root bench are imported under (they put their
+# directories on sys.path)
 SCRIPT_MODULES = ("launch_script", "data_processing", "sweep", "suite_run",
                   "aggregate_results", "export_golden", "torch_replicas",
                   "convert_checkpoints", "extract_instance_masks", "time_suite",
-                  "fast_preset_ab", "shuffle_ab", "__graft_entry__")
+                  "fast_preset_ab", "shuffle_ab", "__graft_entry__", "bench",
+                  "bench_matrix")
 
 
 def test_launchers_and_data_tools_import_neither_jax_nor_the_jax_scripts():
-    """``launch/`` and ``data_processing/`` of the port, each imported in a
-    fresh interpreter: no jax, no JAX package and none of the repository's
-    own ``launch_script/`` or ``data_processing/`` modules; and their
-    sources neither name those directories in an import nor put anything
-    on ``sys.path``."""
-    assert len(LAUNCH_AND_TOOLS) == 12, LAUNCH_AND_TOOLS
+    """``launch/`` and ``data_processing/`` of the port and its headline
+    bench, each imported in a fresh interpreter: no jax, no JAX package
+    and none of the repository's own ``launch_script/`` or
+    ``data_processing/`` modules or its root ``bench.py``; and their
+    sources neither name those in an import nor put anything on
+    ``sys.path``."""
+    assert len(LAUNCH_AND_TOOLS) == 14, LAUNCH_AND_TOOLS
+    assert {"midvision_probe_torch.bench",
+            "midvision_probe_torch.launch.bench_matrix"} <= set(LAUNCH_AND_TOOLS)
     code = (
         "import importlib, sys\n"
         f"sys.path.insert(0, {str(ROOT)!r})\n"
@@ -234,14 +240,15 @@ def test_launchers_and_data_tools_import_neither_jax_nor_the_jax_scripts():
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     hits = []
-    for sub in ("launch", "data_processing"):
-        for path in sorted((PORT / sub).glob("*.py")):
-            for n, line in enumerate(path.read_text().splitlines(), 1):
-                code_part = line.split("#")[0]
-                if "sys.path" in code_part or any(
-                        code_part.lstrip().startswith((f"import {m}", f"from {m} "))
-                        for m in SCRIPT_MODULES):
-                    hits.append((path.name, n, line.strip()))
+    sources = [PORT / "bench.py", *(PORT / "launch").glob("*.py"),
+               *(PORT / "data_processing").glob("*.py")]
+    for path in sources:
+        for n, line in enumerate(path.read_text().splitlines(), 1):
+            code_part = line.split("#")[0]
+            if "sys.path" in code_part or any(
+                    code_part.lstrip().startswith((f"import {m}", f"from {m} "))
+                    for m in SCRIPT_MODULES):
+                hits.append((path.name, n, line.strip()))
     assert hits == []
 
 
