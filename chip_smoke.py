@@ -264,7 +264,9 @@ JSON line per phase and fails on the first failing phase:
    32 at 480², dino_vitb16 and simclr_resnet50, the DPT probe in f32 and
    bf16 and the linear one in bf16): each row's three times and losses,
    the suite projection (held to ``project_suite`` recomputed from the
-   rows), K1 on ``wgmma``.
+   rows), K1 on ``wgmma``; the timed probe steps are CUDA-graph replays,
+   each held to the eager step (same ``capturable`` AdamW) on the same
+   features.
 10l. ``bench_matrix``: ``python -m midvision_probe_torch.launch.bench_matrix``
    as a process of its own (``chip_smoke.py --counted OUT MODULE`` runs it
    as ``-m`` does), in its check mode against the committed
@@ -3709,14 +3711,19 @@ def phase_suite_timing(torch, smi: str) -> dict:
     time positive, the projection equal to ``project_suite`` recomputed
     from the rows, the report naming the card, K1 12 a ViT forward, all on
     ``wgmma``. Then three probe steps of dino_vitb16's bf16 DPT probe under
-    ``torch.profiler``: device ms a step by kernel and the busy share.
-    Returns the launch counts."""
+    ``torch.profiler``: device ms a step by kernel and the busy share; and
+    the timed steps' CUDA-graph replay against the eager step with the same
+    ``capturable`` AdamW (``replay_against_eager``, the DPT and linear bf16
+    probes): the losses within 1e-6 relative and the parameters'
+    99.9th-percentile difference within 0.01 of the learning rate (the
+    bilinear backward's atomics are all that may differ). Returns the
+    launch counts."""
     from midvision_probe_torch.launch import time_suite
 
     root = tempfile.mkdtemp(prefix="mvp_chip_smoke_timing_")
     try:
         # a process of its own, as the command runs: this process's state
-        # (a profiler session ran) slows host-bound steps (PERF.md §6)
+        # (a profiler session ran) slows host-bound work (PERF.md §6)
         run = run_command("midvision_probe_torch.launch.time_suite:main",
                           ["--out", os.path.join(root, "suite_timing.md")], 600)
         if run["rc"] != 0:
@@ -3746,6 +3753,12 @@ def phase_suite_timing(torch, smi: str) -> dict:
     probe_profile = {"step_wall_ms": prof_wall * 1e3 / 3, "step_device_ms": step_ms,
                      "device_busy_share": step_ms * 3 / (prof_wall * 1e3),
                      "top_ms_per_step": [[k[:80], t] for k, t in by_kernel[:10]]}
+    # the timed probe steps are CUDA-graph replays: each against the eager
+    # step from the same seeded probe on these features
+    replay = {"dpt-bf16": replay_against_eager(torch, time_suite, steps.backbone.feat_dim,
+                                               "dpt", feats, steps.depth),
+              "linear-bf16": replay_against_eager(torch, time_suite, feats[-1].shape[-1],
+                                                  "linear", feats[-1:], steps.depth)}
     del steps, feats
     rows = READINGS["suite_timing"] = res["rows"]
     recomputed = time_suite.project_suite(
@@ -3762,18 +3775,62 @@ def phase_suite_timing(torch, smi: str) -> dict:
         "report_names_the_card": smi.splitlines()[0].split(",")[0] in report,
         "k1_12_a_vit_forward_on_wgmma": k1_on_route(counts, "wgmma")
         and counts["k1"] % 12 == 0 and counts["k2"] == counts["k3"] == 0,
+        **{f"{h}_replay_matches_capturable_eager":
+           r["replayed_vs_capturable"]["loss_rel"] <= 1e-6
+           and r["replayed_vs_capturable"]["q0.999_lr"] <= 0.01 for h, r in replay.items()},
     }
     proj = res["projection"]
     emit({"phase": "suite_timing", "wall_s": wall, "rows": rows,
           "projection_h": {k: proj[k] / 3600 for k in ("suite_cached", "suite_uncached",
                                                        "suite_linear")},
           "projection_s": proj, "cards": 4, "launches": counts,
-          "dpt_bf16_probe_step_profile": probe_profile, "checks": checks,
+          "dpt_bf16_probe_step_profile": probe_profile, "replay_against_eager": replay,
+          "checks": checks,
           "nvidia_smi": smi, "gpu_state": gpu_state()})
     torch.cuda.empty_cache()
     if not all(checks.values()):
         raise SystemExit(f"suite_timing check failed: {checks}")
     return counts
+
+
+def replay_against_eager(torch, time_suite, feat_dim, head: str, feats, depth,
+                         n: int = 3) -> dict:
+    """``Steps.graphed_probe_step`` (two eager warm-up steps, then ``n``
+    replays) against ``n + 2`` eager ``probe_step`` calls with the same
+    ``capturable`` AdamW, and against the eager step with the default
+    AdamW (whose bias corrections are host floats), each from a fresh bf16
+    probe of ``time_suite.build_probe``'s seed on ``feats``. The last
+    ``n`` losses, and quantiles of the parameters' differences after, in
+    units of the learning rate: AdamW's first updates are lr·sign(g), so a
+    replay that did not update them would be ~1 lr off at the median."""
+    runs = {}
+    for arm in ("eager", "capturable", "replayed"):
+        modules, optimizer = time_suite.build_probe(feat_dim, head, probe_dtype="bfloat16",
+                                                    device="cuda")
+        steps = time_suite.Steps(None, modules, optimizer, None, depth)
+        if arm == "replayed":
+            step = steps.graphed_probe_step(feats, depth)
+        else:
+            for group in optimizer.param_groups:
+                group["capturable"] = arm == "capturable"
+            for _ in range(2):
+                steps.probe_step(feats, depth)
+            step = steps.probe_step
+        losses = [float(step(feats, depth)) for _ in range(n)]
+        runs[arm] = (losses, torch.cat([p.detach().reshape(-1) for p in modules.parameters()]))
+        del steps, step, modules, optimizer
+    torch.cuda.empty_cache()
+
+    def compare(a, b):
+        (la, pa), (lb, pb) = runs[a], runs[b]
+        diff = (pa - pb).abs().sort().values / time_suite.ADAMW_LR
+        return {"loss_rel": max(abs(x - y) / abs(y) for x, y in zip(la, lb)),
+                **{f"q{q}_lr": float(diff[int(q * (diff.numel() - 1))])
+                   for q in (0.5, 0.99, 0.999, 1.0)}}
+
+    return {"losses": {arm: r[0] for arm, r in runs.items()},
+            "replayed_vs_capturable": compare("replayed", "capturable"),
+            "replayed_vs_eager": compare("replayed", "eager")}
 
 
 PRESET_AB_ARMS = ("protocol-dpt", "dpt-192-hd256", "fast-linear")
@@ -4376,7 +4433,7 @@ def main() -> int:
     by_path["checkpoint_drill"] = phase_checkpoint_drill(torch, smi)
     torch.cuda.empty_cache()
     # the matrix right after suite_timing: its step rows are held to that
-    # phase's, and a host-bound step's time drifts with the host over minutes
+    # phase's, and a host-bound extraction drifts with the host over minutes
     for phase in (phase_suite_timing, phase_bench_matrix, phase_preset_ab, phase_shuffle_ab):
         t0 = time.perf_counter()
         by_path[phase.__name__[len("phase_"):]] = phase(torch, smi)

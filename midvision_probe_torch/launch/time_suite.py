@@ -99,6 +99,41 @@ class Steps:
     def full_step(self, images: torch.Tensor, depth: torch.Tensor) -> torch.Tensor:
         return self.probe_step(self.extract(images), depth)
 
+    def graphed_probe_step(self, feats: list[torch.Tensor], depth: torch.Tensor):
+        """``probe_step`` recorded once as a CUDA graph on ``feats`` and
+        ``depth`` (after two eager steps on a side stream) and replayed at
+        each call: one launch a step, as the JAX script's jitted step is
+        one dispatch. Eagerly the linear probe's step issues hundreds of kernels
+        whose host time is about their device time (``PERF.md``), so its
+        time would follow the host's load. Returns ``step(feats, depth)``,
+        which copies inputs other than the recorded ones into them first
+        and returns the recorded loss. AdamW runs ``capturable`` (its step
+        counts and bias corrections on the card), which rounds apart from
+        the default AdamW; the replay equals the eager step with it."""
+        for group in self.optimizer.param_groups:
+            group["capturable"] = True
+        for state in self.optimizer.state.values():
+            if "step" in state:
+                state["step"] = state["step"].to(depth.device)
+        feats, side = list(feats), torch.cuda.Stream(depth.device)
+        side.wait_stream(torch.cuda.current_stream(depth.device))
+        with torch.cuda.stream(side):
+            for _ in range(2):
+                self.probe_step(feats, depth)
+        torch.cuda.current_stream(depth.device).wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            loss = self.probe_step(feats, depth)
+
+        def step(new_feats: list[torch.Tensor], new_depth: torch.Tensor) -> torch.Tensor:
+            for dst, src in zip((*feats, depth), (*new_feats, new_depth)):
+                if dst.data_ptr() != src.data_ptr():
+                    dst.copy_(src)
+            graph.replay()
+            return loss
+
+        return step
+
 
 def build_probe(feat_dim, head_type: str = "dpt", hidden_dim: int = 512,
                 probe_dtype="float32", lr: float = ADAMW_LR, device=None,
@@ -154,16 +189,24 @@ def build_steps(name: str, batch: int, hw=(480, 480), head_type: str = "dpt",
 def time_steps(steps: Steps, iters: int = 10) -> dict:
     """Seconds per call of the extraction, the probe step and the full step
     (``utils/profiling.time_fn``: one warm-up call, then ``iters`` calls,
-    each waited for), and the last probe-step and full-step losses."""
+    each waited for), and the last probe-step and full-step losses. On the
+    card the probe step is ``Steps.graphed_probe_step``'s replay (the full
+    step: the extraction, then that replay); on the CPU it runs eagerly."""
     def seconds(fn, *args):
         return time_fn(fn, *args, warmup=1, iters=iters)["mean_ms"] / 1e3
 
     t_extract = seconds(steps.extract, steps.images)
     feats = steps.extract(steps.images)
-    t_probe = seconds(steps.probe_step, feats, steps.depth)
-    probe_loss = float(steps.probe_step(feats, steps.depth))
-    t_full = seconds(steps.full_step, steps.images, steps.depth)
-    full_loss = float(steps.full_step(steps.images, steps.depth))
+    probe = (steps.graphed_probe_step(feats, steps.depth) if steps.depth.is_cuda
+             else steps.probe_step)
+
+    def full(images, depth):
+        return probe(steps.extract(images), depth)
+
+    t_probe = seconds(probe, feats, steps.depth)
+    probe_loss = float(probe(feats, steps.depth))
+    t_full = seconds(full, steps.images, steps.depth)
+    full_loss = float(full(steps.images, steps.depth))
     return {"extract_s": t_extract, "probe_s": t_probe, "full_s": t_full,
             "probe_loss": probe_loss, "full_loss": full_loss}
 
