@@ -236,15 +236,15 @@ JSON line per phase and fails on the first failing phase:
    480x640, bf16, batch 8, ``k`` and ``kqv`` against a plain recompute of
    block 11's projection, K1 12 a call on ``wgmma``.
 10h. ``path_suite``: the port's full-suite runner
-   (``midvision_probe_torch.launch.suite_run``) on dino_b16 over the six
-   default tasks at the plan's own sizes and the two-phase ``depth_dpt192``
-   preset cell, 7 driver processes sharing a fresh synthetic-set disk tier,
+   (``midvision_probe_torch.launch.suite_run``) on dino_b16 over five of
+   the six default tasks (snorm left to ``path_snorm_nyu``) at the plan's
+   own sizes, 5 driver processes sharing a fresh synthetic-set disk tier,
    then ``launch.aggregate_results`` over the CSV archive: every cell's rc
    and wall, each task's total, one CSV row a cell, a ranking table a task,
-   the disk tier's files read back by the cells after depth (none
-   rewritten) and its saving; the depth and NAVI cells replayed in this
-   process with the launch counts reset (K1 on ``wgmma`` and on
-   ``tf32x3``, K4), each replay's CSV row equal to its cell's.
+   the disk tier's files read back by the depth replay (none rewritten)
+   and its saving; the depth and NAVI cells replayed in this process with
+   the launch counts reset (K1 on ``wgmma`` and on ``tf32x3``, K4), each
+   replay's CSV row equal to its cell's.
 10i. ``instance_masks``: ``midvision_probe_torch.data_processing.
    extract_instance_masks`` over 4 fabricated VOC frames with the
    fabricated ``dino_vitb16.pth`` at ``--fixed-size 480 --num-masks 3``:
@@ -296,6 +296,24 @@ JSON line per phase and fails on the first failing phase:
    counts.
 12. ``path_fused_mlp``: K6 as a library op, a 12-block residual MLP stack at
    DINO's width over a 64-image batch: wall time and launch counts.
+13. ``backward_checks``: the attention backward (``csrc/attention_bwd.cu``:
+   K10, the backward of K3, and K11, of K9) against the plain versions'
+   autograd at RADIO-v2's K3 launch in f32 (B=2, H=16, N=4097, d=80), K3's
+   bf16 one (B=2, H=12, N=8192, d=64) and the bench's K9 shape (B=64,
+   N=1280, n_valid=1201, H=12, d=64, bf16; keys and values past n_valid
+   NaN), and at B=1 against a float64 oracle; each of dq, dk and dv within
+   1e-4 * max|ref| (f32) or max(2^-6 * max|ref|, twice the plain bf16
+   version's own error against f64) (bf16); the backward's, the plain
+   version's and SDPA's backward times with the bound; K2's and K3's
+   forward times with and without the lse residual.
+14. ``grad_paths``: input gradients through frozen backbones built by the
+   zoo at full width: RADIO-v2 in f32 at 1024x1024 (batch 2, K3 and K10 32
+   launches each, the gradient along a seeded direction within 1e-2 of a
+   central difference of two forwards) and DINO ViT-B/16 in bf16 at 480x640
+   (batch 8, K1 12 launches with its recomputed backward, a finite gradient
+   whose cosine to the f32 path's is at least 0.98), and the bench's splash
+   attention at the bench shape (one K9 and one K11 launch, the gradient 0
+   at the keys and values past n_valid); walls, peak memory.
 
 Then a ``kernels`` summary line, the ``nvidia-smi`` name/power-limit line
 and, last, ``{"ok": true, "device": {...}}``. Every launch count is set to
@@ -1105,11 +1123,14 @@ def phase_mlp_checks(torch):
 # the launch counts read after every path: K1 fused_qkv_attention, K2
 # vit_attention, K3 the long-sequence route, K4 knn2, K5 rope_2d, K6
 # fused_mlp, K7 wide_attention, K8 int8_attention and its prologue
-# quantize_qk_heads (k8p), K9 splash_attention
-KERNELS = ("k1", "k2", "k3", "k4", "k5", "k6", "k7", "k8", "k8p", "k9")
+# quantize_qk_heads (k8p), K9 splash_attention, and the backwards K10 (of
+# K3) and K11 (of K9)
+KERNELS = ("k1", "k2", "k3", "k4", "k5", "k6", "k7", "k8", "k8p", "k9", "k10", "k11")
 
 
 def _counters():
+    """Each kernel's count as (wrapper, attribute): ``launches``, and
+    ``backward_launches`` for K10 and K11 beside their forwards'."""
     from midvision_probe_torch import bench_attn
     from midvision_probe_torch.ops.attention import _flash_attention
     from midvision_probe_torch.ops.fused_mlp import fused_mlp
@@ -1117,10 +1138,13 @@ def _counters():
     from midvision_probe_torch.ops.rope2d import rope_2d
     from midvision_probe_torch.ops.vit_attention import fused_qkv_attention, vit_attention
 
-    return dict(zip(KERNELS, (fused_qkv_attention, vit_attention, _flash_attention, knn2,
-                              rope_2d, fused_mlp, bench_attn.wide_attention,
-                              bench_attn.int8_attention, bench_attn.quantize_qk_heads,
-                              bench_attn.splash_attention)))
+    forwards = (fused_qkv_attention, vit_attention, _flash_attention, knn2, rope_2d,
+                fused_mlp, bench_attn.wide_attention, bench_attn.int8_attention,
+                bench_attn.quantize_qk_heads, bench_attn.splash_attention)
+    counters = {k: (fn, "launches") for k, fn in zip(KERNELS, forwards)}
+    counters.update(k10=(_flash_attention, "backward_launches"),
+                    k11=(bench_attn.splash_attention, "backward_launches"))
+    return counters
 
 
 # the attention kernel's launches by route (``route_launches``): K1, K2, K3,
@@ -1134,8 +1158,8 @@ def reset_counts() -> None:
     from midvision_probe_torch.models.feature_extractor import FeatureExtractor
     from midvision_probe_torch.ops.vit_attention import route_launches
 
-    for fn in _counters().values():
-        fn.launches = 0
+    for fn, attr in _counters().values():
+        setattr(fn, attr, 0)
     for route in route_launches:
         route_launches[route] = 0
     FeatureExtractor.forward_count = 0
@@ -1147,7 +1171,7 @@ def read_counts() -> dict:
     from midvision_probe_torch.models.feature_extractor import FeatureExtractor
     from midvision_probe_torch.ops.vit_attention import route_launches
 
-    counts = {k: fn.launches for k, fn in _counters().items()}
+    counts = {k: getattr(fn, attr) for k, (fn, attr) in _counters().items()}
     counts.update({f"route_{r}": n for r, n in route_launches.items()})
     counts["forwards"] = FeatureExtractor.forward_count
     return counts
@@ -1161,9 +1185,10 @@ def per_forward_ok(counts: dict, per_forward: dict) -> bool:
 
 
 # launches per backbone forward of the three backbones (no backbone
-# reaches K6-K9), and the attention route each takes: bf16 at d = 64 (DINO,
-# CroCo-v2) and d = 80 (RADIO-v2) on wgmma, f32 on tf32x3
-NO_BENCH_KERNELS = {"k6": 0, "k7": 0, "k8": 0, "k8p": 0, "k9": 0}
+# reaches K6-K9, and a frozen forward runs no backward, K10 or K11), and the
+# attention route each takes: bf16 at d = 64 (DINO, CroCo-v2) and d = 80
+# (RADIO-v2) on wgmma, f32 on tf32x3
+NO_BENCH_KERNELS = {"k6": 0, "k7": 0, "k8": 0, "k8p": 0, "k9": 0, "k10": 0, "k11": 0}
 
 
 def on_route(route: str, n: int) -> dict:
@@ -3272,7 +3297,11 @@ def phase_profiling(torch, smi: str) -> dict:
 # 17's first call), over the ~300 s they may add: the suite runs every
 # task on one backbone
 SUITE_MODELS = ("dino_b16",)
-SUITE_TASKS = ("depth", "snorm", "navi", "scannet", "spair", "percepture")
+# the cells the suite runs: its six default tasks but snorm (the
+# surface-normal trainer runs on a NYU tree in path_snorm_nyu), and not the
+# depth_dpt192 preset cell (preset_ab's dpt-192-hd256 arm): both cut to
+# keep the script's time
+SUITE_TASKS = ("depth", "navi", "scannet", "spair", "percepture")
 # the two cells replayed in this process with the launch counts reset
 SUITE_REPLAYS = (("depth", "dino_b16", "train_depth"),
                  ("navi", "dino_b16", "evaluate_navi_correspondence"))
@@ -3342,21 +3371,19 @@ def table_backbones(markdown: str, task: str) -> list:
 
 def phase_path_suite(torch, smi: str) -> dict:
     """The port's full-suite runner (``launch/suite_run.py``) on the card:
-    ``--models dino_b16`` x the six default tasks at the plan's own sizes
-    (first ``--tasks depth``, then the other five through the runner's
-    resume), then ``--tasks depth_dpt192`` (the two-phase preset cell: train
-    at 192², reload the checkpoint, evaluate at 480²), 7 driver processes
-    with a fresh ``$MVP_SYNTH_DISK_CACHE``; then
+    ``--models dino_b16`` x ``SUITE_TASKS`` (five of the six default tasks)
+    at the plan's own sizes (first ``--tasks depth``, then the other four),
+    5 driver processes with a fresh ``$MVP_SYNTH_DISK_CACHE``; then
     ``launch/aggregate_results.py`` over the CSV archive. The depth and NAVI
     cells are replayed in this process with the launch counts reset, and
     each replay's CSV row is held to its cell's. Gates: every cell rc 0, one
     CSV row a cell, a ranking table for each task listing the backbone, the
-    snorm cell reading every item the depth cell wrote (no disk-tier file
-    rewritten by the later cells), the NAVI replay's row equal to its
-    cell's to the last digit (every column but the time stamp), the depth
-    replay's within 1e-3 relative (its bit equality reported: the cause of
-    a difference is at the gate) and K1 (and K4 for NAVI) launched.
-    Returns the replays' launch counts by path."""
+    depth replay reading items the depth cell wrote to the disk tier (none
+    rewritten by the later cells or the replays), the NAVI replay's row
+    equal to its cell's to the last digit (every column but the time
+    stamp), the depth replay's within 1e-3 relative (its bit equality
+    reported: the cause of a difference is at the gate) and K1 (and K4 for
+    NAVI) launched. Returns the replays' launch counts by path."""
     from midvision_probe_torch import evaluate_navi_correspondence, train_depth
     from midvision_probe_torch.datasets.synthetic import SyntheticDepth
     from midvision_probe_torch.launch import aggregate_results, suite_run
@@ -3371,8 +3398,7 @@ def phase_path_suite(torch, smi: str) -> dict:
     try:
         with env_vars(MVP_SYNTH_DISK_CACHE=synth, MVP_CHECKPOINT_DIR=None):
             for argv in (["--tasks", "depth", "--models", *SUITE_MODELS],
-                         ["--models", *SUITE_MODELS],
-                         ["--tasks", "depth_dpt192", "--models", *SUITE_MODELS]):
+                         ["--tasks", *SUITE_TASKS[1:], "--models", *SUITE_MODELS]):
                 before = disk_tier_state(synth)
                 t0 = time.perf_counter()
                 rc = suite_run.main(argv + common)
@@ -3390,7 +3416,7 @@ def phase_path_suite(torch, smi: str) -> dict:
                                              "--out", agg_md])
             with open(agg_md) as f:
                 tables = f.read()
-            csv_rows = {t: task_csv_rows(out_root, t) for t in SUITE_TASKS + ("depth_dpt192",)}
+            csv_rows = {t: task_csv_rows(out_root, t) for t in SUITE_TASKS}
             # the disk tier's saving: generating one 480x480 item against
             # reading it back (this host's CPU)
             items = SyntheticDepth(64, (480, 480), seed=0)
@@ -3406,6 +3432,16 @@ def phase_path_suite(torch, smi: str) -> dict:
             plan = suite_run.task_plan(os.path.join(out_root, "spair_tree"))
             drivers = {"train_depth": train_depth,
                        "evaluate_navi_correspondence": evaluate_navi_correspondence}
+            # the replays read the disk tier the depth cell wrote: count its hits
+            disk_load, hits = SyntheticDepth._disk_load, []
+
+            def counted_load(self, index):
+                item = disk_load(self, index)
+                hits.append(item is not None)
+                return item
+
+            SyntheticDepth._disk_load = counted_load
+            before_replays = disk_tier_state(synth)
             for task, model, driver in SUITE_REPLAYS:
                 out_dir = os.path.join(root, f"replay_{task}")
                 argv = ([f"backbone={model}", f"output_dir={out_dir}"] + plan[task][1]
@@ -3431,14 +3467,23 @@ def phase_path_suite(torch, smi: str) -> dict:
                     "bit_equal": not differ, "columns_differing": len(differ),
                     "max_rel_diff": rel.get(worst, 0.0) if len(rel) == len(differ)
                     else float("inf"), "max_rel_column": worst}
+            after = disk_tier_state(synth)
+            tier["replays"] = {
+                "files_before": len(before_replays), "files_after": len(after),
+                "unchanged": sum(1 for f, v in before_replays.items() if after.get(f) == v),
+                "rewritten": sum(1 for f, v in before_replays.items()
+                                 if f in after and after[f] != v),
+                "hits": sum(hits), "misses": len(hits) - sum(hits)}
     finally:
+        SyntheticDepth._disk_load = disk_load
         shutil.rmtree(root, ignore_errors=True)
     cells = {f"{r['task']}/{r['model']}": {"rc": r["rc"], "wall_s": r["wall_s"]} for r in rows}
     task_totals = {}
     for r in rows:
         task_totals[r["task"]] = task_totals.get(r["task"], 0.0) + r["wall_s"]
-    second = tier[" ".join(["--models", *SUITE_MODELS])]  # the cells after depth
-    listed = {t: table_backbones(tables, t) for t in SUITE_TASKS + ("depth_dpt192",)}
+    second = tier[" ".join(["--tasks", *SUITE_TASKS[1:], "--models", *SUITE_MODELS])]
+    replayed = tier["replays"]
+    listed = {t: table_backbones(tables, t) for t in SUITE_TASKS}
 
     def lists(task, models):
         from midvision_probe_torch.launch.aggregate_results import _names_match
@@ -3448,14 +3493,13 @@ def phase_path_suite(torch, smi: str) -> dict:
     k1 = {p: c["k1"] for p, c in counts_by_path.items()}
     checks = {
         "runs_rc_0": all(r["rc"] == 0 for r in runs) and agg_rc == 0,
-        "cells_green": len(rows) == len(SUITE_MODELS) * len(SUITE_TASKS) + 1
+        "cells_green": len(rows) == len(SUITE_MODELS) * len(SUITE_TASKS)
         and all(r["rc"] == 0 for r in rows),
-        "one_csv_row_a_cell": all(len(csv_rows[t]) == len(SUITE_MODELS) for t in SUITE_TASKS)
-        and len(csv_rows["depth_dpt192"]) == 1,
-        "tables_list_the_backbones": all(lists(t, SUITE_MODELS) for t in SUITE_TASKS)
-        and lists("depth_dpt192", SUITE_MODELS[:1]),
+        "one_csv_row_a_cell": all(len(csv_rows[t]) == len(SUITE_MODELS) for t in SUITE_TASKS),
+        "tables_list_the_backbones": all(lists(t, SUITE_MODELS) for t in SUITE_TASKS),
         "disk_tier_read_back": second["files_before"] > 0 and second["rewritten"] == 0
-        and second["unchanged"] == second["files_before"],
+        and second["unchanged"] == second["files_before"] and replayed["hits"] > 0
+        and replayed["misses"] == 0 and replayed["rewritten"] == 0,
         # NAVI evaluates only: the replay gives the cell's row to the last
         # digit. The depth cell trains its bf16 probe for 20 steps, and
         # cuDNN's plan for the probe's convolutions is picked among those
@@ -3474,9 +3518,9 @@ def phase_path_suite(torch, smi: str) -> dict:
     res = {"phase": "path_suite", "models": list(SUITE_MODELS), "tasks": list(SUITE_TASKS),
            "runs": runs, "cells": cells, "task_totals_s": task_totals,
            "suite_wall_s": sum(r["wall_s"] for r in runs),
-           "disk_tier": {"by_run": tier, "hits_after_depth": second["unchanged"],
+           "disk_tier": {"by_run": tier, "hits_after_depth": replayed["hits"],
                          "generate_s_per_item": gen_s, "load_s_per_item": load_s,
-                         "saving_s_after_depth": second["unchanged"] * (gen_s - load_s)},
+                         "saving_s_after_depth": replayed["hits"] * (gen_s - load_s)},
            "csv_rows": {t: len(v) for t, v in csv_rows.items()},
            "tables": listed, "replays": replays, "checks": checks,
            "nvidia_smi": smi, "gpu_state": gpu_state()}
@@ -4171,6 +4215,336 @@ def phase_bench_matrix(torch, smi: str) -> dict:
     return counts
 
 
+# ------------------------------------------ the attention backward K10, K11
+def attention_backward_bounds(B, N, n_valid, H, d, itemsize, peak_flops) -> dict:
+    """Least time of one attention backward: its five products (S, dP, dV,
+    dK, dQ) over the valid keys, 10*B*H*N*n_valid*d FLOP at the dtype's peak
+    (bf16 989 TFLOP/s, f32 ``tf32x3`` 495/3), one exp2 per score on the
+    MUFU, or q, k, v, the output and its gradient read and dq, dk, dv
+    written once (with lse and di) at the memory rate."""
+    flops = 10.0 * B * H * N * n_valid * d
+    nbytes = 8.0 * B * H * N * d * itemsize + 8.0 * B * H * N
+    return bounds(flops / peak_flops * 1e3, nbytes / PEAK_BYTES * 1e3,
+                  exp2_ms(B, H, N, n_valid))
+
+
+def exact_attention_grads(torch, q, k, v, dout, scale, n_valid):
+    """dq, dk, dv of exact softmax attention in float64 over the keys <
+    n_valid (dk, dv 0 past it); q is the q the scores see."""
+    leaves = [t.detach().double().requires_grad_() for t in (q, k[:, :, :n_valid],
+                                                              v[:, :, :n_valid])]
+    p = torch.softmax(torch.einsum("bhqd,bhkd->bhqk", leaves[0] * scale, leaves[1]), -1)
+    dq, dk, dv = torch.autograd.grad(torch.einsum("bhqk,bhkd->bhqd", p, leaves[2]), leaves,
+                                     dout.double())
+    pad = (0, 0, 0, q.shape[2] - n_valid)
+    return dq, torch.nn.functional.pad(dk, pad), torch.nn.functional.pad(dv, pad)
+
+
+def phase_backward_checks(torch) -> dict:
+    """The attention backward K10 (``_flash_attention``'s, the jax library's
+    dq and dkv kernels in the JAX package) and K11 (``splash_attention``'s)
+    against the plain versions' autograd (``_vit_attention_plain``,
+    ``_splash_attention_plain``; TF32 off) at RADIO-v2's K3 launch in f32
+    (B=2, H=16, N=4097, d=80), K3's bf16 one (B=2, H=12, N=8192, d=64) and
+    the bench's K9 shape (B=64, N=1280, n_valid=1201, H=12, d=64, bf16),
+    and at B=1 against a float64 oracle. Gates, each of dq, dk and dv: f32
+    within 1e-4 * max|ref| of the plain version (at full B) and of f64 (at
+    B=1); bf16 within max(2^-6 * max|ref|, twice the plain bf16 version's
+    own error against f64 at B=1) of either. Times (CUDA events, medians):
+    the backward's launch (``launch_attention_backward``: di, the two
+    kernels), the plain version's backward and SDPA's backward on the same
+    operands (K11: k and v sliced to n_valid, q the rounded q * scale), with
+    the bound. Also K2's and K3's forward time with and without the lse
+    output."""
+    import torch.nn.functional as F
+
+    from midvision_probe_torch import bench_attn
+    from midvision_probe_torch.ops.attention import _flash_attention
+    from midvision_probe_torch.ops.vit_attention import (
+        _vit_attention_plain,
+        launch_attention,
+        launch_attention_backward,
+    )
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device="cuda").manual_seed(20)
+    bf16, f32 = torch.bfloat16, torch.float32
+    cases = [("k10_radio1024_fp32", "K10", 2, 16, 4097, 4097, 80, f32),
+             ("k10_long_bf16", "K10", 2, 12, 8192, 8192, 64, bf16),
+             ("k11_bench_bf16", "K11", 64, 12, 1280, 1201, 64, bf16)]
+    results = []
+    for name, kernel, B, H, N, nv, d, dtype in cases:
+        scale = d**-0.5
+        qkv = torch.randn(B, N, 3, H, d, device="cuda", generator=gen).to(dtype)
+        dout = torch.randn(B, H, N, d, device="cuda", generator=gen).to(dtype)
+        if kernel == "K10":
+            q_scale, sm_scale = 1.0, scale
+            wrapper = lambda x: _flash_attention(  # noqa: E731
+                *x.permute(2, 0, 3, 1, 4).unbind(0), scale)
+            plain = lambda x: _vit_attention_plain(  # noqa: E731
+                *x.permute(2, 0, 3, 1, 4).unbind(0), scale)
+            g_out = dout
+        else:
+            q_scale, sm_scale = scale, 1.0
+            qkv[:, nv:, 1:] = float("nan")  # never read
+            wrapper = lambda x: bench_attn.splash_attention(x, scale, nv)  # noqa: E731
+            plain = lambda x: bench_attn._splash_attention_plain(x, scale, nv)  # noqa: E731
+            g_out = dout.transpose(1, 2).reshape(B, N, H * d)
+
+        def grads(fn, x, b=B):
+            x = x[:b].detach().requires_grad_()
+            (g,) = torch.autograd.grad(fn(x), x, g_out[:b])
+            return g
+
+        def errors(got, ref):
+            return [(got[:, :, r].double() - ref[:, :, r].double()).abs().max().item()
+                    for r in range(3)]
+
+        got, ref = grads(wrapper, qkv), grads(plain, qkv)
+        torch.cuda.synchronize()
+        err = errors(got, ref)
+        max_ref = [ref[:, :, r].double().abs().max().item() for r in range(3)]
+        finite = bool(torch.isfinite(got).all())
+        padded_zero = kernel == "K10" or not got[:, nv:, 1:].any().item()
+        del got, ref
+        torch.cuda.empty_cache()
+        # B = 1 against float64
+        q1, k1, v1 = qkv[:1].permute(2, 0, 3, 1, 4).unbind(0)
+        q1 = (q1.float() * q_scale).to(dtype)
+        exact = exact_attention_grads(torch, q1, k1, v1, dout[:1], sm_scale, nv)
+        # (1, H, 3, N, d) -> (1, N, 3, H, d), the layout of qkv's gradient
+        exact = torch.stack([exact[0] * q_scale, exact[1], exact[2]], 2).transpose(1, 3)
+        got1, ref1 = grads(wrapper, qkv, 1), grads(plain, qkv, 1)
+        err64, plain_err64 = errors(got1, exact), errors(ref1, exact)
+        max64 = [exact[:, :, r].abs().max().item() for r in range(3)]
+        del exact, got1, ref1
+        torch.cuda.empty_cache()
+        if dtype == f32:
+            gates = [1e-4 * m for m in max_ref]
+            gates64 = [1e-4 * m for m in max64]
+        else:
+            gates = [max(2.0**-6 * m, 2 * pe) for m, pe in zip(max_ref, plain_err64)]
+            gates64 = [max(2.0**-6 * m, 2 * pe) for m, pe in zip(max64, plain_err64)]
+        ok = (finite and padded_zero and all(e <= g for e, g in zip(err, gates))
+              and all(e <= g for e, g in zip(err64, gates64)))
+        res = {"case": name, "kernel": kernel, "shape": [B, H, N, d], "n_valid": nv,
+               "dtype": str(dtype), "design": "tf32x3" if dtype == f32 else "mma_sync",
+               "max_abs_err": max(err), "max_abs_err_dq_dk_dv": err, "max_abs_ref": max_ref,
+               "tol": gates, "max_abs_err_vs_f64_b1": err64,
+               "plain_err_vs_f64_b1": plain_err64, "tol_vs_f64_b1": gates64,
+               "finite": finite, "padded_grads_zero": padded_zero, "ok": ok}
+        # times: the backward's launch; the plain version's and SDPA's backward
+        q, k, v = qkv.permute(2, 0, 3, 1, 4).unbind(0)
+        qk = (q.float() * q_scale).to(dtype)
+        with torch.no_grad():
+            out, lse = launch_attention(q, k, v, sm_scale, nv, q_scale=q_scale,
+                                        return_lse=True)
+        res["kernel_ms"] = cuda_ms(torch, lambda: launch_attention_backward(
+            q, k, v, out, lse, dout, sm_scale, nv, q_scale=q_scale), iters=5, warmup=1)
+        leaves = [t.detach().requires_grad_() for t in (qk, k[:, :, :nv], v[:, :, :nv])]
+        o_plain = _vit_attention_plain(*leaves, sm_scale)
+        res["plain_ms"] = cuda_ms(torch, lambda: torch.autograd.grad(
+            o_plain, leaves, dout, retain_graph=True), iters=3, warmup=1)
+        del o_plain
+        o_lib = F.scaled_dot_product_attention(*leaves, scale=sm_scale)
+        res["library_ms"] = cuda_ms(torch, lambda: torch.autograd.grad(
+            o_lib, leaves, dout, retain_graph=True), iters=5, warmup=1)
+        del o_lib, leaves, out, lse
+        res.update(attention_backward_bounds(B, N, nv, H, d, qkv.element_size(),
+                                             PEAK_BF16_FLOPS if dtype == bf16
+                                             else PEAK_TF32_FLOPS / 3))
+        results.append(res)
+        del qkv, dout, q, k, v, qk
+        torch.cuda.empty_cache()
+    # K2's and K3's forward launches with the residual asked and not
+    forward_lse = {}
+    for name, B, H, N, d, dtype in (("k2_radio_bf16", 64, 16, 1201, 80, bf16),
+                                    ("k3_radio1024_fp32", 2, 16, 4097, 80, f32)):
+        qkv = torch.randn(B, N, 3, H, d, device="cuda", generator=gen).to(dtype)
+        q, k, v = qkv.permute(2, 0, 3, 1, 4).unbind(0)
+        with torch.no_grad():
+            forward_lse[name] = {
+                "ms_without_lse": cuda_ms(torch, lambda: launch_attention(q, k, v, d**-0.5)),
+                "ms_with_lse": cuda_ms(torch, lambda: launch_attention(
+                    q, k, v, d**-0.5, return_lse=True))}
+        del qkv, q, k, v
+        torch.cuda.empty_cache()
+    emit({"phase": "backward_checks", "cases": results, "forward_lse": forward_lse})
+    bad = [r["case"] for r in results if not r["ok"]]
+    if bad:
+        raise SystemExit(f"backward check failed: {bad}")
+    return {r["case"]: r for r in results}
+
+
+def central_difference(torch, loss_fn, images, grad, eps: float, seed: int) -> dict:
+    """The gradient along a seeded unit-RMS direction u, ``<grad, u>``,
+    against ``(loss(x + eps u) - loss(x - eps u)) / (2 eps)`` from two
+    forwards (no gradient recorded)."""
+    u = torch.randn(images.shape, device=images.device,
+                    generator=torch.Generator(device=images.device).manual_seed(seed))
+    with torch.no_grad():
+        fd = (loss_fn(images + eps * u) - loss_fn(images - eps * u)).item() / (2 * eps)
+    along = (grad.double() * u.double()).sum().item()
+    return {"eps": eps, "grad_along_u": along, "central_difference": fd,
+            "rel_err": abs(along - fd) / max(abs(fd), 1e-30)}
+
+
+GRAD_RADIO_BATCH = 2  # RADIO-v2's batch in grad_paths (peak <= 40 GiB)
+RADIO_CHANNEL_SEED = 24  # its loss's channel weights
+
+
+def phase_grad_paths(torch, smi: str) -> dict:
+    """Input gradients through frozen backbones on the card, the
+    counterpart of ``jax.grad`` over the JAX ``FeatureExtractor``, through
+    the zoo's extractors at full width (seeded random weights), the loss the
+    sum of squares of the four tapped maps:
+
+    * RADIO-v2 in float32 at 1024x1024 (N = 4097, H = 16, d = 80: K+V over
+      2 MB, so every block takes K3), batch ``GRAD_RADIO_BATCH``, TF32 off:
+      one forward and one backward, K3 and K10 32 launches each (one a
+      block), then the gradient along a seeded direction against a central
+      difference of two more forwards (eps 1e-2 on unit-RMS images and
+      direction), within 1e-2 relative. RADIO taps every map through its
+      final LayerNorm, whose initial gain is 1 and bias 0, so each token's
+      sum of squares is its width (1280) whatever the image: the plain sum
+      of squares is a constant (its gradient only the LayerNorm's epsilon,
+      ~1e-5 a pixel, which no central difference of f32 forwards resolves).
+      The loss here scales the maps' channels by seeded weights in [0, 2)
+      first (``RADIO_CHANNEL_SEED``);
+    * DINO ViT-B/16 in bf16 at 480x640, batch 8: K1 12 launches on wgmma
+      and the plain recompute as its backward (F12), a finite gradient whose
+      cosine to the same path's float32 gradient (K1 on tf32x3, TF32 off)
+      is at least 0.98;
+    * the attention bench's splash variant (K9) under autograd at the bench
+      shape (B=64, N=1280, n_valid=1201, H=12, d=64, bf16, the bench's
+      ``randn * 0.6``): one K9 and one K11 launch, a finite gradient that is
+      0 at the keys and values past n_valid.
+
+    Each with its wall, peak memory and launch counts."""
+    from midvision_probe_torch.models.zoo import build_vit_extractor
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    res = {"phase": "grad_paths", "nvidia_smi": smi}
+
+    def sq_loss(maps):
+        return sum((m.double() ** 2).sum() for m in maps)
+
+    # RADIO-v2, f32, 1024^2
+    t0 = time.perf_counter()
+    radio = build_vit_extractor("radio_v2", return_multilayer=True, dtype=torch.float32,
+                                device="cuda")
+    build_s = time.perf_counter() - t0
+    images = torch.randn(GRAD_RADIO_BATCH, 1024, 1024, 3, device="cuda",
+                         generator=torch.Generator(device="cuda").manual_seed(21))
+    weights = 2 * torch.rand(1280, device="cuda", generator=torch.Generator(
+        device="cuda").manual_seed(RADIO_CHANNEL_SEED))
+
+    def radio_loss(maps):
+        return sq_loss([m * weights for m in maps])
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    x = images.clone().requires_grad_()
+    (grad,) = torch.autograd.grad(radio_loss(radio(x)), x)
+    torch.cuda.synchronize()
+    grad_s = time.perf_counter() - t0
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    del x
+    t0 = time.perf_counter()
+    cd = central_difference(torch, lambda im: radio_loss(radio(im)), images, grad, 1e-2, 22)
+    cd_s = time.perf_counter() - t0
+    counts_all = read_counts()
+    finite = bool(torch.isfinite(grad).all())
+    radio_ok = {
+        "launches": counts["forwards"] == 1 and counts["k3"] == 32 and counts["k10"] == 32
+        and counts["route_tf32x3"] == 32 and all(
+            counts[k] == 0 for k in KERNELS if k not in ("k3", "k10")),
+        "central_difference_within_1e-2": cd["rel_err"] <= 1e-2,
+        "finite": finite, "peak_within_40_gib": peak <= 40.0}
+    res["radio_v2_fp32_1024"] = {
+        "batch": GRAD_RADIO_BATCH, "build_s": build_s, "grad_s": grad_s,
+        "central_difference_s": cd_s, "wall_s": grad_s + cd_s, "peak_mem_gib": peak,
+        "launches": counts, "launches_with_central_difference": counts_all,
+        "grad_abs_max": grad.abs().max().item(), **cd, "checks": radio_ok}
+    del radio, images, grad
+    torch.cuda.empty_cache()
+
+    # DINO ViT-B/16, bf16 against f32, 480x640, batch 8
+    images = torch.randn(8, 480, 640, 3, device="cuda",
+                         generator=torch.Generator(device="cuda").manual_seed(23))
+    dino, grads, counts, walls, peaks = {}, {}, {}, {}, {}
+    for dtype in (torch.bfloat16, torch.float32):
+        bb = build_vit_extractor("dino_vitb16", return_multilayer=True, dtype=dtype,
+                                 device="cuda")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.perf_counter()
+        x = images.clone().requires_grad_()
+        (grads[dtype],) = torch.autograd.grad(sq_loss(bb(x)), x)
+        torch.cuda.synchronize()
+        walls[dtype] = time.perf_counter() - t0
+        counts[dtype] = read_counts()
+        peaks[dtype] = torch.cuda.max_memory_allocated() / 2**30
+        del bb, x
+        torch.cuda.empty_cache()
+    g16, g32 = grads[torch.bfloat16].double(), grads[torch.float32].double()
+    cosine = (g16 * g32).sum().item() / (g16.norm() * g32.norm()).item()
+    dino_ok = {
+        "launches_bf16": counts[torch.bfloat16]["forwards"] == 1
+        and counts[torch.bfloat16]["k1"] == 12 and counts[torch.bfloat16]["route_wgmma"] == 12
+        and all(counts[torch.bfloat16][k] == 0 for k in KERNELS if k != "k1"),
+        "launches_fp32": counts[torch.float32]["k1"] == 12
+        and counts[torch.float32]["route_tf32x3"] == 12,
+        "finite": bool(torch.isfinite(g16).all()), "cosine_to_fp32_at_least_0.98": cosine >= 0.98}
+    res["dino_vitb16_bf16"] = {
+        "batch": 8, "wall_s": walls[torch.bfloat16], "wall_fp32_s": walls[torch.float32],
+        "peak_mem_gib": peaks[torch.bfloat16], "peak_mem_fp32_gib": peaks[torch.float32],
+        "launches": counts[torch.bfloat16], "launches_fp32": counts[torch.float32],
+        "cosine_to_fp32": cosine, "checks": dino_ok}
+    del images, grads, g16, g32
+    torch.cuda.empty_cache()
+
+    # the bench's splash attention (K9) and its backward (K11)
+    from midvision_probe_torch import bench_attn
+
+    (B, N, H, d), nv = BENCH_SHAPE, BENCH_N_VALID
+    gen = torch.Generator(device="cuda").manual_seed(26)
+    qkv = bench_inputs(torch, gen, "bench")
+    g_out = torch.randn(B, N, H * d, device="cuda", generator=gen).to(torch.bfloat16)
+    qkv.requires_grad_()
+    reset_counts()
+    t0 = time.perf_counter()
+    (g,) = torch.autograd.grad(bench_attn.splash_attention(qkv, d**-0.5, nv), qkv, g_out)
+    torch.cuda.synchronize()
+    splash_wall = time.perf_counter() - t0
+    splash_counts = read_counts()
+    splash_ok = {
+        "launches": splash_counts["k9"] == 1 and splash_counts["k11"] == 1
+        and splash_counts["route_wgmma"] == 1
+        and all(splash_counts[k] == 0 for k in KERNELS if k not in ("k9", "k11")),
+        "finite": bool(torch.isfinite(g).all()), "padded_keys_zero": not g[:, nv:, 1:].any().item()}
+    res["bench_splash_bf16"] = {"shape": [B, N, H, d], "n_valid": nv, "wall_s": splash_wall,
+                                "launches": splash_counts, "checks": splash_ok}
+    del qkv, g_out, g
+    torch.cuda.empty_cache()
+    torch.backends.cudnn.allow_tf32 = True  # the later phases run with torch's defaults
+    res["gpu_state"] = gpu_state()
+    emit(res)
+    checks = {**{f"radio_{k}": v for k, v in radio_ok.items()},
+              **{f"dino_{k}": v for k, v in dino_ok.items()},
+              **{f"splash_{k}": v for k, v in splash_ok.items()}}
+    if not all(checks.values()):
+        raise SystemExit(f"grad_paths check failed: {checks}")
+    return {"grad_radio_v2_fp32_1024": counts_all, "grad_dino_vitb16_bf16":
+            counts[torch.bfloat16], "grad_dino_vitb16_fp32": counts[torch.float32],
+            "grad_bench_splash": splash_counts}
+
+
 def vit_taps(grid, width) -> list:
     """The four (h, w, C) tap shapes of a ViT forward."""
     return [(*grid, width)] * 4
@@ -4448,6 +4822,12 @@ def main() -> int:
     by_path["extract_kqv"] = phase_extract_kqv(torch)
     by_path["bench_attn"] = phase_bench_attn(torch)
     by_path["path_fused_mlp"] = phase_path_fused_mlp(torch)
+    t0 = time.perf_counter()
+    backward_checks = phase_backward_checks(torch)
+    emit({"phase_wall": "backward_checks", "wall_s": time.perf_counter() - t0})
+    t0 = time.perf_counter()
+    by_path.update(phase_grad_paths(torch, smi))
+    emit({"phase_wall": "grad_paths", "wall_s": time.perf_counter() - t0})
     emit({"phase": "done", "total_s": time.perf_counter() - t_start, "gpu_state": gpu_state()})
 
     from midvision_probe_torch.config.core import JAX_PACKAGE
@@ -4503,6 +4883,23 @@ def main() -> int:
         kernel_entry("splash_attention", "vit_attention.cu", "launch_script/bench_attn.py:225",
                      "k9", by_path, variant_checks["splash"],
                      variant_checks["splash"]["route_ran"]),
+        # the backwards: the jax library's Pallas dkv and dq kernels that
+        # jax.grad runs through K3 and K9 (flash_attention.py pallas_call
+        # :1121 and :1456; splash_attention_kernel.py :1857 and :1405)
+        kernel_entry("flash_attention_backward", "attention_bwd.cu",
+                     f"{ops}/attention.py:82", "k10", by_path,
+                     backward_checks["k10_radio1024_fp32"], "tf32x3",
+                     library_kernels=["flash_attention.py:1121 _flash_attention_dkv_kernel",
+                                      "flash_attention.py:1456 _flash_attention_dq_kernel"],
+                     bf16={**case_numbers(backward_checks["k10_long_bf16"]),
+                           "shape": backward_checks["k10_long_bf16"]["shape"],
+                           "design": "mma_sync"}),
+        kernel_entry("splash_attention_backward", "attention_bwd.cu",
+                     "launch_script/bench_attn.py:243", "k11", by_path,
+                     backward_checks["k11_bench_bf16"], "mma_sync",
+                     library_kernels=[
+                         "splash_attention_kernel.py:1857 _splash_attention_bwd_dkv",
+                         "splash_attention_kernel.py:1405 _splash_attention_bwd_dq"]),
     ]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -16,6 +16,9 @@ from ``np.random.RandomState(0)``, ``randn * 0.6``):
   kernel block (width G*d), without / with the cross-head prefetch;
 * ``int8``: ``int8_attention`` (K8), QK^T in int8 with per-head scales;
 * ``splash``: ``splash_attention`` (K9), exact softmax over the valid keys.
+  It is differentiable: its backward on a card is K11
+  (``csrc/attention_bwd.cu``, the splash library's dq and dkv kernels in
+  the JAX package), counted in ``splash_attention.backward_launches``.
 
 K7 and K8 compute the bench's clamped exp2 attention: ``exp2(min(s, 110))``
 with no max subtraction, keys >= n_valid masked, ``l = max(sum p, 1e-30)``,
@@ -63,9 +66,11 @@ from midvision_probe_torch.ops.cuda_build import float_bits, load_library
 from midvision_probe_torch.ops.vit_attention import (
     ROUTES,
     WGMMA_HEAD_DIMS,
+    _needs_grad,
     _vit_attention_plain,
     fused_qkv_attention,
     launch_attention,
+    launch_attention_backward,
     route_launches,
 )
 from midvision_probe_torch.utils.device import resolve_device
@@ -356,21 +361,52 @@ def int8_attention(qkv: torch.Tensor, scale: float, n_valid: int,
 int8_attention.launches = 0  # kernel launches, counted in _launch_int8 (never the plain version)
 
 
+class _SplashAttention(torch.autograd.Function):
+    """K9 on a card with the residual its backward needs; backward: K11
+    on the same (B, H, N, d) views, the gradient of qkv stacked from them
+    (0 at keys and values >= n_valid)."""
+
+    @staticmethod
+    def forward(ctx, qkv, scale, n_valid):
+        q, k, v = (t.transpose(1, 2) for t in qkv.unbind(2))
+        out, lse = launch_attention(q, k, v, 1.0, n_valid, q_scale=scale, return_lse=True)
+        ctx.save_for_backward(qkv, out, lse)
+        ctx.scale, ctx.n_valid = scale, n_valid
+        return out.transpose(1, 2).flatten(2)
+
+    @staticmethod
+    def backward(ctx, grad):
+        qkv, out, lse = ctx.saved_tensors
+        B, N, _, H, d = qkv.shape
+        q, k, v = (t.transpose(1, 2) for t in qkv.unbind(2))
+        dout = grad.reshape(B, N, H, d).transpose(1, 2)
+        grads = launch_attention_backward(q, k, v, out, lse, dout, 1.0, ctx.n_valid,
+                                          q_scale=ctx.scale)
+        splash_attention.backward_launches += 1
+        return torch.stack([g.transpose(1, 2) for g in grads], dim=2), None, None
+
+
 def splash_attention(qkv: torch.Tensor, scale: float, n_valid: int) -> torch.Tensor:
     """K9: exact softmax attention of ``bf16(q * scale)`` with scale 1 over
     the keys < n_valid -> (B, N, H*d); on a card the strided attention
     kernel on (B, H, N, d) views of qkv, which rounds ``q * scale`` to bf16
-    itself (``q_scale``), counted here."""
-    B, N, H, d = _check_qkv(qkv, n_valid)
+    itself (``q_scale``), counted here; under autograd its backward K11,
+    whose dq is ``bf16(f32(dq') * scale)`` as in the JAX bench."""
+    _check_qkv(qkv, n_valid)
     if qkv.device.type == "cpu":
         return _splash_attention_plain(qkv, scale, n_valid)
-    q, k, v = (t.transpose(1, 2) for t in qkv.unbind(2))
-    out = launch_attention(q, k, v, 1.0, n_valid, q_scale=scale)  # a view of (B, N, H, d)
+    if _needs_grad(qkv):
+        out = _SplashAttention.apply(qkv, scale, n_valid)
+    else:
+        q, k, v = (t.transpose(1, 2) for t in qkv.unbind(2))
+        out = launch_attention(q, k, v, 1.0, n_valid, q_scale=scale)  # a view of (B, N, H, d)
+        out = out.transpose(1, 2).flatten(2)
     splash_attention.launches += 1
-    return out.transpose(1, 2).reshape(B, N, H * d)
+    return out
 
 
 splash_attention.launches = 0  # kernel launches (never the plain version)
+splash_attention.backward_launches = 0  # K11 launches
 
 
 # --------------------------------------------------------------------- bench

@@ -1,4 +1,4 @@
-// ViT softmax attention for Hopper (sm_90a), forward only: three kernels
+// ViT softmax attention for Hopper (sm_90a), the forward: three kernels
 // (routes) behind two entry points, and two more entry points that run the
 // attention bench's clamped exp2 attention (launch_script/bench_attn.py: no
 // running max) on the wgmma route's kernel in its clamped mode (see that
@@ -71,6 +71,13 @@
 //
 // Head dims: 16, 32, 64, 80, 128.
 //
+// The backward's residual: the strided entry (K2, K3, K9) writes each row's
+// natural logsumexp (m + log2 l, times ln 2, from the online softmax's
+// running max and sum) when its caller passes an lse buffer, as the jax
+// library's flash forward saves l and m for its backward kernels;
+// attention_bwd.cu (K10, K11) reads it. Every frozen launch passes null and
+// writes nothing more.
+//
 // Plain C interface for ctypes: every argument is a pointer, an int or a
 // 64-bit stride (the softmax scale and q_scale arrive as the bit patterns of
 // floats); each entry point returns cudaGetLastError() after the launch (or
@@ -82,6 +89,7 @@
 #include <string.h>
 
 #include "hopper.cuh"
+#include "mma_sync.cuh"
 
 namespace {
 
@@ -89,54 +97,11 @@ constexpr int kThreads = 128;  // 4 warps per block on the mma_sync route
 constexpr int kBM = 64;        // mma_sync route: query rows per block (16 per warp)
 constexpr int kBN = 64;        // mma_sync route: keys per KV tile
 
-// element strides of a (B, H, N, d) operand; the last dimension has stride 1
-struct Strides {
-  long long b, h, n;
-};
-
-__device__ __forceinline__ float neg_inf() { return __int_as_float(0xff800000); }
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(smem)),
-               "l"(gmem));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int kPending>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending));
-}
-
-// c += a * b for one m16n8k16 tile: a 16x16 bf16 (row), b 16x8 bf16 (col),
-// c 16x8 fp32.
-__device__ __forceinline__ void mma_16816(float (&c)[4], const uint32_t (&a)[4],
-                                          uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t ld_u32(const uint16_t* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// two bf16 bit patterns -> one register, `lo` in the low half
-__device__ __forceinline__ uint32_t pack_u16(uint16_t lo, uint16_t hi) {
-  return static_cast<uint32_t>(lo) | (static_cast<uint32_t>(hi) << 16);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
+// the natural logsumexp of a row's scores (q' k^T * scale) from the online
+// softmax's running max m and sum l, both in base 2 of the scaled scores:
+// the residual that attention_bwd.cu's backward reads
+__device__ __forceinline__ float row_lse(float m, float l) {
+  return (m + log2f(l)) * 0.69314718055994531f;
 }
 
 // mma_sync route. One block per (q-tile of 64 rows, head, batch). Each warp
@@ -148,7 +113,7 @@ __global__ void __launch_bounds__(kThreads)
     attention_bf16(const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
                    const uint16_t* __restrict__ v, uint16_t* __restrict__ out, Strides sq,
                    Strides sk, Strides sv, Strides so, int N, int n_valid, float scale_log2,
-                   float q_scale) {
+                   float q_scale, float* __restrict__ lse) {
   constexpr int LD = D + 8;   // padded shared-memory row, in halves
   constexpr int KC = D / 16;  // k-chunks of Q K^T
   constexpr int DN = D / 8;   // n-tiles of P V
@@ -323,6 +288,11 @@ __global__ void __launch_bounds__(kThreads)
   }
   const int ra = q0 + warp * 16 + g;
   const int rb = ra + 8;
+  if (lse != nullptr && tq == 0) {
+    float* lb = lse + (static_cast<long long>(b) * gridDim.y + h) * N;
+    if (ra < N) lb[ra] = row_lse(m[0], l[0]);
+    if (rb < N) lb[rb] = row_lse(m[1], l[1]);
+  }
   uint16_t* ob = out + b * so.b + h * so.h;
 #pragma unroll
   for (int dn = 0; dn < DN; ++dn) {
@@ -383,24 +353,6 @@ struct F32Tile {
   static constexpr int kSmem = kF32Stages * kPairs * 8 + 2 * kF32Stages * 8;
 };
 
-__device__ __forceinline__ uint32_t to_tf32(float x) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
-  return r;
-}
-
-// x = hi + lo (+ a residue of ~2^-22 |x|)
-__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
-  hi = to_tf32(x);
-  lo = to_tf32(x - __uint_as_float(hi));
-}
-
-__device__ __forceinline__ float2 split_pair(float x) {
-  uint32_t hi, lo;
-  split_tf32(x, hi, lo);
-  return make_float2(__uint_as_float(hi), __uint_as_float(lo));
-}
-
 // The pre-pass: x (B, H, rows, D) f32 by element strides -> its (hi, lo)
 // pairs, contiguous (B, H, rows, D) float2; one float4 of x per step.
 __global__ void split_pairs(const float* __restrict__ x, Strides s, float4* __restrict__ out,
@@ -421,49 +373,6 @@ __global__ void split_pairs(const float* __restrict__ x, Strides s, float4* __re
   }
 }
 
-// c += a * b for one m16n8k8 tile: a 16x8 tf32 (row), b 8x8 tf32 (col), c
-// 16x8 f32
-__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// d = a * b for one m16n8k8 tile, from a zero accumulator
-__device__ __forceinline__ void mma_tf32_zero(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                              uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%10,%10,%10,%10};\n"
-      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1), "f"(0.f));
-}
-
-// t (=, kFirst; else +=) a * b in 3xTF32, a given as its hi and lo
-// fragments, b as this thread's two B fragment elements as (hi, lo) pairs;
-// the small terms first
-template <bool kFirst>
-__device__ __forceinline__ void mma_3xtf32(float (&t)[4], const uint32_t (&a_hi)[4],
-                                           const uint32_t (&a_lo)[4], float2 b0, float2 b1) {
-  const uint32_t h0 = __float_as_uint(b0.x), l0 = __float_as_uint(b0.y);
-  const uint32_t h1 = __float_as_uint(b1.x), l1 = __float_as_uint(b1.y);
-  if (kFirst) {
-    mma_tf32_zero(t, a_lo, h0, h1);
-  } else {
-    mma_tf32(t, a_lo, h0, h1);
-  }
-  mma_tf32(t, a_hi, l0, l1);
-  mma_tf32(t, a_hi, h0, h1);
-}
-
-// c (=, kFirst; else +=) t in f32
-template <bool kFirst>
-__device__ __forceinline__ void add_f32(float (&c)[4], const float (&t)[4]) {
-#pragma unroll
-  for (int e = 0; e < 4; ++e) c[e] = kFirst ? t[e] : c[e] + t[e];
-}
-
 // one arrival on `bar` once this thread's cp.async copies so far have landed
 __device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
   asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(smem_u32(bar))
@@ -479,7 +388,8 @@ template <int D>
 __global__ void __launch_bounds__(kF32Threads, 1)
     attention_tf32x3(const float* __restrict__ q, const float2* __restrict__ kp,
                      const float2* __restrict__ vp, float* __restrict__ out, Strides sq,
-                     Strides so, int H, int N, int n_valid, float scale_log2, float q_scale) {
+                     Strides so, int H, int N, int n_valid, float scale_log2, float q_scale,
+                     float* __restrict__ lse) {
   constexpr int KN = F32Tile<D>::kKeys;
   constexpr int LK = F32Tile<D>::kLdK;
   constexpr int LV = F32Tile<D>::kLdV;
@@ -659,6 +569,11 @@ __global__ void __launch_bounds__(kF32Threads, 1)
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
   }
+  if (lse != nullptr && tq == 0) {
+    float* lb = lse + (static_cast<long long>(b) * H + h) * N;
+    if (r0 < N) lb[r0] = row_lse(m[0], l[0]);
+    if (r0 + 8 < N) lb[r0 + 8] = row_lse(m[1], l[1]);
+  }
   float* ob = out + b * so.b + h * so.h;
 #pragma unroll
   for (int dn = 0; dn < KS; ++dn) {
@@ -766,7 +681,8 @@ __global__ void __launch_bounds__(kWgThreads, 1)
                     const __grid_constant__ CUtensorMap tail_k,
                     const __grid_constant__ CUtensorMap tail_v, uint16_t* __restrict__ out,
                     Strides so, int B, int N, int H, int n_valid, int G, int tok_inner,
-                    float scale_log2, float q_scale, const float* __restrict__ c) {
+                    float scale_log2, float q_scale, const float* __restrict__ c,
+                    float* __restrict__ lse) {
   static_assert(!kInt8 || (kClamp && D == 64), "the int8 mode is K8's: clamped, d = 64");
   constexpr int kTail = WgTile<D>::kTail;
   constexpr int kTileBytes = WgTile<D>::kBytes;  // one V tile (and Q or K but in int8)
@@ -1079,6 +995,11 @@ __global__ void __launch_bounds__(kWgThreads, 1)
         // the output of row r (0: g, 1: g + 8); the clamped mode divides
         auto fin = [&](float x, int r) { return kClamp ? x / l[r] : x * inv[r]; };
         const long long ra = static_cast<long long>(qt) * kQRows + wg * 64 + warp * 16 + g;
+        if (!kClamp && lse != nullptr && tq == 0) {
+          float* lb = lse + (static_cast<long long>(b) * H + h) * N;
+          if (ra < N) lb[ra] = row_lse(m[0], l[0]);
+          if (ra + 8 < N) lb[ra + 8] = row_lse(m[1], l[1]);
+        }
         uint16_t* oa = out + b * so.b + h * so.h + ra * so.n + tq * 2;
         uint16_t* ob = oa + 8 * so.n;
 #pragma unroll
@@ -1116,7 +1037,7 @@ __global__ void __launch_bounds__(kWgThreads, 1)
 template <int D>
 void launch_bf16(const void* q, const void* k, const void* v, void* out, Strides sq,
                  Strides sk, Strides sv, Strides so, int B, int N, int H, int n_valid,
-                 float sl2, float q_scale, cudaStream_t stream) {
+                 float sl2, float q_scale, float* lse, cudaStream_t stream) {
   const int smem = (kBM + 4 * kBN) * (D + 8) * static_cast<int>(sizeof(uint16_t));
   cudaFuncSetAttribute(attention_bf16<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                        smem);
@@ -1124,7 +1045,7 @@ void launch_bf16(const void* q, const void* k, const void* v, void* out, Strides
   attention_bf16<D><<<grid, kThreads, smem, stream>>>(
       static_cast<const uint16_t*>(q), static_cast<const uint16_t*>(k),
       static_cast<const uint16_t*>(v), static_cast<uint16_t*>(out), sq, sk, sv, so, N,
-      n_valid, sl2, q_scale);
+      n_valid, sl2, q_scale, lse);
 }
 
 // the pre-pass over k and v into `pairs` (2 * B*H*n_valid*D float2: k's
@@ -1132,7 +1053,7 @@ void launch_bf16(const void* q, const void* k, const void* v, void* out, Strides
 template <int D>
 void launch_tf32x3(const void* q, const void* k, const void* v, void* out, void* pairs,
                    Strides sq, Strides sk, Strides sv, Strides so, int B, int N, int H,
-                   int n_valid, float sl2, float q_scale, cudaStream_t stream) {
+                   int n_valid, float sl2, float q_scale, float* lse, cudaStream_t stream) {
   float2* kp = static_cast<float2*>(pairs);
   float2* vp = kp + static_cast<long long>(B) * H * n_valid * D;
   const long long chunks = static_cast<long long>(B) * H * n_valid * (D / 4);
@@ -1150,7 +1071,7 @@ void launch_tf32x3(const void* q, const void* k, const void* v, void* out, void*
   const dim3 grid((N + kF32Rows - 1) / kF32Rows, H, B);
   attention_tf32x3<D><<<grid, kF32Threads, smem, stream>>>(
       static_cast<const float*>(q), kp, vp, static_cast<float*>(out), sq, so, H, N, n_valid,
-      sl2, q_scale);
+      sl2, q_scale, lse);
 }
 
 // The 4-D tensor maps of a (B, H, rows, D) bf16 operand given by element
@@ -1187,7 +1108,7 @@ template <int D, bool kClamp, bool kInt8 = false>
 int run_wgmma(const CUtensorMap& mq, const CUtensorMap& mk, const CUtensorMap& mv,
               const CUtensorMap& tq, const CUtensorMap& tk, const CUtensorMap& tv, void* out,
               Strides so, int B, int N, int H, int n_valid, int G, int tok_inner, float sl2,
-              float q_scale, const float* c, cudaStream_t stream) {
+              float q_scale, const float* c, float* lse, cudaStream_t stream) {
   const long long units = static_cast<long long>((N + kQRows - 1) / kQRows) * (H / G) * B;
   const int sms = sm_count();
   constexpr int smem = WgTile<D>::kSmem;
@@ -1196,14 +1117,14 @@ int run_wgmma(const CUtensorMap& mq, const CUtensorMap& mk, const CUtensorMap& m
   attention_wgmma<D, kClamp, kInt8>
       <<<units < sms ? static_cast<int>(units) : sms, kWgThreads, smem, stream>>>(
           mq, mk, mv, tq, tk, tv, static_cast<uint16_t*>(out), so, B, N, H, n_valid, G,
-          tok_inner, sl2, q_scale, c);
+          tok_inner, sl2, q_scale, c, lse);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int D, bool kClamp = false>
 int launch_wgmma(const void* q, const void* k, const void* v, void* out, Strides sq,
                  Strides sk, Strides sv, Strides so, int B, int N, int H, int n_valid,
-                 float sl2, float q_scale, cudaStream_t stream, int G = 1) {
+                 float sl2, float q_scale, float* lse, cudaStream_t stream, int G = 1) {
   // fresh maps on every call: the caching allocator hands the same pointers
   // out again with other shapes
   CUtensorMap mq, mk, mv, tq, tk, tv;
@@ -1214,7 +1135,7 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* out, Strides
   if (err != 0) return err;
   return run_wgmma<D, kClamp>(mq, mk, mv, tq, tk, tv, out, so, B, N, H, n_valid, G,
                               int(inner_q) | (int(inner_k) << 1) | (int(inner_v) << 2), sl2,
-                              q_scale, nullptr, stream);
+                              q_scale, nullptr, lse, stream);
 }
 
 // The 4-D tensor map of a contiguous head-major (B, H, N, 64) int8 operand
@@ -1239,13 +1160,15 @@ int route_of(int D, int is_bf16) {
   return D == 64 || D == 80 ? kRouteWgmma : kRouteMmaSync;
 }
 
-int launch(const void* q, const void* k, const void* v, void* out, void* pairs, Strides sq,
-           Strides sk, Strides sv, Strides so, int B, int N, int H, int D, int n_valid,
-           int scale_log2_bits, int q_scale_bits, int is_bf16, int* route_ran, void* stream) {
+int launch(const void* q, const void* k, const void* v, void* out, void* pairs, void* lse_out,
+           Strides sq, Strides sk, Strides sv, Strides so, int B, int N, int H, int D,
+           int n_valid, int scale_log2_bits, int q_scale_bits, int is_bf16, int* route_ran,
+           void* stream) {
   float sl2, q_scale;
   memcpy(&sl2, &scale_log2_bits, sizeof(sl2));
   memcpy(&q_scale, &q_scale_bits, sizeof(q_scale));
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* lse = static_cast<float*>(lse_out);
   if (B <= 0 || N <= 0 || H <= 0 || n_valid <= 0 || n_valid > N) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -1254,12 +1177,14 @@ int launch(const void* q, const void* k, const void* v, void* out, void* pairs, 
   if (route == kRouteTf32x3 && pairs == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   if (route == kRouteWgmma) {
     return D == 64
-        ? launch_wgmma<64>(q, k, v, out, sq, sk, sv, so, B, N, H, n_valid, sl2, q_scale, st)
-        : launch_wgmma<80>(q, k, v, out, sq, sk, sv, so, B, N, H, n_valid, sl2, q_scale, st);
+        ? launch_wgmma<64>(q, k, v, out, sq, sk, sv, so, B, N, H, n_valid, sl2, q_scale, lse,
+                           st)
+        : launch_wgmma<80>(q, k, v, out, sq, sk, sv, so, B, N, H, n_valid, sl2, q_scale, lse,
+                           st);
   }
 #define MVP_ATTN_CASE(DIM, LAUNCH)                                                      \
   case DIM:                                                                             \
-    LAUNCH<DIM>(q, k, v, out, sq, sk, sv, so, B, N, H, n_valid, sl2, q_scale, st); \
+    LAUNCH<DIM>(q, k, v, out, sq, sk, sv, so, B, N, H, n_valid, sl2, q_scale, lse, st); \
     break;
   if (route == kRouteMmaSync) {
     switch (D) {
@@ -1272,7 +1197,7 @@ int launch(const void* q, const void* k, const void* v, void* out, void* pairs, 
 #define MVP_TF32_CASE(DIM)                                                                 \
   case DIM:                                                                                \
     launch_tf32x3<DIM>(q, k, v, out, pairs, sq, sk, sv, so, B, N, H, n_valid, sl2, q_scale, \
-                       st);                                                                \
+                       lse, st);                                                           \
     break;
     switch (D) {
       MVP_TF32_CASE(16)
@@ -1307,8 +1232,8 @@ extern "C" int mvp_fused_qkv_attention(const void* qkv, void* out, void* pairs, 
   const float one = 1.f;
   int one_bits;
   memcpy(&one_bits, &one, sizeof(one_bits));
-  return launch(base, base + hd * esize, base + 2 * hd * esize, out, pairs, in, in, in, so, B,
-                N, H, D, n_valid, scale_log2_bits, one_bits, is_bf16, route_ran, stream);
+  return launch(base, base + hd * esize, base + 2 * hd * esize, out, pairs, nullptr, in, in, in,
+                so, B, N, H, D, n_valid, scale_log2_bits, one_bits, is_bf16, route_ran, stream);
 }
 
 // K2. q, k, v, out: (B, H, N, D) by element strides (batch, head, token),
@@ -1317,16 +1242,20 @@ extern "C" int mvp_fused_qkv_attention(const void* qkv, void* out, void* pairs, 
 // pass N; the bench's splash route (K9) passes its count of valid keys.
 // q_scale_bits: the float q_scale (q is taken as q * q_scale, rounded to
 // q's dtype, before the scores; 1 for K2 and K3, the softmax scale for K9).
-// pairs, is_bf16 and route_ran as for K1.
+// pairs, is_bf16 and route_ran as for K1. lse: null, or a contiguous
+// (B, H, N) f32 output for every row's natural logsumexp of its scores
+// (q' k^T * scale over the keys < n_valid), the residual of the backward
+// (attention_bwd.cu); null on every frozen launch.
 extern "C" int mvp_vit_attention(const void* q, const void* k, const void* v, void* out,
-                                 void* pairs, int B, int N, int H, int D, int n_valid,
+                                 void* pairs, void* lse, int B, int N, int H, int D,
+                                 int n_valid,
                                  long long q_sb, long long q_sh, long long q_sn,
                                  long long k_sb, long long k_sh,
                                  long long k_sn, long long v_sb, long long v_sh,
                                  long long v_sn, long long o_sb, long long o_sh,
                                  long long o_sn, int scale_log2_bits, int q_scale_bits,
                                  int is_bf16, int* route_ran, void* stream) {
-  return launch(q, k, v, out, pairs, Strides{q_sb, q_sh, q_sn}, Strides{k_sb, k_sh, k_sn},
+  return launch(q, k, v, out, pairs, lse, Strides{q_sb, q_sh, q_sn}, Strides{k_sb, k_sh, k_sn},
                 Strides{v_sb, v_sh, v_sn}, Strides{o_sb, o_sh, o_sn}, B, N, H, D, n_valid,
                 scale_log2_bits, q_scale_bits, is_bf16, route_ran, stream);
 }
@@ -1362,7 +1291,7 @@ extern "C" int mvp_int8_attention_wgmma(const void* q8, const void* k8, const vo
   // the tail maps are unread at d = 64; q8 and k8 are token-inner
   return run_wgmma<64, true, true>(mq, mk, mv, mq, mk, tv, out, so, B, N, H, n_valid,
                                    heads_per_block, 3 | (int(inner_v) << 2), 1.f, 1.f,
-                                   static_cast<const float*>(c),
+                                   static_cast<const float*>(c), nullptr,
                                    static_cast<cudaStream_t>(stream));
 }
 
@@ -1391,7 +1320,9 @@ extern "C" int mvp_clamp_attention(const void* qkv, void* out, int B, int N, int
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   *route_ran = kRouteWgmma;
   return D == 64 ? launch_wgmma<64, true>(base, base + hd, base + 2 * hd, out, in, in, in, so,
-                                          B, N, H, n_valid, 1.f, q_scale, st, heads_per_block)
+                                          B, N, H, n_valid, 1.f, q_scale, nullptr, st,
+                                          heads_per_block)
                  : launch_wgmma<80, true>(base, base + hd, base + 2 * hd, out, in, in, in, so,
-                                          B, N, H, n_valid, 1.f, q_scale, st, heads_per_block);
+                                          B, N, H, n_valid, 1.f, q_scale, nullptr, st,
+                                          heads_per_block);
 }

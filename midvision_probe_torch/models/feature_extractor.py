@@ -141,6 +141,13 @@ class FeatureExtractor:
     """A frozen backbone: ``module`` (an ``nn.Module`` whose parameters do
     not train) and ``apply_fn`` (images NHWC -> (maps, cls tokens)).
 
+    A call follows grad mode, as the JAX ``FeatureExtractor`` stops no
+    gradient: images that require grad get the gradient of the features
+    with respect to them (through the attention kernels' backwards on a
+    card); on images that do not, nothing is recorded, since no parameter
+    requires grad. The probe trainers run the backbone under their own
+    ``torch.no_grad()``.
+
     ``forward_count`` (class-wide) counts backbone forwards, so a run can
     check that every forward went through the attention kernel."""
 
@@ -173,8 +180,7 @@ class FeatureExtractor:
         """images NHWC -> (feature maps, cls tokens), one of each per tap (a
         cls token is None without one); one counted forward."""
         FeatureExtractor.forward_count += 1
-        with torch.no_grad():
-            return self._apply_fn(images.to(self.device))
+        return self._apply_fn(images.to(self.device))
 
     def __call__(self, images: torch.Tensor):
         """images NHWC (normalized) -> feature map(s) per the contract."""
@@ -192,7 +198,8 @@ class FeatureExtractor:
         ``return_kqv`` / ``extract_kqv``, ``dino.py:82-138``): its q, k or v
         as (B, h, w, C) patch maps, or (B, h, w, 3C) for ``"kqv"`` (k, q, v
         in that order). The projection is the one the block's attention ran
-        on (K1's input on the fused branch); one counted forward. ViT
+        on (K1's input on the fused branch); one counted forward that
+        follows grad mode, as the JAX ``extract_kqv`` stops no gradient. ViT
         extractors only."""
         qkv_fn = getattr(self._apply_fn, "qkv_fn", None)
         if self.arch != "vit" or qkv_fn is None:
@@ -200,8 +207,7 @@ class FeatureExtractor:
         if mode not in ("k", "q", "v", "kqv"):
             raise ValueError(f"mode must be one of k, q, v, kqv; got {mode!r}")
         FeatureExtractor.forward_count += 1
-        with torch.no_grad():
-            qkv, (gh, gw) = qkv_fn(images.to(self.device))
+        qkv, (gh, gw) = qkv_fn(images.to(self.device))
         B, N, _, H, d = qkv.shape
 
         def to_map(role: int) -> torch.Tensor:  # patch tokens only

@@ -8,7 +8,11 @@
   flash kernel (K3, ``_flash_attention`` here). On the card both routes
   reach the same kernel, whose KV-tile online softmax is the flash
   algorithm and takes any N; the split only decides which launch count
-  counts.
+  counts. Their gradients differ as in the JAX package: ``vit_attention``'s
+  is its plain version's vjp (the JAX ``custom_vjp``'s einsum backward),
+  ``_flash_attention``'s is the hand-written backward K10
+  (``csrc/attention_bwd.cu``), the counterpart of the jax library's dq and
+  dkv kernels, counted in ``_flash_attention.backward_launches``.
 * A bias (BEiT's relative-position bias), or a head dim and dtype that no
   route of the kernel takes (``kernel_takes``, beside the route table in
   ``ops/vit_attention.py``): ``_einsum_attention``, the plain f32-softmax
@@ -25,9 +29,11 @@ from __future__ import annotations
 import torch
 
 from midvision_probe_torch.ops.vit_attention import (
+    _needs_grad,
     _vit_attention_plain,
     kernel_takes,
     launch_attention,
+    launch_attention_backward,
     vit_attention,
 )
 
@@ -43,18 +49,41 @@ def _einsum_attention(q, k, v, bias=None, scale=1.0):
     return torch.einsum("bhqk,bhkd->bhqd", p, v)
 
 
+class _FlashAttention(torch.autograd.Function):
+    """K3 on a card with the residual its backward needs; backward: K10."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale):
+        out, lse = launch_attention(q, k, v, scale, return_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.scale = scale
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        grads = launch_attention_backward(q, k, v, out, lse, dout, ctx.scale)
+        _flash_attention.backward_launches += 1
+        return (*grads, None)
+
+
 def _flash_attention(q, k, v, scale: float):
     """The long-sequence route (K3 in the JAX package): the attention
-    kernel on a card, counted in ``_flash_attention.launches``; the plain
-    version on the CPU."""
+    kernel on a card, counted in ``_flash_attention.launches``, and under
+    autograd its backward K10, counted in ``.backward_launches``; the plain
+    version (and its autograd) on the CPU."""
     if q.device.type == "cpu":
         return _vit_attention_plain(q, k, v, scale)
-    out = launch_attention(q, k, v, scale)
+    if _needs_grad(q, k, v):
+        out = _FlashAttention.apply(q, k, v, scale)
+    else:
+        out = launch_attention(q, k, v, scale)
     _flash_attention.launches += 1
     return out
 
 
 _flash_attention.launches = 0  # kernel launches (never the plain version)
+_flash_attention.backward_launches = 0  # K10 launches
 
 
 def multi_head_attention(q, k, v, bias=None, scale: float = 1.0,

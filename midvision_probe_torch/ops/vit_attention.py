@@ -34,11 +34,21 @@ it.
   a contiguous last dimension (q/k/v may be views of the qkv projection) ->
   ``(B, H, N, d)``, on a card a view of a ``(B, N, H, d)`` buffer so that the
   transpose back to tokens before ``proj`` is free.
-* ``launch_attention(q, k, v, scale, n_valid=None, q_scale=1.0)``: the
-  strided launch behind ``vit_attention``, K3 and K9; ``q_scale`` multiplies
-  q and rounds it to q's dtype before the scores (K9's ``bf16(q * scale)``).
+* ``launch_attention(q, k, v, scale, n_valid=None, q_scale=1.0,
+  return_lse=False)``: the strided launch behind ``vit_attention``, K3 and
+  K9; ``q_scale`` multiplies q and rounds it to q's dtype before the scores
+  (K9's ``bf16(q * scale)``); ``return_lse`` also returns each row's
+  logsumexp, the residual of the backward.
+* ``launch_attention_backward(q, k, v, out, lse, dout, scale, n_valid=None,
+  q_scale=1.0)``: dq, dk and dv from ``csrc/attention_bwd.cu``, the
+  backward of K3 (K10) and of K9 (K11), which the JAX package runs as the
+  jax library's Pallas dq and dkv kernels.
 * For a CPU tensor each runs its plain version; for a CUDA tensor it
   launches the kernel or raises. There is no fallback.
+* Gradients follow the JAX package's ``custom_vjp``s: K1 and K2 take the
+  vjp of their plain version, recomputed (``_fused_bwd`` and ``_bwd`` take
+  the vjp of ``_fused_einsum_ref`` and ``_einsum_ref``); K3 and K9 take
+  K10 and K11 (``ops/attention.py``, ``bench_attn.py``).
 * ``_fused_qkv_attention_plain`` / ``_vit_attention_plain``: the einsum +
   softmax formulations of the JAX package's ``_fused_einsum_ref`` /
   ``_einsum_ref`` (``q * scale`` in the input dtype, f32 scores and softmax,
@@ -48,8 +58,9 @@ Constraints of the CUDA kernels (they replace the TPU-only gates of the JAX
 package: 128-lane divisibility, the VMEM cap, N >= 256 and the 128-padding
 do not apply): head dim d in {16, 32, 64, 80, 128}; K1 keeps the JAX fused
 kernel's d | 128 (so a model takes the same branch as on the TPU); dtype
-bfloat16 or float32; 16-byte aligned rows; any N >= 1 (1 <= n_valid <= N);
-forward only (the backbone is frozen, so no gradient flows through it).
+bfloat16 or float32; 16-byte aligned rows; any N >= 1 (1 <= n_valid <= N).
+A frozen call (no input that requires grad, or grad mode off) launches the
+kernel alone and records nothing.
 """
 
 from __future__ import annotations
@@ -127,7 +138,7 @@ def _kernel():
 def _strided_kernel():
     fn = load_library("vit_attention").mvp_vit_attention
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
+        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
                        + [ctypes.c_int64] * 12 + [ctypes.c_int] * 3
                        + [ctypes.POINTER(ctypes.c_int), ctypes.c_void_p])
         fn.restype = ctypes.c_int
@@ -142,13 +153,39 @@ def _pairs(B: int, H: int, n_valid: int, d: int, dtype: torch.dtype, device):
     return torch.empty((2, B, H, n_valid, d, 2), dtype=dtype, device=device)
 
 
+def _needs_grad(*tensors: torch.Tensor) -> bool:
+    """Whether autograd records a call on ``tensors``."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
+class _Recomputed(torch.autograd.Function):
+    """Forward: a kernel launch; backward: the vjp of the plain version
+    ``plain``, recomputed from the saved inputs, as the JAX package's
+    ``custom_vjp``s of K1 and K2 take the vjp of their einsum reference."""
+
+    @staticmethod
+    def forward(ctx, launch, plain, args, *inputs):
+        ctx.save_for_backward(*inputs)
+        ctx.plain, ctx.args = plain, args
+        return launch(*inputs, *args)
+
+    @staticmethod
+    def backward(ctx, grad):
+        inputs = [t.detach().requires_grad_() for t in ctx.saved_tensors]
+        with torch.enable_grad():
+            out = ctx.plain(*inputs, *ctx.args)
+            grads = torch.autograd.grad(out, inputs, grad)
+        return (None, None, None, *grads)
+
+
 def fused_qkv_attention(qkv: torch.Tensor, scale: float,
                         n_valid: int | None = None) -> torch.Tensor:
     """Non-causal attention on the fused projection output.
 
     qkv ``(B, N, 3, H, d)`` -> ``(B, N, H*d)``. ``n_valid``: rows >= n_valid
     are padding; their keys/values are excluded (never read by the kernel)
-    and their output rows attend over the valid keys like any other row."""
+    and their output rows attend over the valid keys like any other row.
+    Differentiable: the gradient is the plain version's (F12)."""
     if qkv.ndim != 5 or qkv.shape[2] != 3:
         raise ValueError(f"qkv must be (B, N, 3, H, d), got {tuple(qkv.shape)}")
     B, N, _, H, d = qkv.shape
@@ -164,9 +201,15 @@ def fused_qkv_attention(qkv: torch.Tensor, scale: float,
         raise ValueError(f"dtype {qkv.dtype} not in {_DTYPES}")
     if not qkv.is_contiguous() or qkv.data_ptr() % 16:
         raise ValueError("qkv must be contiguous and 16-byte aligned")
-    if qkv.requires_grad and torch.is_grad_enabled():
-        raise RuntimeError("the fused attention kernel is forward-only "
-                           "(frozen backbone); run it under torch.no_grad()")
+    if _needs_grad(qkv):
+        return _Recomputed.apply(_launch_fused, _fused_qkv_attention_plain, (scale, n_valid),
+                                 qkv)
+    return _launch_fused(qkv, scale, n_valid)
+
+
+def _launch_fused(qkv: torch.Tensor, scale: float, n_valid: int | None) -> torch.Tensor:
+    """K1's launch on a checked CUDA qkv, counted."""
+    B, N, _, H, d = qkv.shape
     out = torch.empty((B, N, H * d), dtype=qkv.dtype, device=qkv.device)
     nv = N if n_valid is None else n_valid
     pairs = _pairs(B, H, nv, d, qkv.dtype, qkv.device)
@@ -189,33 +232,30 @@ def fused_qkv_attention(qkv: torch.Tensor, scale: float,
 fused_qkv_attention.launches = 0  # kernel launches (never the plain twin)
 
 
+def _rows_aligned(t: torch.Tensor) -> bool:
+    """A 16-byte aligned start for every (b, h, n) row."""
+    size = t.element_size()
+    return not (t.data_ptr() % 16 or any(st * size % 16 for st, n in
+                                         zip(t.stride()[:3], t.shape[:3]) if n > 1))
+
+
 def _check_rows(name: str, t: torch.Tensor) -> None:
     """The kernel reads every row with 16-byte copies: unit last stride and
     a 16-byte aligned start for every (b, h, n) row."""
     if t.stride(-1) != 1:
         raise ValueError(f"{name} must have a contiguous last dimension")
-    size = t.element_size()
-    if t.data_ptr() % 16 or any(st * size % 16 for st, n in zip(t.stride()[:3], t.shape[:3])
-                                if n > 1):
+    if not _rows_aligned(t):
         raise ValueError(f"{name} rows must be 16-byte aligned")
 
 
-def launch_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                     scale: float, n_valid: int | None = None,
-                     q_scale: float = 1.0) -> torch.Tensor:
-    """Launch the strided kernel on CUDA ``(B, H, N, d)`` operands; returns
-    the ``(B, H, N, d)`` view of a fresh ``(B, N, H, d)`` buffer. Keys and
-    values at index >= ``n_valid`` (default N) are excluded and never read.
-    ``q_scale`` (a finite float): q enters the scores as ``q * q_scale``
-    rounded to q's dtype (K9 passes its softmax scale here and ``scale`` 1).
-    Raises on anything the kernel does not take; the arguments are checked
-    before the device. The callers (``vit_attention``,
-    ``ops.attention._flash_attention`` and ``bench_attn.splash_attention``)
-    count the launch; ``route_launches`` counts it by route."""
+def _check_operands(q, k, v, n_valid, q_scale):
+    """The checks of the strided launches, before the device: (B, H, N, d)
+    of one shape and dtype that a route takes, ``n_valid`` in [1, N], a
+    finite ``q_scale``. Returns n_valid (default N)."""
     if q.ndim != 4 or q.shape != k.shape or q.shape != v.shape:
         raise ValueError("q, k, v must be (B, H, N, d) of one shape, got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
-    B, H, N, d = q.shape
+    N = q.shape[2]
     n_valid = N if n_valid is None else n_valid
     if not 0 < n_valid <= N:
         raise ValueError(f"n_valid={n_valid} outside [1, {N}]")
@@ -223,23 +263,57 @@ def launch_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"q_scale must be a finite float, got {q_scale!r}")
     if k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(f"dtypes {q.dtype}, {k.dtype}, {v.dtype}: q, k, v must share one")
-    attention_route(d, q.dtype)  # raises on a head dim or dtype no kernel takes
-    if q.device.type != "cuda":
-        raise ValueError(f"unsupported device {q.device}")
-    if k.device != q.device or v.device != q.device:
-        raise ValueError("q, k, v must be on one device")
-    for name, t in (("q", q), ("k", k), ("v", v)):
+    attention_route(q.shape[-1], q.dtype)  # raises on a head dim or dtype no kernel takes
+    return n_valid
+
+
+def _check_card(tensors: dict) -> None:
+    """Every tensor on one card, with rows the kernels read."""
+    first = next(iter(tensors.values()))
+    if first.device.type != "cuda":
+        raise ValueError(f"unsupported device {first.device}")
+    if any(t.device != first.device for t in tensors.values()):
+        raise ValueError(f"{', '.join(tensors)} must be on one device")
+    for name, t in tensors.items():
         _check_rows(name, t)
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        raise RuntimeError("the attention kernel is forward-only (frozen "
-                           "backbone); run it under torch.no_grad()")
-    out = torch.empty((B, N, H, d), dtype=q.dtype, device=q.device).transpose(1, 2)
+
+
+def _token_major(B: int, H: int, N: int, d: int, like: torch.Tensor) -> torch.Tensor:
+    """The (B, H, N, d) view of a fresh (B, N, H, d) buffer, so that the
+    transpose back to tokens is free."""
+    return torch.empty((B, N, H, d), dtype=like.dtype, device=like.device).transpose(1, 2)
+
+
+def launch_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     scale: float, n_valid: int | None = None,
+                     q_scale: float = 1.0, return_lse: bool = False):
+    """Launch the strided kernel on CUDA ``(B, H, N, d)`` operands; returns
+    the ``(B, H, N, d)`` view of a fresh ``(B, N, H, d)`` buffer and, with
+    ``return_lse``, each row's natural logsumexp of its scores, f32
+    ``(B, H, N)`` (the backward's residual; a frozen launch asks for none).
+    Keys and values at index >= ``n_valid`` (default N) are excluded and
+    never read. ``q_scale`` (a finite float): q enters the scores as
+    ``q * q_scale`` rounded to q's dtype (K9 passes its softmax scale here
+    and ``scale`` 1). Raises on anything the kernel does not take; the
+    arguments are checked before the device. Not differentiable itself: the
+    callers (``vit_attention``, ``ops.attention._flash_attention`` and
+    ``bench_attn.splash_attention``) wrap it in their gradients and count
+    the launch; ``route_launches`` counts it by route."""
+    n_valid = _check_operands(q, k, v, n_valid, q_scale)
+    if _needs_grad(q, k, v):
+        raise RuntimeError("launch_attention records no gradient; call vit_attention, "
+                           "ops.attention._flash_attention or bench_attn.splash_attention")
+    _check_card({"q": q, "k": k, "v": v})
+    B, H, N, d = q.shape
+    out = _token_major(B, H, N, d, q)
+    lse = torch.empty((B, H, N), dtype=torch.float32, device=q.device) if return_lse else None
     pairs = _pairs(B, H, n_valid, d, q.dtype, q.device)
     ran = ctypes.c_int(-1)
     with torch.cuda.device(q.device):
         err = _strided_kernel()(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            None if pairs is None else pairs.data_ptr(), B, N, H, d, n_valid,
+            None if pairs is None else pairs.data_ptr(),
+            None if lse is None else lse.data_ptr(), B, N, H, d, n_valid,
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
             float_bits(scale * _LOG2E), float_bits(float(q_scale)),
             int(q.dtype == torch.bfloat16), ctypes.byref(ran),
@@ -247,15 +321,77 @@ def launch_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if err != 0:
         raise RuntimeError(f"attention kernel launch failed: cudaError {err}")
     route_launches[ROUTES[ran.value]] += 1
-    return out
+    return (out, lse) if return_lse else out
+
+
+def _backward_kernel():
+    fn = load_library("attention_bwd").mvp_attention_backward
+    if fn.argtypes is None:
+        fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.POINTER(ctypes.c_longlong)]
+                       + [ctypes.c_int] * 7 + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def launch_attention_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                              out: torch.Tensor, lse: torch.Tensor, dout: torch.Tensor,
+                              scale: float, n_valid: int | None = None,
+                              q_scale: float = 1.0):
+    """The backward of ``launch_attention`` on a card (K10 for K3, K11 for
+    K9; ``csrc/attention_bwd.cu``): ``(dq, dk, dv)``, each the (B, H, N, d)
+    view of a fresh (B, N, H, d) buffer, from the forward's operands, its
+    output ``out`` and ``lse`` (``return_lse``) and the output's gradient
+    ``dout``. ``di = rowsum(dout * out)`` is computed here in f32, outside
+    the kernels, as the jax library computes it. With ``q_scale`` the kernel
+    sees ``q' = q * q_scale`` rounded to q's dtype, as the forward did, and
+    dq is ``dq' * q_scale`` rounded to q's dtype (the multiplication's
+    transpose). dk and dv are 0 at keys >= ``n_valid``. Raises on anything
+    the kernel does not take, before the device; the callers count the
+    launch."""
+    n_valid = _check_operands(q, k, v, n_valid, q_scale)
+    B, H, N, d = q.shape
+    if out.shape != q.shape or dout.shape != q.shape:
+        raise ValueError(f"out {tuple(out.shape)} and dout {tuple(dout.shape)} must be "
+                         f"{tuple(q.shape)}")
+    if out.dtype != q.dtype or dout.dtype != q.dtype:
+        raise ValueError(f"out and dout must be {q.dtype}, got {out.dtype}, {dout.dtype}")
+    if (lse.shape != (B, H, N) or lse.dtype != torch.float32 or not lse.is_contiguous()):
+        raise ValueError(f"lse must be contiguous float32 {(B, H, N)}, got "
+                         f"{lse.dtype} {tuple(lse.shape)}")
+    if dout.stride(-1) != 1 or not _rows_aligned(dout):
+        dout = dout.contiguous()  # autograd's gradient may come in any layout
+    _check_card({"q": q, "k": k, "v": v, "dout": dout})
+    if lse.device != q.device or out.device != q.device:
+        raise ValueError("out and lse must be on q's device")
+    if q_scale != 1.0:
+        q = (q.float() * q_scale).to(q.dtype)
+    di = (dout.float() * out.float()).sum(-1).contiguous()
+    dq, dk, dv = (_token_major(B, H, N, d, q) for _ in range(3))
+    strides = (ctypes.c_longlong * 21)(*(st for t in (q, k, v, dout, dq, dk, dv)
+                                         for st in t.stride()[:3]))
+    with torch.cuda.device(q.device):
+        err = _backward_kernel()(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), lse.data_ptr(),
+            di.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), strides,
+            B, N, H, d, n_valid, float_bits(scale), int(q.dtype == torch.bfloat16),
+            torch.cuda.current_stream(q.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"attention backward kernel launch failed: cudaError {err}")
+    if q_scale != 1.0:
+        dq = (dq.float() * q_scale).to(dq.dtype)
+    return dq, dk, dv
 
 
 def vit_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   scale: float) -> torch.Tensor:
-    """Non-causal, unmasked attention on ``(B, H, N, d)`` operands."""
+    """Non-causal, unmasked attention on ``(B, H, N, d)`` operands.
+    Differentiable: the gradient is the plain version's (F12)."""
     if q.device.type == "cpu":
         return _vit_attention_plain(q, k, v, scale)
-    out = launch_attention(q, k, v, scale)
+    if _needs_grad(q, k, v):
+        out = _Recomputed.apply(launch_attention, _vit_attention_plain, (scale,), q, k, v)
+    else:
+        out = launch_attention(q, k, v, scale)
     vit_attention.launches += 1
     return out
 

@@ -284,3 +284,20 @@ def test_suite_timing_the_ab_launchers_and_the_dry_run_raise_without_a_device(
             run()
     assert not list(tmp_path.iterdir())  # nothing ran on the CPU
     assert "[ab]" not in capsys.readouterr().out
+
+
+def test_every_kernel_source_is_built_from_the_repository_alone():
+    """Every ``csrc/*.cu`` (``attention_bwd.cu`` included) is one of the
+    sources ``cuda_build`` compiles, each library's name hashes every
+    header it may include, and a source includes only the toolkit's
+    headers and the headers next to it in ``csrc/``."""
+    import re
+
+    from midvision_probe_torch.ops import cuda_build
+
+    csrc = PORT / "csrc"
+    assert sorted(cuda_build.KERNEL_SOURCES) == sorted(p.stem for p in csrc.glob("*.cu"))
+    assert cuda_build.CSRC == csrc
+    for path in sorted(csrc.glob("*.cu")) + sorted(csrc.glob("*.cuh")):
+        for name in re.findall(r'^#include "([^"]+)"', path.read_text(), re.M):
+            assert (csrc / name).is_file() and name.endswith(".cuh"), (path.name, name)

@@ -1,9 +1,11 @@
 """The Python side of the port's Hopper kernels that runs without a card:
 the choice of attention route by head dim and dtype, the dispatch of head
 dims that no route takes to einsum, the fused MLP's width check, the check
-of the strided launch's ``q_scale``, and the wrappers' CPU path (the plain
-version, no launch counted). The kernels themselves run in
-``tests/test_torch_kernels.py`` on the card."""
+of the strided launch's ``q_scale``, the argument checks of the attention
+backward's launch (K10, K11), the recomputed backward of K1 and K2 (F12)
+and the wrappers' CPU path (the plain version and its autograd, no launch
+counted). The kernels themselves run in ``tests/test_torch_kernels.py`` on
+the card."""
 
 import numpy as np
 import pytest
@@ -167,6 +169,84 @@ def test_splash_attention_on_the_cpu_is_its_plain_version():
     assert (dict(attn.route_launches), ba.splash_attention.launches) == before
     torch.testing.assert_close(got, ba._splash_attention_plain(qkv, 80**-0.5, 33),
                                atol=0, rtol=0)
+
+
+def _backward_args(B=1, H=2, N=8, d=64, dtype=torch.bfloat16):
+    z = torch.zeros(B, H, N, d, dtype=dtype)
+    return [z, z, z, z, torch.zeros(B, H, N), z]
+
+
+def test_launch_attention_backward_checks_its_arguments_before_the_device():
+    """K10's and K11's launch raises on what the kernel does not take, each
+    before the device: a head dim or dtype no route takes, n_valid, q_scale,
+    mismatched shapes or dtypes, an lse that is not contiguous f32 (B, H,
+    N); a well-formed call on the CPU raises at the device check."""
+    with pytest.raises(ValueError, match="head dim"):
+        attn.launch_attention_backward(*_backward_args(d=48), 1.0)
+    with pytest.raises(ValueError, match="dtype"):
+        attn.launch_attention_backward(*_backward_args(dtype=torch.float16), 1.0)
+    with pytest.raises(ValueError, match="n_valid"):
+        attn.launch_attention_backward(*_backward_args(), 1.0, n_valid=9)
+    with pytest.raises(ValueError, match="q_scale"):
+        attn.launch_attention_backward(*_backward_args(), 1.0, q_scale=float("nan"))
+    args = _backward_args()
+    with pytest.raises(ValueError, match="one shape"):
+        attn.launch_attention_backward(args[0][:, :, :4], *args[1:], 1.0)
+    with pytest.raises(ValueError, match="dout"):
+        attn.launch_attention_backward(*args[:5], args[5][:, :1], 1.0)
+    with pytest.raises(ValueError, match="out and dout"):
+        attn.launch_attention_backward(*args[:3], args[3].float(), *args[4:], 1.0)
+    for lse in (torch.zeros(1, 2, 9), torch.zeros(1, 2, 8, dtype=torch.float64),
+                torch.zeros(1, 8, 2).transpose(1, 2)):
+        with pytest.raises(ValueError, match="lse"):
+            attn.launch_attention_backward(*args[:4], lse, args[5], 1.0)
+    with pytest.raises(ValueError, match="unsupported device"):
+        attn.launch_attention_backward(*args, 1.0, n_valid=5, q_scale=0.125)
+
+
+def test_launch_attention_refuses_to_record_a_gradient():
+    """The raw launch is not differentiable: under autograd it raises
+    before the device (its callers wrap it in their gradients)."""
+    z = torch.zeros(1, 2, 8, 64, dtype=torch.bfloat16)
+    with pytest.raises(RuntimeError, match="records no gradient"):
+        attn.launch_attention(z.clone().requires_grad_(), z, z, 1.0)
+
+
+@pytest.mark.parametrize("n_valid", [None, 5])
+def test_recomputed_backward_is_the_plain_versions_autograd(n_valid):
+    """F12's wiring, run on the CPU with the plain version standing in for
+    the launch: the gradient of ``_Recomputed`` (K1's and K2's on a card)
+    is exactly the plain version's autograd."""
+    rng = np.random.RandomState(1)
+    qkv = torch.from_numpy(rng.randn(2, 8, 3, 2, 16).astype(np.float32)).requires_grad_()
+    g = torch.from_numpy(rng.randn(2, 8, 32).astype(np.float32))
+    plain = attn._fused_qkv_attention_plain
+    out = attn._Recomputed.apply(plain, plain, (0.3, n_valid), qkv)
+    (got,) = torch.autograd.grad(out, qkv, g)
+    (ref,) = torch.autograd.grad(plain(qkv, 0.3, n_valid), qkv, g)
+    torch.testing.assert_close(got, ref, atol=0, rtol=0)
+    q, k, v = (t.detach().transpose(1, 2).requires_grad_() for t in qkv.unbind(2))
+    gv = g.reshape(2, 8, 2, 16).transpose(1, 2)
+    vit = attn._vit_attention_plain
+    got = torch.autograd.grad(attn._Recomputed.apply(vit, vit, (0.3,), q, k, v), (q, k, v), gv)
+    ref = torch.autograd.grad(vit(q, k, v, 0.3), (q, k, v), gv)
+    for a, b in zip(got, ref):
+        torch.testing.assert_close(a, b, atol=0, rtol=0)
+
+
+def test_splash_attention_grad_on_the_cpu_is_its_plain_versions():
+    """K9's gradient on the CPU: the plain version's autograd, zero at the
+    keys and values past n_valid, no forward or backward launch counted."""
+    rng = np.random.RandomState(4)
+    qkv = torch.from_numpy((rng.randn(2, 40, 3, 2, 16) * 0.6).astype(np.float32)).bfloat16()
+    qkv.requires_grad_()
+    g = torch.from_numpy(rng.randn(2, 40, 32).astype(np.float32)).bfloat16()
+    before = (ba.splash_attention.launches, ba.splash_attention.backward_launches)
+    (got,) = torch.autograd.grad(ba.splash_attention(qkv, 80**-0.5, 33), qkv, g)
+    assert (ba.splash_attention.launches, ba.splash_attention.backward_launches) == before
+    (ref,) = torch.autograd.grad(ba._splash_attention_plain(qkv, 80**-0.5, 33), qkv, g)
+    torch.testing.assert_close(got, ref, atol=0, rtol=0)
+    assert not got[:, 33:, 1:].any()
 
 
 def _mlp_args(M=6, C=16, H=32, dtype=torch.bfloat16):

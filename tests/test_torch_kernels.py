@@ -86,9 +86,19 @@ def test_fused_qkv_attention_kernel_rejects_what_it_cannot_take(cuda):
     with pytest.raises(ValueError, match="contiguous"):
         attn.fused_qkv_attention(
             torch.zeros(1, 8, 3, 2, 32, device=cuda)[..., :16], 0.1)
-    with pytest.raises(RuntimeError, match="forward-only"):
-        attn.fused_qkv_attention(
-            torch.zeros(1, 8, 3, 2, 16, device=cuda, requires_grad=True), 0.1)
+    # under autograd the kernel runs and the gradient is the plain
+    # version's, recomputed (F12), as the JAX custom_vjp's
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.RandomState(2)
+    qkv = torch.from_numpy(rng.randn(1, 8, 3, 2, 16).astype(np.float32)).to(cuda)
+    qkv.requires_grad_()
+    g = torch.from_numpy(rng.randn(1, 8, 32).astype(np.float32)).to(cuda)
+    before = attn.fused_qkv_attention.launches
+    out = attn.fused_qkv_attention(qkv, 0.1, 6)
+    assert attn.fused_qkv_attention.launches == before + 1 and out.grad_fn is not None
+    (got,) = torch.autograd.grad(out, qkv, g)
+    (ref,) = torch.autograd.grad(attn._fused_qkv_attention_plain(qkv, 0.1, 6), qkv, g)
+    torch.testing.assert_close(got, ref, atol=1e-6, rtol=0)
 
 
 @pytest.mark.cuda
@@ -280,8 +290,96 @@ def test_vit_attention_kernel_rejects_what_it_cannot_take(cuda):
                            [1:].view(1, 2, 8, 32), z, z, 0.1)
     with pytest.raises(ValueError, match="dtype"):
         attn.vit_attention(z.half(), z.half(), z.half(), 0.1)
-    with pytest.raises(RuntimeError, match="forward-only"):
-        attn.vit_attention(z.float().requires_grad_(), z.float(), z.float(), 0.1)
+    # under autograd the kernel runs and the gradient is the plain
+    # version's, recomputed (F12)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    base = torch.from_numpy(np.random.RandomState(3).randn(1, 8, 3, 2, 32).astype(
+        np.float32)).to(cuda).requires_grad_()
+    q, k, v = base.permute(2, 0, 3, 1, 4).unbind(0)
+    g = torch.ones(1, 2, 8, 32, device=cuda)
+    before = attn.vit_attention.launches
+    out = attn.vit_attention(q, k, v, 0.1)
+    assert attn.vit_attention.launches == before + 1 and out.grad_fn is not None
+    (got,) = torch.autograd.grad(out, base, g)
+    (ref,) = torch.autograd.grad(attn._vit_attention_plain(q, k, v, 0.1), base, g)
+    torch.testing.assert_close(got, ref, atol=1e-6, rtol=0)
+
+
+# ------------------------------------- K10/K11: the attention backward kernel
+def _exact_grads(qkv, g, scale, n_valid, q_scale=1.0):
+    """The gradient of (B, N, 3, H, d) qkv through exact softmax attention
+    in float64 over the keys < n_valid, of q' = q * q_scale rounded to
+    qkv's dtype (the multiplication's transpose for q), cotangent g
+    (B, H, N, d)."""
+    q, k, v = qkv.detach().permute(2, 0, 3, 1, 4).unbind(0)
+    q = (q.float() * q_scale).to(qkv.dtype)
+    leaves = [t.double().requires_grad_() for t in (q, k[:, :, :n_valid], v[:, :, :n_valid])]
+    p = torch.softmax(torch.einsum("bhqd,bhkd->bhqk", leaves[0] * scale, leaves[1]), -1)
+    dq, dk, dv = torch.autograd.grad(torch.einsum("bhqk,bhkd->bhqd", p, leaves[2]), leaves,
+                                     g.double())
+    pad = (0, 0, 0, qkv.shape[1] - n_valid)
+    grads = [dq * q_scale, torch.nn.functional.pad(dk, pad), torch.nn.functional.pad(dv, pad)]
+    return torch.stack([t.transpose(1, 2) for t in grads], dim=2)
+
+
+def _hold_to_exact(got, plain, exact, dtype):
+    """Each of dq, dk and dv: f32 within 1e-4 * max|exact|; bf16 within
+    max(2^-6 * max|exact|, twice the plain version's own error)."""
+    for role, name in enumerate("qkv"):
+        e = exact[:, :, role]
+        err = (got[:, :, role].double() - e).abs().max().item()
+        if dtype == torch.float32:
+            tol = 1e-4 * e.abs().max().item()
+        else:
+            plain_err = (plain[:, :, role].double() - e).abs().max().item()
+            tol = max(2.0**-6 * e.abs().max().item(), 2 * plain_err)
+        assert err <= tol, (name, err, tol)
+
+
+# (B, N, H, d, n_valid): every head dim, ragged N, a partial last key tile
+BWD_CASES = [(2, 77, 2, 16, 77), (1, 130, 2, 32, 100), (2, 200, 2, 64, 150),
+             (1, 257, 3, 80, 257), (1, 96, 2, 128, 70)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("B,N,H,d,n_valid", BWD_CASES)
+def test_attention_backward_kernel_matches_plain_autograd(cuda, dtype, B, N, H, d, n_valid):
+    """K10 through ``_flash_attention`` on strided views of a qkv
+    projection (all N keys), and K11 through ``splash_attention`` with
+    ``n_valid`` and q_scale (keys and values past n_valid NaN: never read,
+    their gradient 0): one forward and one backward launch each, held to an
+    f64 oracle beside the plain version's autograd (TF32 off)."""
+    import midvision_probe_torch.bench_attn as ba
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.RandomState(N + d)
+    x = torch.from_numpy(rng.randn(B, N, 3, H, d).astype(np.float32)).to(cuda, dtype)
+    g = torch.from_numpy(rng.randn(B, H, N, d).astype(np.float32)).to(cuda, dtype)
+    scale = d**-0.5
+
+    qkv = x.clone().requires_grad_()
+    q, k, v = qkv.permute(2, 0, 3, 1, 4).unbind(0)
+    before = (mha._flash_attention.launches, mha._flash_attention.backward_launches)
+    (got,) = torch.autograd.grad(mha._flash_attention(q, k, v, scale), qkv, g)
+    torch.cuda.synchronize()
+    assert (mha._flash_attention.launches, mha._flash_attention.backward_launches) == (
+        before[0] + 1, before[1] + 1)
+    (plain,) = torch.autograd.grad(attn._vit_attention_plain(q, k, v, scale), qkv, g)
+    _hold_to_exact(got, plain, _exact_grads(x, g, scale, N), dtype)
+
+    poisoned = x.clone()
+    poisoned[:, n_valid:, 1:] = float("nan")
+    qkv = poisoned.requires_grad_()
+    gs = g.transpose(1, 2).reshape(B, N, H * d)
+    before = (ba.splash_attention.launches, ba.splash_attention.backward_launches)
+    (got,) = torch.autograd.grad(ba.splash_attention(qkv, scale, n_valid), qkv, gs)
+    torch.cuda.synchronize()
+    assert (ba.splash_attention.launches, ba.splash_attention.backward_launches) == (
+        before[0] + 1, before[1] + 1)
+    assert torch.isfinite(got).all() and not got[:, n_valid:, 1:].any()
+    (plain,) = torch.autograd.grad(ba._splash_attention_plain(qkv, scale, n_valid), qkv, gs)
+    _hold_to_exact(got, plain, _exact_grads(x, g, 1.0, n_valid, q_scale=scale), dtype)
 
 
 # ------------------------------------------ the wgmma route (bf16, d 64 and 80)
