@@ -303,9 +303,10 @@ JSON line per phase and fails on the first failing phase:
    N=1280, n_valid=1201, H=12, d=64, bf16; keys and values past n_valid
    NaN), and at B=1 against a float64 oracle; each of dq, dk and dv within
    1e-4 * max|ref| (f32) or max(2^-6 * max|ref|, twice the plain bf16
-   version's own error against f64) (bf16); the backward's, the plain
-   version's and SDPA's backward times with the bound; K2's and K3's
-   forward times with and without the lse residual.
+   version's own error against f64) (bf16); each case on the route it must
+   take (``wgmma`` in bf16, ``tf32x3`` in f32, as its launch reports); the
+   backward's, the plain version's and SDPA's backward times with the
+   bound; K2's and K3's forward times with and without the lse residual.
 14. ``grad_paths``: input gradients through frozen backbones built by the
    zoo at full width: RADIO-v2 in f32 at 1024x1024 (batch 2, K3 and K10 32
    launches each, the gradient along a seeded direction within 1e-2 of a
@@ -3760,8 +3761,9 @@ def phase_suite_timing(torch, smi: str) -> dict:
     ``capturable`` AdamW (``replay_against_eager``, the DPT and linear bf16
     probes): the losses within 1e-6 relative and the parameters'
     99.9th-percentile difference within 0.01 of the learning rate (the
-    bilinear backward's atomics are all that may differ). Returns the
-    launch counts."""
+    order of cuBLAS's and cuDNN's sums is all that may differ:
+    ``launch/replay_spread.py`` measures that spread). Returns the launch
+    counts."""
     from midvision_probe_torch.launch import time_suite
 
     root = tempfile.mkdtemp(prefix="mvp_chip_smoke_timing_")
@@ -4254,14 +4256,17 @@ def phase_backward_checks(torch) -> dict:
     the backward's launch (``launch_attention_backward``: di, the two
     kernels), the plain version's backward and SDPA's backward on the same
     operands (K11: k and v sliced to n_valid, q the rounded q * scale), with
-    the bound. Also K2's and K3's forward time with and without the lse
-    output."""
+    the bound. Each case names the route its backward launch reported
+    (``backward_route_launches``) and must take: ``tf32x3`` in f32,
+    ``wgmma`` in bf16. Also K2's and K3's forward time with and without the
+    lse output."""
     import torch.nn.functional as F
 
     from midvision_probe_torch import bench_attn
     from midvision_probe_torch.ops.attention import _flash_attention
     from midvision_probe_torch.ops.vit_attention import (
         _vit_attention_plain,
+        backward_route_launches,
         launch_attention,
         launch_attention_backward,
     )
@@ -4300,7 +4305,10 @@ def phase_backward_checks(torch) -> dict:
             return [(got[:, :, r].double() - ref[:, :, r].double()).abs().max().item()
                     for r in range(3)]
 
-        got, ref = grads(wrapper, qkv), grads(plain, qkv)
+        routes = dict(backward_route_launches)
+        got = grads(wrapper, qkv)
+        ran = [r for r, n in backward_route_launches.items() if n != routes[r]]
+        ref = grads(plain, qkv)
         torch.cuda.synchronize()
         err = errors(got, ref)
         max_ref = [ref[:, :, r].double().abs().max().item() for r in range(3)]
@@ -4325,10 +4333,12 @@ def phase_backward_checks(torch) -> dict:
         else:
             gates = [max(2.0**-6 * m, 2 * pe) for m, pe in zip(max_ref, plain_err64)]
             gates64 = [max(2.0**-6 * m, 2 * pe) for m, pe in zip(max64, plain_err64)]
-        ok = (finite and padded_zero and all(e <= g for e, g in zip(err, gates))
+        route = "tf32x3" if dtype == f32 else "wgmma"  # the route each case must take
+        ok = (finite and padded_zero and ran == [route]
+              and all(e <= g for e, g in zip(err, gates))
               and all(e <= g for e, g in zip(err64, gates64)))
         res = {"case": name, "kernel": kernel, "shape": [B, H, N, d], "n_valid": nv,
-               "dtype": str(dtype), "design": "tf32x3" if dtype == f32 else "mma_sync",
+               "dtype": str(dtype), "design": route, "route_ran": ran,
                "max_abs_err": max(err), "max_abs_err_dq_dk_dv": err, "max_abs_ref": max_ref,
                "tol": gates, "max_abs_err_vs_f64_b1": err64,
                "plain_err_vs_f64_b1": plain_err64, "tol_vs_f64_b1": gates64,
@@ -4888,15 +4898,17 @@ def main() -> int:
         # :1121 and :1456; splash_attention_kernel.py :1857 and :1405)
         kernel_entry("flash_attention_backward", "attention_bwd.cu",
                      f"{ops}/attention.py:82", "k10", by_path,
-                     backward_checks["k10_radio1024_fp32"], "tf32x3",
+                     backward_checks["k10_radio1024_fp32"],
+                     backward_checks["k10_radio1024_fp32"]["design"],
                      library_kernels=["flash_attention.py:1121 _flash_attention_dkv_kernel",
                                       "flash_attention.py:1456 _flash_attention_dq_kernel"],
                      bf16={**case_numbers(backward_checks["k10_long_bf16"]),
                            "shape": backward_checks["k10_long_bf16"]["shape"],
-                           "design": "mma_sync"}),
+                           "design": backward_checks["k10_long_bf16"]["design"]}),
         kernel_entry("splash_attention_backward", "attention_bwd.cu",
                      "launch_script/bench_attn.py:243", "k11", by_path,
-                     backward_checks["k11_bench_bf16"], "mma_sync",
+                     backward_checks["k11_bench_bf16"],
+                     backward_checks["k11_bench_bf16"]["design"],
                      library_kernels=[
                          "splash_attention_kernel.py:1857 _splash_attention_bwd_dkv",
                          "splash_attention_kernel.py:1405 _splash_attention_bwd_dq"]),

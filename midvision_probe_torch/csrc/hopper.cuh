@@ -1,9 +1,9 @@
 // Hopper (sm_90a) building blocks shared by the port's wgmma kernels
-// (fused_mlp.cu, knn2.cu, vit_attention.cu): mbarriers, TMA tile loads,
-// swizzled shared-memory descriptors, warpgroup MMA (wgmma) and
-// register rebalancing (setmaxnreg), all as inline PTX; and, on the host, the
-// encoding of TMA tensor maps through cudaGetDriverEntryPoint, so that no
-// library links against libcuda.
+// (fused_mlp.cu, knn2.cu, vit_attention.cu, attention_bwd.cu): mbarriers,
+// TMA tile and bulk loads, swizzled shared-memory descriptors, warpgroup MMA
+// (wgmma) and register rebalancing (setmaxnreg), all as inline PTX; and, on
+// the host, the encoding of TMA tensor maps through
+// cudaGetDriverEntryPoint, so that no library links against libcuda.
 //
 // Layout conventions (every wgmma operand in shared memory is bf16, but the
 // int8 one below, and loaded by TMA with CU_TENSOR_MAP_SWIZZLE_128B, a box whose inner extent is
@@ -90,6 +90,16 @@ __device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
 
 __device__ __forceinline__ void fence_barrier_init() {
   asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+// a contiguous copy of `bytes` (a multiple of 16, both ends 16-byte aligned)
+// from device memory into shared memory, completing on `bar`
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
 }
 
 // arrive once and add `bytes` to the transaction count the phase waits for
@@ -303,6 +313,35 @@ __device__ __forceinline__ void wgmma_m64n16k16_rs(float (&d)[8], const uint32_t
       : MVP_ACC8(d, 0)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(accumulate),
         "n"(kTransB));
+}
+
+// d (64 x 64, f32) (+)= A (64 x 16, shared) * B (16 x 64, shared); kTransA,
+// kTransB: that operand MN-major (read with the transpose bit)
+template <int kTransA, int kTransB>
+__device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32], uint64_t desc_a,
+                                                   uint64_t desc_b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, %35, %36;\n}\n"
+      : MVP_ACC8(d, 0), MVP_ACC8(d, 8), MVP_ACC8(d, 16), MVP_ACC8(d, 24)
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate), "n"(kTransA), "n"(kTransB));
+}
+
+// d (64 x 16, f32) (+)= A (64 x 16, shared) * B (16 x 16, shared)
+template <int kTransA, int kTransB>
+__device__ __forceinline__ void wgmma_m64n16k16_ss(float (&d)[8], uint64_t desc_a,
+                                                   uint64_t desc_b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, %8, %9, p, 1, 1, %11, %12;\n}\n"
+      : MVP_ACC8(d, 0)
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate), "n"(kTransA), "n"(kTransB));
 }
 
 #define MVP_ACC8_S32(d, i)                                                             \

@@ -1,9 +1,10 @@
 // mma.sync building blocks shared by the attention kernels
 // (vit_attention.cu's mma_sync and tf32x3 routes, attention_bwd.cu):
-// (B, H, N, d) strides, cp.async copies, the bf16 m16n8k16 product, the
-// TF32 m16n8k8 product and the 3xTF32 split (each f32 operand as
-// hi = tf32(x) plus lo = tf32(x - hi), a product as lo*hi + hi*lo + hi*hi),
-// all as inline PTX.
+// (B, H, N, d) strides, cp.async copies, ldmatrix, the bf16 m16n8k16
+// product, the TF32 m16n8k8 product, and the 3xTF32 split (each f32
+// operand as hi = tf32(x) plus lo = tf32(x - hi), a product as lo*hi +
+// hi*lo + hi*hi) with its pre-pass `split_pairs`, all but the pre-pass as
+// inline PTX.
 //
 // Fragment layouts (g = lane / 4, tq = lane % 4; c0..c3 of an accumulator
 // are (row g, cols 2tq and 2tq + 1) and (row g + 8, the same cols)):
@@ -86,6 +87,63 @@ __device__ __forceinline__ float2 split_pair(float x) {
   uint32_t hi, lo;
   split_tf32(x, hi, lo);
   return make_float2(__uint_as_float(hi), __uint_as_float(lo));
+}
+
+// The 3xTF32 routes' pre-pass: x (B, H, rows, D) f32 by element strides -> its
+// (hi, lo) pairs, contiguous (B, H, rows, D) float2; one float4 of x per step.
+__global__ void split_pairs(const float* __restrict__ x, Strides s, float4* __restrict__ out,
+                            int H, int rows, int d4, long long total) {
+  for (long long i = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x; i < total;
+       i += static_cast<long long>(gridDim.x) * blockDim.x) {
+    const int c = static_cast<int>(i % d4);
+    long long r = i / d4;
+    const int n = static_cast<int>(r % rows);
+    r /= rows;
+    const int h = static_cast<int>(r % H);
+    const long long b = r / H;
+    const float4 v = *reinterpret_cast<const float4*>(x + b * s.b + h * s.h + n * s.n + 4 * c);
+    const float2 p0 = split_pair(v.x), p1 = split_pair(v.y), p2 = split_pair(v.z),
+                 p3 = split_pair(v.w);
+    out[2 * i] = make_float4(p0.x, p0.y, p1.x, p1.y);
+    out[2 * i + 1] = make_float4(p2.x, p2.y, p3.x, p3.y);
+  }
+}
+
+// split_pairs over `rows` rows of x into `pairs`, at most 8 blocks an SM
+inline void launch_split_pairs(const float* x, Strides s, float2* pairs, int B, int H, int rows,
+                               int D, int sms, cudaStream_t stream) {
+  const long long chunks = static_cast<long long>(B) * H * rows * (D / 4);
+  const long long want = (chunks + 255) / 256;
+  const int blocks = static_cast<int>(want < 8LL * sms ? want : 8LL * sms);
+  split_pairs<<<blocks, 256, 0, stream>>>(x, s, reinterpret_cast<float4*>(pairs), H, rows,
+                                          D / 4, chunks);
+}
+
+// 16 bytes, or zeros when `full` is false (the source is then not read)
+__device__ __forceinline__ void cp_async16_zfill(void* smem, const void* gmem, bool full) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(smem)),
+               "l"(gmem), "r"(full ? 16 : 0));
+}
+
+// one arrival on `bar` once this thread's cp.async copies so far have landed
+__device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(smem_addr(bar))
+               : "memory");
+}
+
+// four 8x8 bf16 matrices from shared memory, lanes 8i..8i+7 giving the row
+// addresses of matrix i; plain: lane l holds (row l/4, cols 2(l%4), +1) of
+// each, trans: (rows 2(l%4), +1, col l/4)
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* row) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(row)));
+}
+
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const void* row) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(row)));
 }
 
 // c += a * b for one m16n8k8 tile: a 16x8 tf32 (row), b 8x8 tf32 (col), c

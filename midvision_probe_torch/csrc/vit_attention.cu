@@ -320,10 +320,10 @@ __global__ void __launch_bounds__(kThreads)
 //
 // The split is the costly part: split in registers, every warp of a block
 // split the same K and V tile again (on the card the split alone took half
-// of the kernel's time). So a pre-pass (`split_pairs`) splits K and V once
-// into (hi, lo) pairs, in a scratch buffer the caller provides, and the
-// attention kernel reads each pair with one 64-bit shared load; only Q
-// (once per block) and P (in registers) are split in the kernel.
+// of the kernel's time). So a pre-pass (`split_pairs`, mma_sync.cuh) splits
+// K and V once into (hi, lo) pairs, in a scratch buffer the caller
+// provides, and the attention kernel reads each pair with one 64-bit shared
+// load; only Q (once per block) and P (in registers) are split in the kernel.
 //
 // One block per (q-tile of 112 rows, head, batch): seven consumer warps of
 // 16 query rows and one producer warp (eight warps, two per SM
@@ -352,32 +352,6 @@ struct F32Tile {
   static constexpr int kPairs = kKeys * (kLdK + kLdV);  // one stage of K and V
   static constexpr int kSmem = kF32Stages * kPairs * 8 + 2 * kF32Stages * 8;
 };
-
-// The pre-pass: x (B, H, rows, D) f32 by element strides -> its (hi, lo)
-// pairs, contiguous (B, H, rows, D) float2; one float4 of x per step.
-__global__ void split_pairs(const float* __restrict__ x, Strides s, float4* __restrict__ out,
-                            int H, int rows, int d4, long long total) {
-  for (long long i = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x; i < total;
-       i += static_cast<long long>(gridDim.x) * blockDim.x) {
-    const int c = static_cast<int>(i % d4);
-    long long r = i / d4;
-    const int n = static_cast<int>(r % rows);
-    r /= rows;
-    const int h = static_cast<int>(r % H);
-    const long long b = r / H;
-    const float4 v = *reinterpret_cast<const float4*>(x + b * s.b + h * s.h + n * s.n + 4 * c);
-    const float2 p0 = split_pair(v.x), p1 = split_pair(v.y), p2 = split_pair(v.z),
-                 p3 = split_pair(v.w);
-    out[2 * i] = make_float4(p0.x, p0.y, p1.x, p1.y);
-    out[2 * i + 1] = make_float4(p2.x, p2.y, p3.x, p3.y);
-  }
-}
-
-// one arrival on `bar` once this thread's cp.async copies so far have landed
-__device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
-  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(smem_u32(bar))
-               : "memory");
-}
 
 // q by element strides; kp, vp: the (hi, lo) pairs of k and v from
 // split_pairs, contiguous (B, H, n_valid, D): no key at or past n_valid is
@@ -1056,15 +1030,9 @@ void launch_tf32x3(const void* q, const void* k, const void* v, void* out, void*
                    int n_valid, float sl2, float q_scale, float* lse, cudaStream_t stream) {
   float2* kp = static_cast<float2*>(pairs);
   float2* vp = kp + static_cast<long long>(B) * H * n_valid * D;
-  const long long chunks = static_cast<long long>(B) * H * n_valid * (D / 4);
-  const long long want = (chunks + 255) / 256;
-  const int blocks = static_cast<int>(want < 8LL * sm_count() ? want : 8LL * sm_count());
-  split_pairs<<<blocks, 256, 0, stream>>>(static_cast<const float*>(k), sk,
-                                          reinterpret_cast<float4*>(kp), H, n_valid, D / 4,
-                                          chunks);
-  split_pairs<<<blocks, 256, 0, stream>>>(static_cast<const float*>(v), sv,
-                                          reinterpret_cast<float4*>(vp), H, n_valid, D / 4,
-                                          chunks);
+  const int sms = sm_count();
+  launch_split_pairs(static_cast<const float*>(k), sk, kp, B, H, n_valid, D, sms, stream);
+  launch_split_pairs(static_cast<const float*>(v), sv, vp, B, H, n_valid, D, sms, stream);
   constexpr int smem = F32Tile<D>::kSmem;
   cudaFuncSetAttribute(attention_tf32x3<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                        smem);

@@ -42,7 +42,12 @@ it.
 * ``launch_attention_backward(q, k, v, out, lse, dout, scale, n_valid=None,
   q_scale=1.0)``: dq, dk and dv from ``csrc/attention_bwd.cu``, the
   backward of K3 (K10) and of K9 (K11), which the JAX package runs as the
-  jax library's Pallas dq and dkv kernels.
+  jax library's Pallas dq and dkv kernels: one pass per key tile, dq added
+  atomically into an f32 accumulator and rounded by a finishing pass.
+  ``backward_route(d, dtype)`` names its route (the forward's table: a
+  ``wgmma`` + TMA kernel for bf16 at d 64/80, ``mma_sync`` for the other
+  bf16 head dims, ``tf32x3`` for float32); ``backward_route_launches``
+  counts its launches by the route the kernel reported.
 * For a CPU tensor each runs its plain version; for a CUDA tensor it
   launches the kernel or raises. There is no fallback.
 * Gradients follow the JAX package's ``custom_vjp``s: K1 and K2 take the
@@ -80,6 +85,9 @@ WGMMA_HEAD_DIMS = (64, 80)  # bf16 head dims on the wgmma route
 _DTYPES = (torch.bfloat16, torch.float32)
 ROUTES = ("wgmma", "mma_sync", "tf32x3")  # by the route code the C entry points report
 route_launches = dict.fromkeys(ROUTES, 0)  # kernel launches by route
+# the attention backward's launches (K10, K11) by route, as its C entry reports
+backward_route_launches = dict.fromkeys(ROUTES, 0)
+_BWD_PAD_ROWS = 64  # the backward's lse and di rows are padded to a multiple of this
 
 
 def kernel_takes(d: int, dtype: torch.dtype) -> bool:
@@ -324,11 +332,19 @@ def launch_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return (out, lse) if return_lse else out
 
 
+def backward_route(d: int, dtype: torch.dtype) -> str:
+    """The kernel that runs the attention backward (K10, K11) at head dim
+    ``d`` in ``dtype`` on a card, as ``csrc/attention_bwd.cu``'s
+    ``route_of`` chooses: the forward's table (``attention_route``), each
+    route a one-pass design of its own. Raises on what no kernel takes."""
+    return attention_route(d, dtype)
+
+
 def _backward_kernel():
     fn = load_library("attention_bwd").mvp_attention_backward
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.POINTER(ctypes.c_longlong)]
-                       + [ctypes.c_int] * 7 + [ctypes.c_void_p])
+        fn.argtypes = ([ctypes.c_void_p] * 13 + [ctypes.POINTER(ctypes.c_longlong)]
+                       + [ctypes.c_int] * 8 + [ctypes.POINTER(ctypes.c_int), ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
 
@@ -341,13 +357,21 @@ def launch_attention_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     K9; ``csrc/attention_bwd.cu``): ``(dq, dk, dv)``, each the (B, H, N, d)
     view of a fresh (B, N, H, d) buffer, from the forward's operands, its
     output ``out`` and ``lse`` (``return_lse``) and the output's gradient
-    ``dout``. ``di = rowsum(dout * out)`` is computed here in f32, outside
-    the kernels, as the jax library computes it. With ``q_scale`` the kernel
-    sees ``q' = q * q_scale`` rounded to q's dtype, as the forward did, and
-    dq is ``dq' * q_scale`` rounded to q's dtype (the multiplication's
-    transpose). dk and dv are 0 at keys >= ``n_valid``. Raises on anything
-    the kernel does not take, before the device; the callers count the
-    launch."""
+    ``dout``. A prologue pass computes ``di = rowsum(dout * out)`` in f32
+    outside the main kernel, as the jax library computes it, into a
+    zero-padded f32 buffer with lse (rows of a multiple of 64, which the
+    kernels copy whole). The kernel adds dq into a zeroed f32 accumulator
+    (atomics: dq is not bit-reproducible between runs) and a finishing pass
+    rounds it. With ``q_scale`` the kernel sees ``q' = q * q_scale`` rounded
+    to q's dtype (the prologue writes it to a scratch), as the forward did,
+    and dq is ``dq' * q_scale`` rounded to q's dtype (the multiplication's
+    transpose, after dq' is rounded). dk and dv are 0 at keys >=
+    ``n_valid``. float32 also takes a scratch for the (hi, lo) TF32 pairs of
+    q, k, v and dout. Every buffer is allocated here; the kernel allocates
+    nothing. Raises on anything the kernel does not take, before the device;
+    a refused launch raises, with nothing to fall back to.
+    ``backward_route_launches`` counts the launch by the route the kernel
+    reports; the callers count it too."""
     n_valid = _check_operands(q, k, v, n_valid, q_scale)
     B, H, N, d = q.shape
     if out.shape != q.shape or dout.shape != q.shape:
@@ -360,25 +384,30 @@ def launch_attention_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"{lse.dtype} {tuple(lse.shape)}")
     if dout.stride(-1) != 1 or not _rows_aligned(dout):
         dout = dout.contiguous()  # autograd's gradient may come in any layout
-    _check_card({"q": q, "k": k, "v": v, "dout": dout})
-    if lse.device != q.device or out.device != q.device:
-        raise ValueError("out and lse must be on q's device")
-    if q_scale != 1.0:
-        q = (q.float() * q_scale).to(q.dtype)
-    di = (dout.float() * out.float()).sum(-1).contiguous()
+    _check_card({"q": q, "k": k, "v": v, "out": out, "dout": dout})
+    if lse.device != q.device:
+        raise ValueError("lse must be on q's device")
+    f32 = dict(dtype=torch.float32, device=q.device)
+    stats = torch.zeros((2, B, H, -(-N // _BWD_PAD_ROWS) * _BWD_PAD_ROWS), **f32)
+    qs = torch.empty_like(q, memory_format=torch.contiguous_format) if q_scale != 1.0 else None
+    pairs = (torch.empty(((2 * N + 2 * n_valid) * B * H * d, 2), **f32)
+             if q.dtype == torch.float32 else None)
+    dq_acc = torch.zeros((B, H, N, d), **f32)
     dq, dk, dv = (_token_major(B, H, N, d, q) for _ in range(3))
-    strides = (ctypes.c_longlong * 21)(*(st for t in (q, k, v, dout, dq, dk, dv)
+    strides = (ctypes.c_longlong * 24)(*(st for t in (q, k, v, dout, dq, dk, dv, out)
                                          for st in t.stride()[:3]))
+    ran = ctypes.c_int(-1)
     with torch.cuda.device(q.device):
         err = _backward_kernel()(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), lse.data_ptr(),
-            di.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), strides,
-            B, N, H, d, n_valid, float_bits(scale), int(q.dtype == torch.bfloat16),
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), dout.data_ptr(),
+            lse.data_ptr(), stats.data_ptr(), None if qs is None else qs.data_ptr(),
+            None if pairs is None else pairs.data_ptr(), dq_acc.data_ptr(), dq.data_ptr(),
+            dk.data_ptr(), dv.data_ptr(), strides, B, N, H, d, n_valid, float_bits(scale),
+            float_bits(float(q_scale)), int(q.dtype == torch.bfloat16), ctypes.byref(ran),
             torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"attention backward kernel launch failed: cudaError {err}")
-    if q_scale != 1.0:
-        dq = (dq.float() * q_scale).to(dq.dtype)
+    backward_route_launches[ROUTES[ran.value]] += 1
     return dq, dk, dv
 
 

@@ -11,9 +11,10 @@ CPU it steps eagerly.
   five eager steps of a twin with the same ``capturable`` AdamW on the same
   features, the DPT and linear probes in bf16. The losses within 1e-6
   relative and the parameters' 99.9th-percentile difference within 0.01 of
-  the learning rate: only the bilinear backward's atomics may differ
-  (measured on an H100: equal at this size), while a replay that did not
-  update them would be ~1 lr off (AdamW's first updates are lr·sign(g)).
+  the learning rate: only the order of cuBLAS's and cuDNN's sums may
+  differ (measured on an H100: equal at this size), while a replay that
+  did not update them would be ~1 lr off (AdamW's first updates are
+  lr·sign(g)).
   The last replay takes copies of the inputs, which it must copy into the
   recorded ones.
 """

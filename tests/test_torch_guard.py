@@ -222,7 +222,7 @@ def test_launchers_and_data_tools_import_neither_jax_nor_the_jax_scripts():
     ``data_processing/`` modules or its root ``bench.py``; and their
     sources neither name those in an import nor put anything on
     ``sys.path``."""
-    assert len(LAUNCH_AND_TOOLS) == 14, LAUNCH_AND_TOOLS
+    assert len(LAUNCH_AND_TOOLS) == 15, LAUNCH_AND_TOOLS
     assert {"midvision_probe_torch.bench",
             "midvision_probe_torch.launch.bench_matrix"} <= set(LAUNCH_AND_TOOLS)
     code = (

@@ -1,11 +1,11 @@
 """The Python side of the port's Hopper kernels that runs without a card:
 the choice of attention route by head dim and dtype, the dispatch of head
 dims that no route takes to einsum, the fused MLP's width check, the check
-of the strided launch's ``q_scale``, the argument checks of the attention
-backward's launch (K10, K11), the recomputed backward of K1 and K2 (F12)
-and the wrappers' CPU path (the plain version and its autograd, no launch
-counted). The kernels themselves run in ``tests/test_torch_kernels.py`` on
-the card."""
+of the strided launch's ``q_scale``, the attention backward's route table
+and the argument checks of its launch (K10, K11), the recomputed backward
+of K1 and K2 (F12) and the wrappers' CPU path (the plain version and its
+autograd, no launch counted). The kernels themselves run in
+``tests/test_torch_kernels.py`` on the card."""
 
 import numpy as np
 import pytest
@@ -171,6 +171,28 @@ def test_splash_attention_on_the_cpu_is_its_plain_version():
                                atol=0, rtol=0)
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("d", [16, 32, 64, 80, 128])
+def test_backward_route_by_head_dim_and_dtype(d, dtype):
+    """The attention backward's route table (K10, K11): wgmma for bf16 at d
+    64 and 80, mma_sync for the other bf16 head dims, tf32x3 for float32;
+    the forward's route of the same name at every head dim and dtype, and
+    a counter for each route."""
+    if dtype == torch.float32:
+        expected = "tf32x3"
+    else:
+        expected = "wgmma" if d in (64, 80) else "mma_sync"
+    assert attn.backward_route(d, dtype) == expected == attn.attention_route(d, dtype)
+    assert set(attn.backward_route_launches) == set(attn.ROUTES)
+
+
+def test_backward_route_rejects_what_no_kernel_takes():
+    with pytest.raises(ValueError, match="head dim"):
+        attn.backward_route(48, torch.bfloat16)
+    with pytest.raises(ValueError, match="dtype"):
+        attn.backward_route(64, torch.float16)
+
+
 def _backward_args(B=1, H=2, N=8, d=64, dtype=torch.bfloat16):
     z = torch.zeros(B, H, N, d, dtype=dtype)
     return [z, z, z, z, torch.zeros(B, H, N), z]
@@ -200,8 +222,10 @@ def test_launch_attention_backward_checks_its_arguments_before_the_device():
                 torch.zeros(1, 8, 2).transpose(1, 2)):
         with pytest.raises(ValueError, match="lse"):
             attn.launch_attention_backward(*args[:4], lse, args[5], 1.0)
+    before = dict(attn.backward_route_launches)
     with pytest.raises(ValueError, match="unsupported device"):
         attn.launch_attention_backward(*args, 1.0, n_valid=5, q_scale=0.125)
+    assert attn.backward_route_launches == before
 
 
 def test_launch_attention_refuses_to_record_a_gradient():

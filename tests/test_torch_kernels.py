@@ -324,7 +324,12 @@ def _exact_grads(qkv, g, scale, n_valid, q_scale=1.0):
 
 def _hold_to_exact(got, plain, exact, dtype):
     """Each of dq, dk and dv: f32 within 1e-4 * max|exact|; bf16 within
-    max(2^-6 * max|exact|, twice the plain version's own error)."""
+    max(2^-6 * max|exact|, twice the plain version's own error). A part
+    whose exact gradient is 0 everywhere (dq over a single key: P = 1, so
+    dS = dP - di, two f32 sums of the same products in other orders) is held
+    to its dtype's bar against the gradient's scale, max|exact| over the
+    three: 1e-4 of it in f32, bf16's rounding 2^-8 of it in bf16."""
+    scale = exact.abs().max().item()
     for role, name in enumerate("qkv"):
         e = exact[:, :, role]
         err = (got[:, :, role].double() - e).abs().max().item()
@@ -333,12 +338,19 @@ def _hold_to_exact(got, plain, exact, dtype):
         else:
             plain_err = (plain[:, :, role].double() - e).abs().max().item()
             tol = max(2.0**-6 * e.abs().max().item(), 2 * plain_err)
+        if not e.any():
+            tol = (1e-4 if dtype == torch.float32 else 2.0**-8) * scale
         assert err <= tol, (name, err, tol)
 
 
 # (B, N, H, d, n_valid): every head dim, ragged N, a partial last key tile
 BWD_CASES = [(2, 77, 2, 16, 77), (1, 130, 2, 32, 100), (2, 200, 2, 64, 150),
              (1, 257, 3, 80, 257), (1, 96, 2, 128, 70)]
+# the wgmma route (bf16, d 64 and 80): several query and key tiles with N and
+# n_valid off the tiles' multiples, d = 80's split rows, B*H >= 132 blocks'
+# columns adding into one dQ row from nine key tiles, one token
+WGMMA_BWD_CASES = [(2, 300, 3, 64, 200), (1, 257, 2, 80, 129), (2, 1100, 72, 64, 1031),
+                   (1, 390, 70, 80, 390), (1, 1, 1, 64, 1), (1, 1, 1, 80, 1)]
 
 
 @pytest.mark.cuda
@@ -348,11 +360,26 @@ def test_attention_backward_kernel_matches_plain_autograd(cuda, dtype, B, N, H, 
     """K10 through ``_flash_attention`` on strided views of a qkv
     projection (all N keys), and K11 through ``splash_attention`` with
     ``n_valid`` and q_scale (keys and values past n_valid NaN: never read,
-    their gradient 0): one forward and one backward launch each, held to an
-    f64 oracle beside the plain version's autograd (TF32 off)."""
+    their gradient 0): one forward and one backward launch each, on the
+    route ``backward_route`` names, held to an f64 oracle beside the plain
+    version's autograd (TF32 off)."""
+    _check_attention_backward(B, N, H, d, n_valid, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,N,H,d,n_valid", WGMMA_BWD_CASES)
+def test_attention_backward_wgmma_route_matches_plain_autograd(cuda, B, N, H, d, n_valid):
+    """The bf16 backward at d 64 and 80 on the wgmma route, as above."""
+    assert attn.backward_route(d, torch.bfloat16) == "wgmma"
+    _check_attention_backward(B, N, H, d, n_valid, torch.bfloat16)
+
+
+def _check_attention_backward(B, N, H, d, n_valid, dtype):
     import midvision_probe_torch.bench_attn as ba
 
+    cuda = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
+    routes = dict(attn.backward_route_launches)
     rng = np.random.RandomState(N + d)
     x = torch.from_numpy(rng.randn(B, N, 3, H, d).astype(np.float32)).to(cuda, dtype)
     g = torch.from_numpy(rng.randn(B, H, N, d).astype(np.float32)).to(cuda, dtype)
@@ -380,6 +407,9 @@ def test_attention_backward_kernel_matches_plain_autograd(cuda, dtype, B, N, H, 
     assert torch.isfinite(got).all() and not got[:, n_valid:, 1:].any()
     (plain,) = torch.autograd.grad(ba._splash_attention_plain(qkv, scale, n_valid), qkv, gs)
     _hold_to_exact(got, plain, _exact_grads(x, g, 1.0, n_valid, q_scale=scale), dtype)
+    route = attn.backward_route(d, dtype)
+    assert {r: n - routes[r] for r, n in attn.backward_route_launches.items()
+            if n != routes[r]} == {route: 2}
 
 
 # ------------------------------------------ the wgmma route (bf16, d 64 and 80)
