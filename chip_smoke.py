@@ -231,7 +231,10 @@ JSON line per phase and fails on the first failing phase:
    two CSV rows within 1e-4 relative.
 10f. ``profiling``: ``utils/profiling.py`` on the dino_vitb16 forward
    (bf16, batch 8, 480x640): ``time_fn``, ``device_memory_stats()`` and a
-   ``trace()`` around one forward (the Chrome trace's kernel events).
+   ``trace()`` around one forward (the Chrome trace's kernel events, and
+   the port's spans: one ``mvp.backbone`` holding 12
+   ``mvp.backbone.attention`` and 12 ``mvp.backbone.mlp``, every one a
+   host ``cpu_op`` and none mirrored onto the card's timeline).
 10g. ``extract_kqv``: ``FeatureExtractor.extract_kqv`` on dino_vitb16 at
    480x640, bf16, batch 8, ``k`` and ``kqv`` against a plain recompute of
    block 11's projection, K1 12 a call on ``wgmma``.
@@ -3247,8 +3250,11 @@ def phase_profiling(torch, smi: str) -> dict:
     """``utils/profiling.py`` on the dino_b16 forward (bf16, 4 taps, batch 8
     at 480x640): ``time_fn``, ``device_memory_stats()`` and a ``trace()``
     around one forward. Gates: the Chrome trace file exists and holds
-    kernel events, the memory stats are non-empty, K1 12 per forward.
-    Returns the launch counts."""
+    kernel events, the memory stats are non-empty, K1 12 per forward; the
+    trace holds the forward's spans (one ``mvp.backbone``, 12
+    ``mvp.backbone.attention``, 12 ``mvp.backbone.mlp``), each a host
+    ``cpu_op``, so no device event is named like a span. Returns the
+    launch counts."""
     from midvision_probe_torch.models.zoo import build_vit_extractor
     from midvision_probe_torch.utils import profiling
 
@@ -3272,16 +3278,23 @@ def phase_profiling(torch, smi: str) -> dict:
             with open(trace_file) as f:
                 events = json.load(f).get("traceEvents", [])
         kernels = [e for e in events if e.get("cat") == "kernel"]
+        spans = [e for e in events if str(e.get("name", "")).startswith("mvp.")]
         trace = {"file_bytes": os.path.getsize(trace_file) if exists else 0,
                  "events": len(events), "kernel_events": len(kernels),
-                 "kernel_ms": sum(e.get("dur", 0) for e in kernels) / 1e3}
+                 "kernel_ms": sum(e.get("dur", 0) for e in kernels) / 1e3,
+                 "spans": {name: sum(e["name"] == name for e in spans)
+                           for name in sorted({e["name"] for e in spans})},
+                 "span_categories": sorted({str(e.get("cat")) for e in spans})}
     finally:
         shutil.rmtree(trace_dir, ignore_errors=True)
     card = stats.get("cuda:0") or {}
     checks = {"trace_written": exists and trace["kernel_events"] > 0,
               "memory_stats": bool(card) and card.get("bytes_in_use", 0) > 0
               and card.get("peak_bytes_in_use", 0) >= card.get("bytes_in_use", 0),
-              "attention_per_forward": per_forward_ok(counts, DINO_PER_FORWARD)}
+              "attention_per_forward": per_forward_ok(counts, DINO_PER_FORWARD),
+              "spans": trace["spans"] == {"mvp.backbone": 1, "mvp.backbone.attention": 12,
+                                          "mvp.backbone.mlp": 12},
+              "no_span_on_the_device": trace["span_categories"] == ["cpu_op"]}
     emit({"phase": "profiling", "model": "dino_vitb16", "batch": 8, "image_hw": [480, 640],
           "dtype": "bfloat16", "time_fn": timing, "device_memory_stats": stats,
           "trace": trace, "launches": counts, "checks": checks, "nvidia_smi": smi,

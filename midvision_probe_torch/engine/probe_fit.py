@@ -50,6 +50,7 @@ from midvision_probe_torch.parallel import multihost
 from midvision_probe_torch.parallel.mesh import check_num_devices, replicate, shard_batch
 from midvision_probe_torch.utils.device import resolve_device
 from midvision_probe_torch.utils.optim import make_adamw
+from midvision_probe_torch.utils.profiling import span
 
 
 _LOG_EVERY = 50  # train steps between loss log lines
@@ -201,11 +202,14 @@ class ProbeTrainer:
                 feats = self.backbone.features(batch["image"])
             self.optimizer.zero_grad(set_to_none=True)
             with multihost.global_batch():
-                loss = self.loss_fn(self._forward(feats, train=True), batch)
-                loss.backward()
-            multihost.all_reduce_grads(self.modules.parameters())
-            self.optimizer.step()
-            self.scheduler.step()
+                with span("mvp.probe.forward"):
+                    loss = self.loss_fn(self._forward(feats, train=True), batch)
+                with span("mvp.probe.backward"):
+                    loss.backward()
+            with span("mvp.engine.optimizer"):
+                multihost.all_reduce_grads(self.modules.parameters())
+                self.optimizer.step()
+                self.scheduler.step()
             self.step += 1
             losses.append(loss.detach())
             if logger and (i + 1) % _LOG_EVERY == 0:

@@ -18,6 +18,7 @@ import torch
 import torch.nn as nn
 
 from midvision_probe_torch.ops.image import resize
+from midvision_probe_torch.utils.profiling import span
 
 # the output modes of the feature contract
 OUTPUTS = ("cls", "gap", "dense", "dense-cls")
@@ -180,7 +181,8 @@ class FeatureExtractor:
         """images NHWC -> (feature maps, cls tokens), one of each per tap (a
         cls token is None without one); one counted forward."""
         FeatureExtractor.forward_count += 1
-        return self._apply_fn(images.to(self.device))
+        with span("mvp.backbone"):
+            return self._apply_fn(images.to(self.device))
 
     def __call__(self, images: torch.Tensor):
         """images NHWC (normalized) -> feature map(s) per the contract."""

@@ -52,6 +52,7 @@ from midvision_probe_torch.ops.attention import multi_head_attention
 from midvision_probe_torch.ops.image import resize
 from midvision_probe_torch.ops.rope2d import rope_2d
 from midvision_probe_torch.ops.vit_attention import FUSED_HEAD_DIMS, fused_qkv_attention
+from midvision_probe_torch.utils.profiling import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -166,14 +167,15 @@ class Mlp(nn.Module):
         self.fc2 = nn.Linear(hidden, cfg.width)
 
     def forward(self, x):
-        x = self.fc1(x)
-        if self.act == "quickgelu":  # openai CLIP: x * sigmoid(1.702 x)
-            x = x * torch.sigmoid(1.702 * x)
-        elif self.act == "gelu_tanh":  # SigLIP: tanh-approx gelu at any dtype
-            x = F.gelu(x, approximate="tanh")
-        else:
-            x = gelu(x)  # erf in f32, tanh in bf16
-        return self.fc2(x)
+        with span("mvp.backbone.mlp"):
+            x = self.fc1(x)
+            if self.act == "quickgelu":  # openai CLIP: x * sigmoid(1.702 x)
+                x = x * torch.sigmoid(1.702 * x)
+            elif self.act == "gelu_tanh":  # SigLIP: tanh-approx gelu at any dtype
+                x = F.gelu(x, approximate="tanh")
+            else:
+                x = gelu(x)  # erf in f32, tanh in bf16
+            return self.fc2(x)
 
 
 def _rel_pos_index(window: tuple[int, int]) -> np.ndarray:
@@ -213,30 +215,31 @@ class Attention(nn.Module):
                 _rel_pos_index((h, w))), persistent=False)
 
     def forward(self, x, pos_2d=None, grid_hw=None):
-        c = self.cfg
-        B, N, C = x.shape
-        scale = c.head_dim**-0.5
-        qkv = self.qkv(x).reshape(B, N, 3, c.num_heads, c.head_dim)
-        if self.fused:
-            return self.proj(fused_qkv_attention(qkv, scale).reshape(B, N, C))
+        with span("mvp.backbone.attention"):
+            c = self.cfg
+            B, N, C = x.shape
+            scale = c.head_dim**-0.5
+            qkv = self.qkv(x).reshape(B, N, 3, c.num_heads, c.head_dim)
+            if self.fused:
+                return self.proj(fused_qkv_attention(qkv, scale).reshape(B, N, C))
 
-        q, k, v = qkv.permute(2, 0, 3, 1, 4).unbind(0)  # (B, H, N, d) views
-        if c.rope and pos_2d is not None:
-            # rotate patch tokens only; prefix tokens are left untouched
-            p = c.num_prefix_tokens
-            q_pat = rope_2d(q[:, :, p:], pos_2d, base=c.rope_base)
-            k_pat = rope_2d(k[:, :, p:], pos_2d, base=c.rope_base)
-            q = torch.cat([q[:, :, :p], q_pat], dim=2) if p else q_pat
-            k = torch.cat([k[:, :, :p], k_pat], dim=2) if p else k_pat
-        bias = None
-        if c.rel_pos_bias:
-            if tuple(grid_hw) != tuple(c.table_grid):
-                raise ValueError(f"the relative-position bias tables are for a "
-                                 f"{c.table_grid} grid, got {grid_hw}")
-            # (N, N, H) -> (1, H, N, N), f32, added to the f32 scores
-            bias = self.rel_pos_bias_table.float()[self.rel_pos_index].permute(2, 0, 1)[None]
-        out = multi_head_attention(q, k, v, bias=bias, scale=scale)
-        return self.proj(out.transpose(1, 2).reshape(B, N, C))
+            q, k, v = qkv.permute(2, 0, 3, 1, 4).unbind(0)  # (B, H, N, d) views
+            if c.rope and pos_2d is not None:
+                # rotate patch tokens only; prefix tokens are left untouched
+                p = c.num_prefix_tokens
+                q_pat = rope_2d(q[:, :, p:], pos_2d, base=c.rope_base)
+                k_pat = rope_2d(k[:, :, p:], pos_2d, base=c.rope_base)
+                q = torch.cat([q[:, :, :p], q_pat], dim=2) if p else q_pat
+                k = torch.cat([k[:, :, :p], k_pat], dim=2) if p else k_pat
+            bias = None
+            if c.rel_pos_bias:
+                if tuple(grid_hw) != tuple(c.table_grid):
+                    raise ValueError(f"the relative-position bias tables are for a "
+                                     f"{c.table_grid} grid, got {grid_hw}")
+                # (N, N, H) -> (1, H, N, N), f32, added to the f32 scores
+                bias = self.rel_pos_bias_table.float()[self.rel_pos_index].permute(2, 0, 1)[None]
+            out = multi_head_attention(q, k, v, bias=bias, scale=scale)
+            return self.proj(out.transpose(1, 2).reshape(B, N, C))
 
 
 class Block(nn.Module):

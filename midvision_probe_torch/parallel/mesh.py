@@ -12,6 +12,7 @@ import torch
 import torch.distributed as dist
 
 from midvision_probe_torch.parallel import multihost
+from midvision_probe_torch.utils.profiling import span
 
 
 def check_num_devices(num_devices: int | None = -1) -> int:
@@ -45,5 +46,6 @@ def replicate(module: torch.nn.Module, src: int = 0) -> torch.nn.Module:
 def shard_batch(batch: dict, device) -> dict:
     """The rank's local batch (its loader shard) on its device: the arrays
     of a loader batch as tensors on ``device``, other entries dropped."""
-    return {k: torch.as_tensor(v).to(device, non_blocking=True)
-            for k, v in batch.items() if isinstance(v, (np.ndarray, torch.Tensor))}
+    with span("mvp.engine.h2d"):
+        return {k: torch.as_tensor(v).to(device, non_blocking=True)
+                for k, v in batch.items() if isinstance(v, (np.ndarray, torch.Tensor))}

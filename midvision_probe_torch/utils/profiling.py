@@ -1,6 +1,19 @@
 """Profiling and timing (counterpart of the JAX package's
 ``utils/profiling.py``): a ``torch.profiler`` trace written as a Chrome
-trace, a step timer that waits for the card, and the card's memory use."""
+trace, the program's own spans, a step timer that waits for the card, and
+the card's memory use.
+
+The spans (``SPANS``, entered through ``span``) mark where the port's work
+happens: the batch's copy to the card, the probe's forward, backward and
+optimiser step, the backbone's forward and, in each ViT block, its
+attention and its MLP. Anyone who traces the port sees them, on the same
+clock as the device's kernels: under ``trace()`` (Perfetto or
+``chrome://tracing`` open its file) or any other ``torch.profiler``
+session. A span is a ``cpu_op`` event, not a user annotation, so the
+profiler mirrors no copy of it onto the device's timeline. With the
+profiler off a span is a shared null context: the profiler being on is the
+only switch.
+"""
 
 from __future__ import annotations
 
@@ -11,6 +24,32 @@ import time
 from typing import Callable
 
 import torch
+from torch._C._profiler import _RecordFunctionFast
+from torch.autograd import _profiler_enabled
+
+# the port's spans, outermost first where they nest
+SPANS = (
+    "mvp.engine.h2d",  # parallel/mesh.shard_batch: a loader batch to the card
+    "mvp.probe.forward",  # ProbeTrainer.train_epoch: tap norms, probe and loss
+    "mvp.probe.backward",  # ProbeTrainer.train_epoch: loss.backward()
+    "mvp.engine.optimizer",  # ProbeTrainer.train_epoch: all-reduce, AdamW, schedule
+    "mvp.backbone",  # FeatureExtractor.outputs: one backbone forward
+    "mvp.backbone.attention",  # models/vit.py Attention.forward: qkv, attention, proj
+    "mvp.backbone.mlp",  # models/vit.py Mlp.forward: fc1, activation, fc2
+)
+_NULL = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A context that records ``name`` (one of ``SPANS``) as a span while a
+    profiler is on, and the shared null context while none is. It neither
+    waits for the card nor launches anything, so it may sit inside a CUDA
+    graph's capture (recorded once, at capture)."""
+    if not _profiler_enabled():
+        return _NULL
+    if name not in SPANS:
+        raise KeyError(f"{name!r} is not one of profiling.SPANS")
+    return _RecordFunctionFast(name)
 
 
 @contextlib.contextmanager
